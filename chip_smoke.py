@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card::
 It needs one card, no network and no jax.  Steps:
 
 1. Print the card's ``name, power.limit`` (``nvidia-smi``), refuse to run
-   without CUDA, and build the Hopper kernels (``kaptive_tpu_torch/csrc/swg.cu``,
-   nvcc into ``build/``) and the native host library, printing build seconds.
+   without CUDA, and build the Hopper kernels (``kaptive_tpu_torch/csrc/swg.cu``
+   and ``csrc/scan.cu``, one nvcc each, started together, into ``build/``) and
+   the native host library, printing build seconds.
 2. Build bench.py's workload: a 140-locus x 18-gene synthetic database and
    eight 5.3 Mb assemblies, two per composition class (clean, diverged,
    fragmented, draft), from seed 2026.
@@ -24,14 +25,23 @@ It needs one card, no network and no jax.  Steps:
    measured pass are re-run through each kernel and its plain version on the
    card: every SwgResult field must be equal, and the traceback bits on the
    rows each query reaches.  Both are timed with CUDA events.
+6. The same 8 assemblies are typed device-seeded (``KAPTIVE_SEED_MODE=device``)
+   on ``cuda``: a priming pass, then a measured pass with the counts set to 0
+   just before and read just after.  All 8 calls must be correct and every
+   KaptiveRow equal the host-seeded pass's; the row-compact scan and the SWG
+   kernels must have launched, the plain scan not.  Prints the phase table,
+   asm/s and the peak device memory.  The pass's largest scan batch is re-run
+   through the scan kernel and its plain version: ``hashes``, ``aux`` and
+   ``counts`` must be equal; both are timed with CUDA events.
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-6. bench.py's full 32 assemblies, typed in stream batches of 32 and of 8,
-   three timed passes each after a priming pass (every pass and the median
-   printed), and one more batch-32 pass under ``torch.profiler`` for the
-   card's busy share and its time per kernel.
-7. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+7. bench.py's full 32 assemblies, host- and then device-seeded, typed in
+   stream batches of 32 and of 8, three timed passes each after a priming
+   pass (every pass and the median printed), and for each mode one more
+   batch-32 pass under ``torch.profiler`` for the card's busy share and its
+   time per kernel.
+8. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
    ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
    times, and band cells per second of the fill.
 
@@ -47,6 +57,7 @@ import os
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -89,6 +100,41 @@ class _BucketRecorder:
         if kept is None or size > kept[0]:
             self.buckets[kw["gap_open"]] = (size, args, dict(kw))
         return self.inner(*args, **kw)
+
+
+class _ScanRecorder:
+    """Wraps the mapper's ``rowcompact_scan`` to keep the largest scan batch."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.largest = None
+
+    def __call__(self, codes, k, w):
+        if self.largest is None or codes.numel() > self.largest[0].numel():
+            self.largest = (codes, k, w)
+        return self.inner(codes, k, w)
+
+
+def _check_scan(codes, k: int, w: int) -> dict:
+    """Scan kernel vs plain version on one recorded batch; returns times and the largest difference."""
+    import torch
+
+    from kaptive_tpu_torch.ops.scan import rowcompact_scan_plain
+    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
+
+    got = rowcompact_scan_cuda(codes, k, w)
+    want = rowcompact_scan_plain(codes, k, w)
+    torch.cuda.synchronize()
+    max_err = max(int((g.long() - p.long()).abs().max()) for g, p in zip(got, want))
+    if max_err != 0 or any(g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
+        raise AssertionError(f"scan batch: kernel and plain version differ (max |diff| {max_err})")
+    times = {"ms": _timed(lambda: rowcompact_scan_cuda(codes, k, w), 20),
+             "plain_ms": _timed(lambda: rowcompact_scan_plain(codes, k, w), 2)}
+    B, r_pad, _ = codes.shape
+    print(f"# scan batch (B, rows) = ({B}, {r_pad - 16}), {int(got[2].sum())} minimizers, max row count "
+          f"{int(got[2].max())}: kernel == plain on hashes, aux, counts; kernel {times['ms']:.4f} ms, "
+          f"plain {times['plain_ms']:.4f} ms", flush=True)
+    return {"max_abs_err": max_err, "shape": (B, r_pad - 16), **times}
 
 
 def _check_bucket(label: str, args, kw) -> dict:
@@ -205,32 +251,37 @@ def measure(card: str) -> None:
 
     db, assemblies = build_workload(MEASURE_ASSEMBLIES)
     serotyper = Serotyper(db, device="cuda")
-    type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)  # priming pass
-    for batch in (MEASURE_ASSEMBLIES, 8):
-        rates = []
-        for _ in range(MEASURE_PASSES):
-            reset_phases()
-            _, seconds = type_all(serotyper, assemblies, batch)
-            rates.append(MEASURE_ASSEMBLIES / seconds)
-        print(f"# measure: {MEASURE_ASSEMBLIES} assemblies in stream batches of {batch}, "
-              f"{MEASURE_ASSEMBLIES}/{MEASURE_ASSEMBLIES} correct in each pass: "
-              f"{', '.join(f'{r:.3f}' for r in rates)} asm/s, median {statistics.median(rates):.3f} "
-              f"[{card}]; phase table of the last pass (host wall seconds):", flush=True)
-        phase_report(stream=sys.stdout)
-        sys.stdout.flush()
+    for mode in ("host", "device"):
+        os.environ["KAPTIVE_SEED_MODE"] = mode
+        type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)  # priming pass
+        for batch in (MEASURE_ASSEMBLIES, 8):
+            rates = []
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(MEASURE_PASSES):
+                reset_phases()
+                _, seconds = type_all(serotyper, assemblies, batch)
+                rates.append(MEASURE_ASSEMBLIES / seconds)
+            print(f"# measure, {mode}-seeded: {MEASURE_ASSEMBLIES} assemblies in stream batches of "
+                  f"{batch}, {MEASURE_ASSEMBLIES}/{MEASURE_ASSEMBLIES} correct in each pass: "
+                  f"{', '.join(f'{r:.3f}' for r in rates)} asm/s, median {statistics.median(rates):.3f}, "
+                  f"peak device memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB "
+                  f"[{card}]; phase table of the last pass (host wall seconds):", flush=True)
+            phase_report(stream=sys.stdout)
+            sys.stdout.flush()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, seconds = type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)
-    per_kernel: dict[str, list[float]] = {}
-    for event in prof.events():
-        if event.device_type == DeviceType.CUDA:
-            per_kernel.setdefault(event.name, []).append(event.device_time_total / 1e3)
-    busy_ms = sum(sum(v) for v in per_kernel.values())
-    print(f"# measure: profiled batch-{MEASURE_ASSEMBLIES} pass {seconds:.4f} s, card busy "
-          f"{busy_ms:.3f} ms = busy share {busy_ms / 1e3 / seconds:.5f} [{card}]; by device time:",
-          flush=True)
-    for name, times in sorted(per_kernel.items(), key=lambda kv: -sum(kv[1]))[:8]:
-        print(f"#   {sum(times):9.3f} ms  {len(times):4d} x  {name[:100]}", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, seconds = type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)
+        per_kernel: dict[str, list[float]] = {}
+        for event in prof.events():
+            if event.device_type == DeviceType.CUDA:
+                per_kernel.setdefault(event.name, []).append(event.device_time_total / 1e3)
+        busy_ms = sum(sum(v) for v in per_kernel.values())
+        print(f"# measure, {mode}-seeded: profiled batch-{MEASURE_ASSEMBLIES} pass {seconds:.4f} s, "
+              f"card busy {busy_ms:.3f} ms = busy share {busy_ms / 1e3 / seconds:.5f} [{card}]; "
+              "by device time:", flush=True)
+        for name, times in sorted(per_kernel.items(), key=lambda kv: -sum(kv[1]))[:10]:
+            print(f"#   {sum(times):9.3f} ms  {len(times):4d} x  {name[:100]}", flush=True)
+    os.environ["KAPTIVE_SEED_MODE"] = "host"
 
     rng = np.random.default_rng(SEED)
     for alpha, B, rows_max, w_pad in SYNTHETIC_BUCKETS:
@@ -264,21 +315,25 @@ def main() -> int:
     from kaptive_tpu.utils.metrics import reset_metrics, snapshot
     from kaptive_tpu.utils.profiling import phase_report, reset_phases
     from kaptive_tpu_torch.core import pairwise
-    from kaptive_tpu_torch.ops import swg_cuda
+    from kaptive_tpu_torch.ops import mapper, scan_cuda, swg_cuda
     from kaptive_tpu_torch.serotyping import Serotyper
     from kaptive_tpu_torch.utils.device import card_info, require_cuda
 
     os.environ["KAPTIVE_PROFILE"] = "1"
+    os.environ["KAPTIVE_SEED_MODE"] = "host"  # steps 3-5; step 6 is device-seeded
     require_cuda()
     card = card_info()
     kind = torch.cuda.get_device_name(0)
     print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    swg_cuda.build()
+    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, started together
+        for build in [pool.submit(m.build) for m in (swg_cuda, scan_cuda)]:
+            build.result()
     build_s = time.perf_counter() - t0
-    regs = [ln.strip() for ln in swg_cuda.BUILD_LOG.read_text().splitlines() if "registers" in ln]
-    print(f"# nvcc build of csrc/swg.cu: {build_s:.1f} s; ptxas: {' | '.join(regs)}", flush=True)
+    print(f"# nvcc builds of csrc/swg.cu and csrc/scan.cu (in parallel): {build_s:.1f} s", flush=True)
+    for m in (swg_cuda, scan_cuda):
+        print(f"# ptxas {m.LIBRARY.source.name}: {m.LIBRARY.ptxas_report()}", flush=True)
     t0 = time.perf_counter()
     from kaptive_tpu.native import hostio  # noqa: F401  (g++ build of native/hostio.cpp)
 
@@ -338,6 +393,45 @@ def main() -> int:
         _, args, kw = recorder.buckets[gap_open]
         checks[label] = _check_bucket(label, args, kw)
 
+    # Device-seeded mode on the same assemblies: its own priming and measured pass.
+    os.environ["KAPTIVE_SEED_MODE"] = "device"
+    _, prime_s = type_all(serotyper, assemblies, BATCH_SIZE)
+    print(f"# device-seeded priming pass: {N_ASSEMBLIES}/{N_ASSEMBLIES} correct in {prime_s:.2f} s", flush=True)
+    scans = _ScanRecorder(mapper.rowcompact_scan)
+    mapper.rowcompact_scan = scans
+    reset_phases()
+    reset_metrics()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        dev_results, dev_elapsed = type_all(serotyper, assemblies, BATCH_SIZE)
+    finally:
+        mapper.rowcompact_scan = scans.inner
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    dev_counts = snapshot()
+    os.environ["KAPTIVE_SEED_MODE"] = "host"
+    scan_launches = dev_counts.get("scan.cuda.rowcompact", 0)
+    dev_swg = {name: dev_counts.get(f"swg.cuda.{name}", 0) for name in ("fill", "traceback")}
+    print(f"# device-seeded measured pass: {N_ASSEMBLIES}/{N_ASSEMBLIES} correct in {dev_elapsed:.3f} s = "
+          f"{N_ASSEMBLIES / dev_elapsed:.3f} assemblies/s on [{card}]; peak device memory "
+          f"{peak_mb:.1f} MB", flush=True)
+    print(f"# counts in the device-seeded pass: {dict(sorted(dev_counts.items()))}", flush=True)
+    if scan_launches == 0 or dev_counts.get("scan.plain.rowcompact", 0) != 0:
+        raise AssertionError(f"device-seeded pass did not scan on the kernel: {dev_counts}")
+    if min(dev_swg.values()) == 0 or dev_counts.get("swg.plain.fill", 0) != 0:
+        raise AssertionError(f"device-seeded pass did not run the SWG kernels: {dev_counts}")
+    for a, host_r, dev_r in zip(assemblies, results, dev_results):
+        if bytes(KaptiveRow.from_result(host_r)) != bytes(KaptiveRow.from_result(dev_r)):
+            raise AssertionError(f"{a[0]}: device-seeded and host-seeded rows differ")
+    print(f"# device-seeded rows == host-seeded rows on {N_ASSEMBLIES}/{N_ASSEMBLIES} assemblies "
+          "(KaptiveRow bytes)", flush=True)
+    print(f"# phase table of the device-seeded measured pass (wall seconds on the host clock, [{card}]):",
+          flush=True)
+    phase_report(stream=sys.stdout)
+    sys.stdout.flush()
+    if scans.largest is None:
+        raise AssertionError("no scan batch was recorded in the device-seeded pass")
+    scan_check = _check_scan(*scans.largest)
+
     if opts.measure:
         measure(card)
 
@@ -357,10 +451,14 @@ def main() -> int:
          "max_abs_err": max(ext["max_abs_err"], prot["max_abs_err"]),
          "ms": ext["traceback_ms"], "plain_ms": ext["traceback_plain_ms"],
          "protein_ms": prot["traceback_ms"], "protein_plain_ms": prot["traceback_plain_ms"]},
+        {"name": "rowcompact_scan", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
+         "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": scan_launches,
+         "max_abs_err": scan_check["max_abs_err"], "ms": scan_check["ms"], "plain_ms": scan_check["plain_ms"]},
     ]
-    print(f"# ms / plain_ms: extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
-          f"protein bucket {prot['shape']} (B, rows_max, w_pad); {N_ASSEMBLIES / elapsed:.3f} "
-          f"assemblies/s [{card}]", flush=True)
+    print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
+          f"protein bucket {prot['shape']} (B, rows_max, w_pad); scan on the batch {scan_check['shape']} "
+          f"(B, rows); {N_ASSEMBLIES / elapsed:.3f} asm/s host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} "
+          f"device-seeded [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,4 +1,4 @@
-r"""kaptive-tpu on PyTorch and CUDA: the locus-typing main path for one NVIDIA H100.
+r"""kaptive-tpu on PyTorch and CUDA: the locus-typing path for one NVIDIA H100.
 
 A second package beside :mod:`kaptive_tpu` (the JAX reference, left as it is).
 It imports ``torch`` and never ``jax``.  Sub-layout and names follow the JAX
@@ -7,9 +7,14 @@ package so each counterpart is easy to find:
 - :mod:`kaptive_tpu_torch.ops.swg` — banded Smith-Waterman-Gotoh front door
   and its plain PyTorch version; :mod:`kaptive_tpu_torch.ops.swg_cuda` binds
   the hand-written Hopper kernels in ``csrc/swg.cu``.
+- :mod:`kaptive_tpu_torch.ops.scan` — the row-compact minimizer scan's front
+  door and plain version; :mod:`kaptive_tpu_torch.ops.scan_cuda` binds its
+  Hopper kernel in ``csrc/scan.cu``.
 - :mod:`kaptive_tpu_torch.ops.minimizer` / :mod:`kaptive_tpu_torch.ops.mapper`
-  — the host-seeded mapper (native C seeding and numpy chaining on the CPU,
-  extension DP on the card).
+  — the mapper, host-seeded (native C seeding and numpy chaining on the CPU,
+  extension DP on the card) or device-seeded (``KAPTIVE_SEED_MODE=device``:
+  scan, match and chain on the card too).
+- :mod:`kaptive_tpu_torch.utils.nvcc` — builds ``csrc/*.cu`` at first use.
 - :mod:`kaptive_tpu_torch.core.pairwise` — the batched protein aligner.
 - :mod:`kaptive_tpu_torch.serotyping` — the ``Serotyper`` twin.
 - :mod:`kaptive_tpu_torch.parallel.pipeline` — ``stream_type``.

@@ -1,11 +1,14 @@
-r"""Host minimizer scan and per-assembly contig index (host half of ``kaptive_tpu.ops.minimizer``).
+r"""Host minimizer scan, contig index and upload packing (counterpart of ``kaptive_tpu.ops.minimizer``).
 
 Re-homed unchanged from the JAX module, which imports ``jax`` at the top: the
 2-bit DNA encoding, the sentinel-separated flat code stream, the numpy
 minimizer scan (canonical k-mers, murmur3 finalizer hash, ``w``-window
-minimum, leftmost on ties) and :class:`ContigIndex`.  In host-seeded mode the
-assembly never goes to the device: the native C scan in ``native/hostio.cpp``
-seeds straight from :attr:`ContigIndex.codes`.
+minimum, leftmost on ties), :class:`ContigIndex` and the 2-bit packing of the
+device upload.  In host-seeded mode the assembly never goes to the device:
+the native C scan in ``native/hostio.cpp`` seeds straight from
+:attr:`ContigIndex.codes`.  In device-seeded mode the packed stream is
+uploaded and :func:`unpack_2bit_with_bits` (torch) restores the codes on the
+device for the row-compact scan (:mod:`kaptive_tpu_torch.ops.scan`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from kaptive_tpu.core.seq import Sequences
 
@@ -75,6 +79,40 @@ def concat_with_sentinels(
         flat[pos : pos + ln] = codes[offsets[i] : offsets[i] + ln]
         pos += ln + gap
     return flat, starts
+
+
+def pack_2bit(codes: np.ndarray) -> np.ndarray:
+    r"""Pack base codes 4 per byte, first position in the low bits (sentinels pack as 0).
+
+    The length must be a multiple of 4 (bucket padding guarantees it); the
+    sentinel mask travels separately (:func:`pack_valid_bits`, or the sparse
+    exception list).
+    """
+    clean = np.where(codes < 4, codes, 0).astype(np.uint8)
+    quads = clean.reshape(-1, 4)
+    return (
+        quads[:, 0] | (quads[:, 1] << 2) | (quads[:, 2] << 4) | (quads[:, 3] << 6)
+    ).astype(np.uint8)
+
+
+def pack_valid_bits(codes: np.ndarray) -> np.ndarray:
+    r"""Bit-pack the validity mask (code < 4) 8 positions per byte (LSB first)."""
+    valid = (codes < SENTINEL).astype(np.uint8)
+    return np.packbits(valid.reshape(-1, 8), axis=-1, bitorder="little").reshape(-1)
+
+
+def unpack_2bit_with_bits(packed: torch.Tensor, valid_bits: torch.Tensor, length: int) -> torch.Tensor:
+    r"""2-bit codes + bit-packed validity mask -> (..., length) uint8 codes, on their device.
+
+    Batched over leading dimensions: ``packed`` is (..., length/4) and
+    ``valid_bits`` (..., length/8) uint8.
+    """
+    p = packed.to(torch.uint8)
+    lead = p.shape[:-1]
+    quads = torch.stack([p & 3, (p >> 2) & 3, (p >> 4) & 3, (p >> 6) & 3], -1).reshape(*lead, length)
+    vb = valid_bits.to(torch.uint8)
+    bits = torch.stack([(vb >> i) & 1 for i in range(8)], -1).reshape(*lead, length)
+    return torch.where(bits == 1, quads, SENTINEL).to(torch.uint8)
 
 
 def minimizer_scan_host(codes: np.ndarray, k: int = DEFAULT_K, w: int = DEFAULT_W):
@@ -161,6 +199,8 @@ class ContigIndex:
 
     ``_cache["host_chains"]`` holds chains pre-seeded by the streaming ingest
     pool, keyed by the ``(GeneIndex, MapperParams)`` they were seeded against.
+    ``_cache["native_pack"]`` holds the native stream build's sparse upload
+    parts ``(packed, exceptions, real_len, n_exceptions)`` for device seeding.
     """
 
     codes: np.ndarray  # flat encoded contigs (with sentinels, bucket-padded)
@@ -180,14 +220,17 @@ class ContigIndex:
             from kaptive_tpu.native import hostio
         except ImportError:  # no C++ compiler: the numpy encode + concat builds the same stream
             flat, _ = concat_with_sentinels(encode_dna(contigs.seqs), contigs.offsets, contigs.lengths, k)
-        else:
-            # Native fused encode + sentinel-concat in one C pass.
-            total = int(contigs.lengths.sum()) + gap * max(len(starts) - 1, 0)
-            flat, *_ = hostio.build_contig_stream(
-                contigs.seqs, contigs.offsets, contigs.lengths, gap,
-                bucket_length(max(total, 1)), EXC_CAP,
-            )
-        return cls(flat, starts, contigs.lengths.astype(np.int64), k, w)
+            return cls(flat, starts, contigs.lengths.astype(np.int64), k, w)
+        # Native fused encode + sentinel-concat + 2-bit pack + exception scan
+        # in one C pass; the pack outputs seed the sparse device upload.
+        total = int(contigs.lengths.sum()) + gap * max(len(starts) - 1, 0)
+        flat, packed, exc, real, n_exc = hostio.build_contig_stream(
+            contigs.seqs, contigs.offsets, contigs.lengths, gap,
+            bucket_length(max(total, 1)), EXC_CAP,
+        )
+        ci = cls(flat, starts, contigs.lengths.astype(np.int64), k, w)
+        ci._cache["native_pack"] = (packed, exc, real, n_exc)
+        return ci
 
     @property
     def minimizers(self) -> MinimizerSet:

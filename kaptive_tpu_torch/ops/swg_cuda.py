@@ -2,9 +2,10 @@ r"""ctypes binding of the Hopper banded-SWG kernels (``csrc/swg.cu``).
 
 Replaces ``kaptive_tpu/ops/swg_pallas.py::_swg_fill_kernel`` (the band fill)
 and ``kaptive_tpu/ops/swg.py::_traceback`` (the walk back from the best
-cell).  The library is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into ``build/kaptive_tpu_torch/`` at the root
-of the checkout and loaded with ctypes; nothing is compiled at import.
+cell).  The library is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`,
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/kaptive_tpu_torch/``
+at the root of the checkout) and loaded with ctypes; nothing is compiled at
+import.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises
@@ -16,11 +17,6 @@ There is no fallback: what the kernels cannot take raises.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -28,69 +24,25 @@ import torch
 from kaptive_tpu.utils.metrics import count
 
 from kaptive_tpu_torch.ops.swg import SwgResult
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "swg.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kaptive_tpu_torch"
-LIBRARY = BUILD_DIR / "libkaptive_swg.so"
-BUILD_LOG = BUILD_DIR / "libkaptive_swg.nvcc.txt"  # nvcc's -Xptxas -v report
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/swg.cu")
+def _declare(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.kts_swg_max_w_pad.restype = i32
+    lib.kts_swg_max_w_pad.argtypes = []
+    lib.kts_swg_fill.restype = i32
+    lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
+    lib.kts_swg_traceback.restype = i32
+    lib.kts_swg_traceback.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 2
 
 
-def _compile() -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    BUILD_LOG.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
+LIBRARY = CudaLibrary("swg.cu", _declare)
 
 
 def build() -> ctypes.CDLL:
     r"""Compile (when the source is newer than the library) and load the kernels."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            if not LIBRARY.exists() or LIBRARY.stat().st_mtime < SOURCE.stat().st_mtime:
-                _compile()
-            lib = ctypes.CDLL(str(LIBRARY))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.kts_swg_max_w_pad.restype = i32
-            lib.kts_swg_max_w_pad.argtypes = []
-            lib.kts_swg_fill.restype = i32
-            lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
-            lib.kts_swg_traceback.restype = i32
-            lib.kts_swg_traceback.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 2
-            _lib = lib
-    return _lib
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got {x.device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+    return LIBRARY.load()
 
 
 def swg_fill_cuda(
@@ -117,11 +69,11 @@ def swg_fill_cuda(
     lib = build()
     B = q_codes.shape[0]
     T = t_codes.shape[1] if t_codes.dim() == 2 else -1
-    _check("q_codes", q_codes, torch.uint8, (B, rows_max), device)
-    _check("t_codes", t_codes, torch.uint8, (B, T), device)
+    check_tensor("q_codes", q_codes, torch.uint8, (B, rows_max), device)
+    check_tensor("t_codes", t_codes, torch.uint8, (B, T), device)
     for name, x in (("q_lens", q_lens), ("t_lens", t_lens), ("offsets", offsets), ("k_locals", k_locals)):
-        _check(name, x, torch.int32, (B,), device)
-    _check("matrix", matrix, torch.int8, (256, 256), device)
+        check_tensor(name, x, torch.int32, (B,), device)
+    check_tensor("matrix", matrix, torch.int8, (256, 256), device)
     if matrix.data_ptr() % 16:
         raise ValueError("matrix: expected a 16-byte aligned tensor")
     if not 3 <= w_pad <= lib.kts_swg_max_w_pad():
@@ -166,11 +118,11 @@ def swg_traceback_cuda(
     lib = build()
     B = q_codes.shape[0]
     T = t_codes.shape[1] if t_codes.dim() == 2 else -1
-    _check("tb", tb, torch.uint8, (B, rows_max, w_pad), device)
-    _check("q_codes", q_codes, torch.uint8, (B, rows_max), device)
-    _check("t_codes", t_codes, torch.uint8, (B, T), device)
+    check_tensor("tb", tb, torch.uint8, (B, rows_max, w_pad), device)
+    check_tensor("q_codes", q_codes, torch.uint8, (B, rows_max), device)
+    check_tensor("t_codes", t_codes, torch.uint8, (B, T), device)
     for name, x in (("best", best), ("best_i", best_i), ("best_j", best_j), ("offsets", offsets)):
-        _check(name, x, torch.int32, (B,), device)
+        check_tensor(name, x, torch.int32, (B,), device)
     out = torch.empty((8, B), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.kts_swg_traceback(

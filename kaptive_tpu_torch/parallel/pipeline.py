@@ -1,11 +1,16 @@
-r"""Streaming batch typing: host ingest and seeding overlapped with device compute.
+r"""Streaming batch typing: host ingest overlapped with device compute.
 
-Counterpart of :mod:`kaptive_tpu.parallel.pipeline` in host-seeded mode.  A
-thread pool parses each assembly, builds its :class:`ContigIndex` and seeds
-and chains it against the DB gene table (the native C scan releases the
-GIL) while the card works on the batch before.  ``map_batch`` runs on one
-worker thread and overlaps ``finish_batch`` of the batch before it on the
-calling thread; results stream in input order.
+Counterpart of :mod:`kaptive_tpu.parallel.pipeline`.  A thread pool parses
+each assembly and builds its :class:`ContigIndex` while the card works on the
+batch before; then, by :func:`resolve_seed_mode`:
+
+- host seeding: the pool seeds and chains the assembly against the DB gene
+  table (the native C scan releases the GIL);
+- device seeding: the pool builds the assembly's upload form and copies it to
+  the card, returning once the copy has landed (``ingest.h2d_wait``).
+
+``map_batch`` runs on one worker thread and overlaps ``finish_batch`` of the
+batch before it on the calling thread; results stream in input order.
 """
 
 from __future__ import annotations
@@ -16,33 +21,46 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import IO
 
+import torch
+
 from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.utils.profiling import phase_timer
 
-from kaptive_tpu_torch.ops.mapper import host_seed_chains
+from kaptive_tpu_torch.ops.mapper import device_inputs, host_seed_chains, resolve_seed_mode, upload_form
 from kaptive_tpu_torch.ops.minimizer import ContigIndex
 
 Ingested = tuple[GenomeAssembly, ContigIndex]
+PreSeed = Callable[[ContigIndex], tuple]
 PREFETCH_BATCHES = 2  # batches ingested ahead of the one the consumer holds
 
 
-def _load_and_index(path: str | Path | IO[bytes], pre_seed: Callable[[ContigIndex], tuple]) -> Ingested:
+def _load_and_index(path: str | Path | IO[bytes], pre_seed: PreSeed | None, upload_to: torch.device | None) -> Ingested:
     with phase_timer("ingest.parse_pack"):
         ga = GenomeAssembly.ensure(path)
         ci = ContigIndex.build(ga.contigs)
-        # Seed and chain here on the pool; the mapping phase finds the chains
-        # ready.  The entry is keyed by (gene_index, params).
-        ci._cache["host_chains"] = pre_seed(ci)
+        if pre_seed is not None:
+            # Seed and chain here on the pool; the mapping phase finds the
+            # chains ready.  The entry is keyed by (gene_index, params).
+            ci._cache["host_chains"] = pre_seed(ci)
+        elif upload_to is not None:
+            upload_form(ci)  # the host half of the upload
+    if upload_to is not None:
+        with phase_timer("ingest.h2d_wait"):
+            device_inputs(ci, upload_to)
     return ga, ci
 
 
 def stream_batches(
     genomes: Iterable[str | Path | IO[bytes]],
-    pre_seed: Callable[[ContigIndex], tuple],
     batch_size: int,
+    *,
+    pre_seed: PreSeed | None = None,
+    upload_to: torch.device | None = None,
 ) -> Iterator[list[Ingested]]:
-    r"""Yield ingested, pre-seeded ``(assembly, contig index)`` batches, prefetching
-    ahead of the consumer.  ``pre_seed(ci)`` returns the ``host_chains`` entry."""
+    r"""Yield ingested ``(assembly, contig index)`` batches, prefetching ahead of
+    the consumer.  ``pre_seed(ci)`` returns the ``host_chains`` entry (host
+    seeding); ``upload_to`` is the device each assembly's upload form is
+    copied to (device seeding)."""
     genome_list = list(genomes)
     if not genome_list:
         return
@@ -56,14 +74,14 @@ def stream_batches(
     # Ingest is CPU work with no blocking waits: size the pool to the machine.
     with ThreadPoolExecutor(max_workers=max(2, min(16, os.cpu_count() or 8))) as pool:
         pending = [
-            [pool.submit(_load_and_index, g, pre_seed) for g in groups[gi]]
+            [pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[gi]]
             for gi in range(min(PREFETCH_BATCHES + 1, len(groups)))
         ]
         next_submit = len(pending)
         for _ in range(len(groups)):
             futures = pending.pop(0)
             if next_submit < len(groups):
-                pending.append([pool.submit(_load_and_index, g, pre_seed) for g in groups[next_submit]])
+                pending.append([pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[next_submit]])
                 next_submit += 1
             yield [f.result() for f in futures]
 
@@ -77,17 +95,21 @@ def stream_type(
 
     Two-stage pipeline: batch k+1's ``Serotyper.map_batch`` (one worker
     thread) overlaps batch k's ``Serotyper.finish_batch`` (this thread).  The
-    ingest pool pre-seeds every assembly against the serotyper's gene index.
+    ingest pool pre-seeds every assembly against the serotyper's gene index
+    in host mode, and pre-uploads it to the serotyper's device in device mode.
     """
-    gene_index = serotyper.gene_index
-    mp = serotyper.mapper_params
-    gene_index.host_bloom  # build once before the pool fans out
-    gene_index.host_buckets
+    if resolve_seed_mode() == "host":
+        gene_index = serotyper.gene_index
+        mp = serotyper.mapper_params
+        gene_index.host_bloom  # build once before the pool fans out
+        gene_index.host_buckets
 
-    def pre_seed(ci: ContigIndex) -> tuple:
-        return gene_index, mp, host_seed_chains(gene_index, ci, mp)
+        def pre_seed(ci: ContigIndex) -> tuple:
+            return gene_index, mp, host_seed_chains(gene_index, ci, mp)
 
-    batches = stream_batches(genomes, pre_seed, batch_size)
+        batches = stream_batches(genomes, batch_size, pre_seed=pre_seed)
+    else:
+        batches = stream_batches(genomes, batch_size, upload_to=serotyper.device)
     with ThreadPoolExecutor(max_workers=1) as device_stage:
         pending = None  # future over map_batch for the batch ahead
         for batch in batches:

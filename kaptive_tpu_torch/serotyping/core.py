@@ -1,13 +1,14 @@
 r"""The serotyping engine on PyTorch: map, score, reconstruct, classify, phenotype, call.
 
 Twin of :class:`kaptive_tpu.serotyping.core.Serotyper` with the same knobs and
-decision semantics.  The mapping phase is the port's host-seeded mapper
-(:mod:`kaptive_tpu_torch.ops.mapper`) and the protein-identity DP is the
+decision semantics.  The mapping phase is the port's mapper
+(:mod:`kaptive_tpu_torch.ops.mapper`, host- or device-seeded as
+``KAPTIVE_SEED_MODE`` resolves) and the protein-identity DP is the
 port's :class:`~kaptive_tpu_torch.core.pairwise.PairwiseAligner`, both on an
 explicit ``device`` (CUDA by default).  The decision phases are the JAX
 package's numpy modules, reused through :mod:`kaptive_tpu_torch._reuse`, and
 :meth:`Serotyper.finish_batch` is carried over line for line, so results equal
-the JAX ``Serotyper``'s in host-seeded mode.
+the JAX ``Serotyper``'s in the same seeding mode.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from kaptive_tpu_torch._reuse import (
     resolve_phenotypes,
 )
 from kaptive_tpu_torch.core.pairwise import PairwiseAligner
-from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch
+from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch, resolve_seed_mode
 from kaptive_tpu_torch.ops.minimizer import ContigIndex
 from kaptive_tpu_torch.ops.swg import SwgLattice
 from kaptive_tpu_torch.utils.device import resolve_device
@@ -129,7 +130,8 @@ class Serotyper:
 
         ``indexes`` are the assemblies' contig indexes when the caller built
         them (the streaming pipeline does, on its ingest pool, with chains
-        pre-seeded); otherwise they are built here.
+        pre-seeded or streams pre-uploaded); otherwise they are built here.
+        The seeding mode is :func:`resolve_seed_mode`'s.
         """
         if len(genomes) == 0:
             return [], []
@@ -140,7 +142,7 @@ class Serotyper:
         with phase_timer("type.map"):
             alns_list = map_genes_batch(
                 self._gene_index, assemblies, self._gene_names, self.mapper_params,
-                indexes=indexes, device=self.device,
+                indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device,
             )
         return assemblies, alns_list
 

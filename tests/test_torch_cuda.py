@@ -1,4 +1,4 @@
-"""Hopper banded-SWG kernels vs their plain PyTorch version, on the card.
+"""Hopper kernels (banded SWG, row-compact scan) vs their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file imports
 only torch, numpy and the port; ``tests/conftest.py`` imports jax and sets it
@@ -6,13 +6,15 @@ up for the JAX package's CPU tests, so run this file on the card's machine
 with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
 
 Tolerance: exact.  The DP is integer arithmetic; every SwgResult field and
-every traceback byte on rows the query reaches must be equal.
+every traceback byte on rows the query reaches must be equal.  The scan's
+``hashes``, ``aux`` and ``counts`` must be equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from scan_panels import PANELS, random_stream
 from swg_panels import AA, NT, blosum_matrix, nt_matrix, random_swg_batch
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +98,89 @@ def test_fill_rejects_too_wide_band(device):
     with pytest.raises(ValueError, match="w_pad"):
         swg_fill_cuda(*args, as_kernel_matrix(nt_matrix(), device),
                       gap_open=4, gap_extend=2, rows_max=64, w_pad=16384)
+
+
+@pytest.fixture(scope="module")
+def scan_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kaptive_tpu_torch.ops import scan_cuda
+
+    scan_cuda.build()
+    print(f"scan.cu ptxas: {scan_cuda.LIBRARY.ptxas_report()}")
+    return torch.device("cuda", 0)
+
+
+SCAN_CASES = [(name, B) for name in PANELS for B in (1, 3)] + [("bench-rows-45056", 1), ("bench-rows-45056", 3)]
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=[f"{n}-B{b}" for n, b in SCAN_CASES])
+def test_scan_kernel_equals_plain(scan_device, case):
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any, rowcompact_scan_plain
+    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
+
+    name, B = case
+    rng = np.random.default_rng(sum(map(ord, name)) + B)
+    make = PANELS.get(name, lambda r: random_stream(r, 45056))
+    codes = torch.from_numpy(np.stack([pad_codes_for_scan_any(make(rng)) for _ in range(B)])).to(scan_device)
+    got = rowcompact_scan_cuda(codes, 15, 10)
+    want = rowcompact_scan_plain(codes, 15, 10)
+    torch.cuda.synchronize()
+    for field, g, w in zip(("hashes", "aux", "counts"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, field
+        assert torch.equal(g, w), field
+    if name == "poly-a-overflow":
+        assert int(got[2].max()) > 64
+
+
+def test_scan_front_door_routes_by_device(scan_device):
+    """A CUDA tensor reaches only the kernel, a CPU tensor only the plain version."""
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any, rowcompact_scan
+    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
+
+    codes = torch.from_numpy(pad_codes_for_scan_any(random_stream(np.random.default_rng(8), 96)))[None]
+    reset_metrics()
+    on_card = rowcompact_scan(codes.to(scan_device), 15, 10)
+    assert snapshot() == {"scan.cuda.rowcompact": 1}
+    reset_metrics()
+    on_cpu = rowcompact_scan(codes, 15, 10)
+    assert snapshot() == {"scan.plain.rowcompact": 1}
+    for g, w in zip(on_card, on_cpu):
+        assert torch.equal(g.cpu(), w)
+    with pytest.raises(ValueError, match="CUDA"):
+        rowcompact_scan_cuda(codes, 15, 10)
+
+
+def test_device_seeded_serotyper_on_card_equals_host(scan_device, monkeypatch, tmp_path):
+    """The typing panel on the card, device-seeded: KaptiveRow bytes equal host mode's,
+    and the scan ran on the kernel only."""
+    import io
+
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import TRUTH, make_typing_panel
+
+    from kaptive_tpu.serotyping.io import KaptiveRow
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.parallel import stream_type
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    db, genomes = make_typing_panel(tmp_path)
+    serotyper = Serotyper(db, device="cuda")
+
+    def rows(mode):
+        monkeypatch.setenv("KAPTIVE_SEED_MODE", mode)
+        batch = serotyper.batch([io.BytesIO(f) for _, f in genomes])
+        streamed = list(stream_type(serotyper, [io.BytesIO(f) for _, f in genomes], batch_size=2))
+        assert [r.best_locus_name for r in batch] == TRUTH
+        return [bytes(KaptiveRow.from_result(r)) for r in batch + streamed]
+
+    host = rows("host")
+    reset_metrics()
+    device = rows("device")
+    counts = snapshot()
+    assert device == host
+    assert counts.get("scan.cuda.rowcompact", 0) > 0 and "scan.plain.rowcompact" not in counts
+    assert counts.get("swg.cuda.fill", 0) > 0 and "swg.plain.fill" not in counts
+    assert counts.get("map.device_chained") == 2 * len(genomes)

@@ -1,5 +1,6 @@
 """The port never imports jax: a subprocess imports the port, types one small genome
-on the CPU and checks that no ``jax*`` module was loaded — once with every
+on the CPU in host- and in device-seeded mode and checks that no ``jax*``
+module was loaded — once with every
 ``jax*`` import blocked (a machine without jax) and once with jax importable
 (as on the GPU machine, where jax is installed but must stay unused).  In that
 process the JAX package's ``Serotyper`` raises an ImportError that names the cause."""
@@ -15,7 +16,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import importlib.abc, io, json, sys, tempfile
+import importlib.abc, io, json, os, sys, tempfile
 from pathlib import Path
 
 
@@ -36,7 +37,8 @@ from synthetic import make_genome_from_locus, make_synthetic_db
 
 torch.set_num_threads(1)  # the test runs beside other test processes
 
-import kaptive_tpu_torch.ops.swg_cuda  # noqa: F401  (first; the binding imports without a build)
+import kaptive_tpu_torch.ops.swg_cuda  # noqa: F401  (first; the bindings import without a build)
+import kaptive_tpu_torch.ops.scan_cuda  # noqa: F401
 from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.db import Database
 from kaptive_tpu_torch.parallel import stream_type
@@ -51,6 +53,10 @@ serotyper = Serotyper(db, device="cpu")
 result = serotyper(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))
 streamed = list(stream_type(serotyper, [io.BytesIO(fasta)], batch_size=1))
 row = bytes(KaptiveRow.from_result(result))
+os.environ["KAPTIVE_SEED_MODE"] = "device"
+device_rows = [bytes(KaptiveRow.from_result(r)) for r in
+               [serotyper(GenomeAssembly.from_stream(io.BytesIO(fasta), "g")),
+                *stream_type(serotyper, [io.BytesIO(fasta)], batch_size=1)]]
 try:
     from kaptive_tpu.serotyping import Serotyper as JaxSerotyper  # noqa: F401
     skipped_init = None
@@ -58,7 +64,8 @@ except ImportError as err:
     skipped_init = str(err)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 print(json.dumps({"locus": result.best_locus_name, "streamed": streamed[0].best_locus_name,
-                  "row_bytes": len(row), "skipped_init": skipped_init, "jax_modules": loaded}))
+                  "row_bytes": len(row), "device_rows_equal": device_rows == [row, bytes(KaptiveRow.from_result(streamed[0]))],
+                  "skipped_init": skipped_init, "jax_modules": loaded}))
 """
 
 
@@ -74,5 +81,6 @@ def test_port_types_without_jax(jax_import):
     assert out["jax_modules"] == []
     assert out["locus"] == "KL2" and out["streamed"] == "KL2"
     assert out["row_bytes"] > 0
+    assert out["device_rows_equal"]
     # The JAX package's own entry points say why they are missing.
     assert "kaptive_tpu_torch loaded 'kaptive_tpu.serotyping' as a bare package" in out["skipped_init"]

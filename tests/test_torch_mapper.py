@@ -1,9 +1,12 @@
-"""The port's host-seeded mapper and protein aligner vs the JAX package's.
+"""The port's mapper (host- and device-seeded) and protein aligner vs the JAX package's.
 
 The port's GeneIndex is built over the JAX GeneIndex's arrays (the DB gene
 table is the "weights" both compute on) and, independently, from the DB's
-genes.  Mapping runs on the CPU (plain PyTorch DP) against the JAX package's
-``map_genes_batch(..., seed_mode="host")``.  Tolerance: exact.
+genes.  Mapping runs on the CPU (plain PyTorch scan and DP) against the JAX
+package's ``map_genes_batch(..., seed_mode=...)``; the device mode's match
+and chain stages are held to ``_match_rows_batch`` and ``_chain_batch`` on
+their whole output buffers, and each host fallback of device mode to host
+mode's alignments.  Tolerance: exact.
 """
 
 import io
@@ -97,13 +100,165 @@ def test_map_genes_batch_equals_jax_host_mode(panel):
         assert_same(g, w)
 
 
-def test_device_seed_mode_is_not_ported(panel):
+def test_device_tables_equal_jax(panel):
+    from kaptive_tpu_torch.ops.mapper import GeneIndex
+
+    db, _ = panel
+    ref = db.gene_index
+    for gi in (GeneIndex.from_reference(ref), GeneIndex.build(db.genes)):
+        for got, want in zip(gi.device_table("cpu"), ref.device_table):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        bs, rl, iters = gi.device_lookup("cpu")
+        want_bs, want_rl, want_iters = ref.device_lookup
+        np.testing.assert_array_equal(bs.numpy(), np.asarray(want_bs))
+        np.testing.assert_array_equal(rl.numpy(), np.asarray(want_rl))
+        assert iters == want_iters
+        np.testing.assert_array_equal(gi.device_bloom("cpu").numpy().view(np.uint32), np.asarray(ref.device_bloom))
+        np.testing.assert_array_equal(gi.device_codes("cpu").numpy(), np.asarray(ref.device_codes))
+        np.testing.assert_array_equal(gi.device_gene_lengths("cpu").numpy(), np.asarray(ref.device_gene_lengths))
+
+
+def test_match_and_chain_stages_equal_jax(panel):
+    """Scan -> match -> chain on the panel batch: every output buffer equals the JAX stages'."""
+    import jax.numpy as jnp
+
+    from kaptive_tpu.ops import mapper as jm
+    from kaptive_tpu.ops.scan_pallas import pad_codes_for_scan_any, rowcompact_scan_xla
+
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.ops.scan import rowcompact_scan
+
+    db, assemblies = panel
+    ref = db.gene_index
+    gi = tm.GeneIndex.from_reference(ref)
+    params = tm.MapperParams()
+    indexes = [ContigIndex.build(ga.contigs) for ga in assemblies]
+    L = max(len(ci.codes) for ci in indexes)
+    padded = np.stack([pad_codes_for_scan_any(np.pad(ci.codes, (0, L - len(ci.codes)), constant_values=4))
+                       for ci in indexes])
+    starts = np.full((len(indexes), max(len(ci.starts) for ci in indexes)), 0x7FFFFFFF, np.int64)
+    for b, ci in enumerate(indexes):
+        starts[b, : len(ci.starts)] = ci.starts
+    max_occ = min(params.max_occ, tm.DEVICE_MAX_OCC)
+
+    h, a, c = rowcompact_scan_xla(jnp.asarray(padded), gi.k, gi.w)
+    bs, rl, iters = ref.device_lookup
+    want_anchors, want_counts = jm._match_rows_batch(
+        h, a, c, *ref.device_table, bs, rl, ref.device_bloom,
+        tm.CANDIDATE_CAP, tm.ANCHOR_CAP, iters, max_occ,
+    )
+    want_chains, want_counts2 = jm._chain_batch(
+        want_anchors, want_counts, jnp.asarray(starts.astype(np.int32)), ref.device_gene_lengths,
+        gi.k, tm.CHAIN_CAP, params.max_diag_drift, params.max_anchor_gap, params.min_anchors,
+    )
+
+    th, ta, tc = rowcompact_scan(torch.from_numpy(padded), gi.k, gi.w)
+    bs_t, rl_t, iters_t = gi.device_lookup("cpu")
+    anchors, counts = tm.match_rows_batch(
+        th, ta, tc, *gi.device_table("cpu"), bs_t, rl_t, gi.device_bloom("cpu"),
+        cap_cand=tm.CANDIDATE_CAP, cap_anchors=tm.ANCHOR_CAP, lookup_iters=iters_t, max_occ=max_occ,
+    )
+    np.testing.assert_array_equal(anchors.numpy(), np.asarray(want_anchors))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(want_counts))
+    assert int(counts[2].min()) > 0  # every genome has anchors
+    chains, counts2 = tm.chain_batch(
+        anchors, counts, torch.from_numpy(starts), gi.device_gene_lengths("cpu"),
+        k=gi.k, cap_chains=tm.CHAIN_CAP, max_diag_drift=params.max_diag_drift,
+        max_anchor_gap=params.max_anchor_gap, min_anchors=params.min_anchors,
+    )
+    np.testing.assert_array_equal(chains.numpy(), np.asarray(want_chains))
+    np.testing.assert_array_equal(counts2.numpy(), np.asarray(want_counts2))
+
+
+@pytest.fixture(scope="module")
+def jax_device_alignments(panel):
+    from kaptive_tpu.ops.mapper import map_genes_batch as jax_map
+
+    db, assemblies = panel
+    names = tuple(str(i) for i in range(len(db.genes)))
+    return jax_map(db.gene_index, assemblies, names, seed_mode="device")
+
+
+def test_map_genes_batch_device_mode_equals_jax_and_host(panel, jax_device_alignments):
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
     from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
 
     db, assemblies = panel
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        map_genes_batch(GeneIndex.from_reference(db.gene_index), assemblies[:1], ("0",),
-                        seed_mode="device", device="cpu")
+    names = tuple(str(i) for i in range(len(db.genes)))
+    gi = GeneIndex.from_reference(db.gene_index)
+    reset_metrics()
+    got = map_genes_batch(gi, assemblies, names, seed_mode="device", device="cpu")
+    counts = snapshot()
+    assert counts.get("map.device_chained") == len(assemblies)
+    assert counts.get("scan.plain.rowcompact") == 1
+    assert not any(key.startswith(("map.host_fallback", "map.host_seed")) for key in counts)
+    host = map_genes_batch(gi, assemblies, names, seed_mode="host", device="cpu")
+    for g, w, h in zip(got, jax_device_alignments, host, strict=True):
+        assert len(w) > 0
+        assert_same(g, w)
+        assert_same(g, h)
+
+
+def _with_insert(fasta: bytes, at: int, insert: bytes) -> bytes:
+    header, seq = fasta.split(b"\n", 1)
+    return header + b"\n" + seq[:at] + insert + seq[at:]
+
+
+FALLBACKS = {
+    # cause: (counter, module constants to shrink, sequence to insert)
+    "row_overflow": ("map.host_fallback.row_overflow", {}, b"A" * 400),
+    "candidates": ("map.host_fallback.candidates", {"CANDIDATE_CAP": 8}, b""),
+    "anchors": ("map.host_fallback.anchors", {"ANCHOR_CAP": 8}, b""),
+    "chains": ("map.host_fallback.chains", {"CHAIN_CAP": 4}, b""),
+    "dense_upload": ("map.dense_upload", {}, b"N" * 33000),
+}
+
+
+@pytest.mark.parametrize("cause", list(FALLBACKS))
+def test_device_mode_fallbacks_keep_host_rows(panel, monkeypatch, cause):
+    """Each overflow cause is counted and the genome's alignments equal host mode's."""
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import EXC_CAP
+
+    db, assemblies = panel
+    counter, caps, insert = FALLBACKS[cause]
+    genomes = [GenomeAssembly.from_stream(io.BytesIO(_with_insert(
+        b">c1\n" + assemblies[0].contigs.seqs.tobytes() + b"\n", 2000, insert)), "g0"), assemblies[1]]
+    assert cause != "dense_upload" or len(insert) > EXC_CAP
+    for name, value in caps.items():
+        monkeypatch.setattr(tm, name, value)
+    names = tuple(str(i) for i in range(len(db.genes)))
+    gi = tm.GeneIndex.from_reference(db.gene_index)
+    reset_metrics()
+    got = tm.map_genes_batch(gi, genomes, names, seed_mode="device", device="cpu")
+    counts = snapshot()
+    assert counts.get(counter, 0) >= 1, counts
+    if cause == "dense_upload":
+        assert counts.get("map.device_chained") == 2
+    else:
+        assert counts.get("map.host_chained", 0) >= 1
+    host = tm.map_genes_batch(gi, genomes, names, seed_mode="host", device="cpu")
+    for g, h in zip(got, host, strict=True):
+        assert len(h) > 0
+        assert_same(g, h)
+
+
+def test_resolve_seed_mode(monkeypatch):
+    from kaptive_tpu_torch.ops.mapper import resolve_seed_mode
+
+    monkeypatch.delenv("KAPTIVE_SEED_MODE", raising=False)
+    assert resolve_seed_mode() == "host"  # the native library builds here
+    assert resolve_seed_mode("device") == "device"
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
+    assert resolve_seed_mode() == "device"
+    assert resolve_seed_mode("host") == "host"
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "gpu")
+    with pytest.raises(ValueError, match="seed mode"):
+        resolve_seed_mode()
 
 
 @pytest.mark.parametrize("seeded", [False, True])

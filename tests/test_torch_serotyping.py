@@ -1,7 +1,8 @@
-"""The port's Serotyper and stream_type vs the JAX Serotyper in host-seeded mode.
+"""The port's Serotyper and stream_type vs the JAX Serotyper, host- and device-seeded.
 
-Both packages type the same assemblies against the same database; the port
-runs on the CPU (the plain PyTorch DP).  Tolerance: exact —
+Both packages type the same assemblies against the same database, in the
+seeding mode ``KAPTIVE_SEED_MODE`` names; the port runs on the CPU (the plain
+PyTorch scan and DP).  Tolerance: exact —
 ``SerotypingResult.to_dict()`` agrees field by field (NaN equals NaN) and the
 22-column KaptiveRow bytes are identical.
 """
@@ -40,6 +41,21 @@ def jax_results(panel):
     db, paths = panel
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("KAPTIVE_SEED_MODE", "host")
+        serotyper = Serotyper(db)
+        batch = serotyper.batch(list(paths))
+        streamed = list(stream_type(serotyper, list(paths), batch_size=2))
+    return batch, streamed
+
+
+@pytest.fixture(scope="module")
+def jax_device_results(panel):
+    """The JAX package's results, device-seeded: (batch, stream_type batch_size=2)."""
+    from kaptive_tpu.parallel.pipeline import stream_type
+    from kaptive_tpu.serotyping import Serotyper
+
+    db, paths = panel
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("KAPTIVE_SEED_MODE", "device")
         serotyper = Serotyper(db)
         batch = serotyper.batch(list(paths))
         streamed = list(stream_type(serotyper, list(paths), batch_size=2))
@@ -103,3 +119,49 @@ def test_serotyper_defaults_to_cuda(panel):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         Serotyper(panel[0])
+
+
+def _rows(results):
+    return [bytes(KaptiveRow.from_result(r)) for r in results]
+
+
+def test_device_mode_batch_equals_jax_and_host(panel, jax_results, jax_device_results, port_serotyper, monkeypatch):
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
+    reset_metrics()
+    got = port_serotyper.batch(list(panel[1]))
+    counts = snapshot()
+    _assert_results_equal(got, jax_device_results[0])
+    assert _rows(got) == _rows(jax_results[0])  # host-seeded rows, byte for byte
+    assert counts.get("map.device_chained") == len(got)
+    assert counts.get("scan.plain.rowcompact") == 1
+    assert not any(key.startswith(("map.host_seed", "map.host_fallback")) for key in counts)
+
+
+def test_device_mode_stream_type_equals_jax(panel, jax_results, jax_device_results, port_serotyper, monkeypatch):
+    """The ingest pool pre-uploads instead of pre-seeding: no chains are left on the indexes."""
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
+    from kaptive_tpu_torch.parallel.pipeline import stream_type
+
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
+    seen = []
+    map_batch = port_serotyper.map_batch
+
+    def spy(assemblies, indexes=None):
+        seen.extend(indexes)
+        return map_batch(assemblies, indexes)
+
+    monkeypatch.setattr(port_serotyper, "map_batch", spy)
+    reset_metrics()
+    got = list(stream_type(port_serotyper, list(panel[1]), batch_size=2))
+    counts = snapshot()
+    _assert_results_equal(got, jax_device_results[1])
+    assert _rows(got) == _rows(jax_results[1])
+    assert len(seen) == len(got)
+    for ci in seen:
+        assert "host_chains" not in ci._cache
+        assert ("device_inputs", "cpu") in ci._cache
+    assert counts.get("map.device_chained") == len(got)
+    assert not any(key.startswith("map.host_seed") for key in counts)
