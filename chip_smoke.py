@@ -34,16 +34,41 @@ It needs one card, no network and no jax.  Steps:
    through the scan kernel and its plain version: ``hashes``, ``aux`` and
    ``counts`` must be equal; both are timed with CUDA events.
 
+7. The command line: the database's GenBank file and the 8 FASTA files are
+   written to a temporary directory and ``python -m kaptive_tpu_torch.cli
+   type ... -o -j --pha4ge -l -g -p --batch-size 4 --device cuda --profile``
+   runs as a subprocess, host- then device-seeded.  Its TSV must equal the
+   in-process rows of step 3 byte for byte, every call must be correct, the
+   counters ``--profile`` prints must show the kernels launched and no plain
+   version, and ``convert`` of its JSONL must reproduce the TSV.  Prints the
+   wall seconds of each run beside the card.
+8. Screen mode: ``Serotyper.screen`` on the 8 assemblies on ``cuda``, three
+   timed passes with the counts set to 0 just before and read just after
+   each (the scan kernel must launch, the plain scan not), then the batch is
+   screened again on the card and on the CPU: ``best`` and the tallies must
+   be equal, ``weighted`` within ``rtol=1e-6``.  Prints ``screen.overflow``,
+   the calls that match the truth (screen mode promises agreement only on
+   clean assemblies) and assemblies per second beside the card.
+9. CIGAR mode: the 8 assemblies are mapped with ``emit_cigars=True`` in both
+   seeding modes on ``cuda``; every statistic of every hit must equal
+   count-only mode's, and each CIGAR's M/I/D run sums the hit's spans.  The
+   CIGAR traceback kernel must launch, its plain version not.  The largest
+   extension bucket is re-run through the kernel and its plain version:
+   every output, the whole ``ops`` buffer included, must be equal; both are
+   timed with CUDA events.  So is a planted bucket of the same geometry
+   (``swg_panels.cigar_bucket``: indel copies and one pair of more than 256
+   runs), which must hold I and D runs and at least one overflowed pair.
+
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-7. bench.py's full 32 assemblies, host- and then device-seeded, typed in
-   stream batches of 32 and of 8, three timed passes each after a priming
-   pass (every pass and the median printed), and for each mode one more
-   batch-32 pass under ``torch.profiler`` for the card's busy share and its
-   time per kernel.
-8. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
-   ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
-   times, and band cells per second of the fill.
+10. bench.py's full 32 assemblies, host- and then device-seeded, typed in
+    stream batches of 32 and of 8, three timed passes each after a priming
+    pass (every pass and the median printed), and for each mode one more
+    batch-32 pass under ``torch.profiler`` for the card's busy share and its
+    time per kernel.
+11. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+    ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
+    times, and band cells per second of the fill.
 
 Any failure raises (non-zero exit).  The last lines are the kernels' JSON
 record, the card line, and ``{"ok": true, "device": {...}}``.
@@ -99,6 +124,20 @@ class _BucketRecorder:
         kept = self.buckets.get(kw["gap_open"])
         if kept is None or size > kept[0]:
             self.buckets[kw["gap_open"]] = (size, args, dict(kw))
+        return self.inner(*args, **kw)
+
+
+class _CigarRecorder:
+    """Wraps the DP's ``banded_swg_cigars`` (both seeding modes) to keep the largest bucket."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.largest = None
+
+    def __call__(self, *args, **kw):
+        size = kw["rows_max"] * kw["w_pad"] * int(args[0].shape[0])
+        if self.largest is None or size > self.largest[0]:
+            self.largest = (size, args, dict(kw))
         return self.inner(*args, **kw)
 
 
@@ -174,9 +213,257 @@ def _check_bucket(label: str, args, kw) -> dict:
     return {"max_abs_err": max_err, "shape": shape, **times}
 
 
+def _check_cigar_bucket(args, kw, label: str) -> dict:
+    """CIGAR traceback kernel vs plain version on one bucket (both walk the kernel
+    fill's bits); returns times, the largest difference and the run counts."""
+    import torch
+
+    from kaptive_tpu_torch.ops.swg import traceback_cigar_plain
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, swg_fill_cuda, swg_traceback_cigar_cuda
+
+    q, q_lens, t, t_lens, offsets, k_locals, matrix = args
+    fill_kw = {k: kw[k] for k in ("gap_open", "gap_extend", "rows_max", "w_pad")}
+    tb_kw = {k: kw[k] for k in ("rows_max", "w_pad", "t_pad")}
+    tb, *best = swg_fill_cuda(q, q_lens, t, t_lens, offsets, k_locals,
+                              as_kernel_matrix(matrix, q.device), **fill_kw)
+    out, ops, n_ops, overflow = swg_traceback_cigar_cuda(tb, q, t, *best, offsets, **tb_kw)
+    res_p, ops_p, n_p, over_p = traceback_cigar_plain(tb, q, t, *best, offsets, **tb_kw)
+    torch.cuda.synchronize()
+    pairs = ((out, torch.stack(tuple(res_p))), (ops, ops_p), (n_ops, n_p), (overflow, over_p))
+    if any(g.shape != p.shape or g.dtype != p.dtype for g, p in pairs):
+        raise AssertionError(f"{label} CIGAR bucket: kernel and plain outputs differ in shape or dtype")
+    max_err = max(int((g.long() - p.long()).abs().max()) for g, p in pairs)
+    if max_err != 0:
+        raise AssertionError(f"{label} CIGAR bucket: kernel and plain version differ (max |diff| {max_err})")
+    times = {"ms": _timed(lambda: swg_traceback_cigar_cuda(tb, q, t, *best, offsets, **tb_kw), 20),
+             "plain_ms": _timed(lambda: traceback_cigar_plain(tb, q, t, *best, offsets, **tb_kw), 2)}
+    shape = (int(q.shape[0]), kw["rows_max"], kw["w_pad"])
+    kinds = torch.where(ops != 0, ops & 0xF, -1)
+    runs = {op: int((kinds == code).sum()) for op, code in (("M", 0), ("I", 1), ("D", 2))}
+    print(f"# {label} CIGAR bucket (B, rows_max, w_pad) = {shape}, {int((q_lens > 0).sum())} live pairs, "
+          f"{int(n_ops.sum())} runs ({runs}), {int(overflow.sum())} overflowed: kernel == plain on the 8 result "
+          f"rows and the whole ops buffer; kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms",
+          flush=True)
+    return {"max_abs_err": max_err, "shape": shape, "runs": runs, "overflowed": int(overflow.sum()), **times}
+
+
+def _named_stream(name: str, fasta: bytes) -> io.BytesIO:
+    """An in-memory FASTA stream that types as assembly ``name``, as its file ``name.fasta`` would."""
+    stream = io.BytesIO(fasta)
+    stream.name = name
+    return stream
+
+
+def _counters(stderr: str) -> dict[str, int]:
+    """The counters ``type --profile`` prints after its phase table."""
+    lines = stderr.splitlines()
+    out = {}
+    for line in lines[lines.index("#  pipeline counters:") + 1:]:
+        if not line.startswith("   "):
+            break
+        name, n = line.split()
+        out[name] = int(n)
+    return out
+
+
+def cli_phase(card: str, sources: dict, assemblies, results) -> dict:
+    """Step 7: the port's ``type`` and ``convert`` as subprocesses; returns wall seconds per mode."""
+    import subprocess
+
+    from kaptive_tpu.serotyping.io import KaptiveRow
+
+    want = KaptiveRow.header() + b"".join(bytes(KaptiveRow.from_result(r)) for r in results)
+    truth = [a[1].encode() for a in assemblies]
+    env = {k: v for k, v in os.environ.items() if k not in ("KAPTIVE_SEED_MODE", "KAPTIVE_PROFILE")}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    gbk = next(name for name in sources if name.endswith(".gbk"))
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, data in sources.items():
+            (tmp / name).write_bytes(data)
+        fastas = []
+        for name, *_, fasta in assemblies:
+            (tmp / f"{name}.fasta").write_bytes(fasta)
+            fastas.append(f"../{name}.fasta")
+        for mode in ("host", "device"):
+            cwd = tmp / mode
+            cwd.mkdir()
+            cmd = [sys.executable, "-m", "kaptive_tpu_torch.cli", "type", f"../{gbk}", *fastas,
+                   "-o", "out.tsv", "-j", "out.jsonl", "--pha4ge", "out.pha4ge", "-l", ".", "-g", ".", "-p", ".",
+                   "--batch-size", str(BATCH_SIZE), "--device", "cuda", "--seed-mode", mode, "--profile"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, timeout=600)
+            walls[mode] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"type --seed-mode {mode} exited {proc.returncode}:\n"
+                                     f"{proc.stderr.decode()[-3000:]}")
+            counts = _counters(proc.stderr.decode())
+            tsv = (cwd / "out.tsv").read_bytes()
+            calls = [row.split(b"\t")[4] for row in tsv.splitlines()[1:]]
+            if calls != truth:
+                raise AssertionError(f"type --seed-mode {mode}: calls {calls} != truth {truth}")
+            if tsv != want:
+                raise AssertionError(f"type --seed-mode {mode}: TSV differs from the in-process rows")
+            kernels = ["swg.cuda.fill", "swg.cuda.traceback"] + (["scan.cuda.rowcompact"] if mode == "device" else [])
+            if min(counts.get(k, 0) for k in kernels) == 0 or any(k.split(".")[1] == "plain" for k in counts):
+                raise AssertionError(f"type --seed-mode {mode} did not run on the kernels: {counts}")
+            n_files = sum(1 for _ in cwd.glob("*_kaptive_results.*"))
+            if n_files != 3 * len(assemblies):
+                raise AssertionError(f"type --seed-mode {mode}: {n_files} FASTA files, want {3 * len(assemblies)}")
+            conv = subprocess.run([sys.executable, "-m", "kaptive_tpu_torch.cli", "convert", "out.jsonl",
+                                   "-t", "conv.tsv"], cwd=cwd, env=env, capture_output=True, timeout=300)
+            if conv.returncode != 0 or (cwd / "conv.tsv").read_bytes() != tsv:
+                raise AssertionError(f"convert of the {mode}-seeded JSONL does not reproduce the TSV: "
+                                     f"{conv.stderr.decode()[-2000:]}")
+            print(f"# CLI, {mode}-seeded: `type` of {len(assemblies)} assemblies in {walls[mode]:.3f} s wall "
+                  f"(process start, database load and kernel load included) [{card}]; TSV == in-process rows, "
+                  f"{len(calls)}/{len(assemblies)} correct, `convert` reproduces it; counters "
+                  f"{ {k: v for k, v in sorted(counts.items()) if k.startswith(('swg.', 'scan.'))} }",
+                  flush=True)
+    return walls
+
+
+def screen_phase(card: str, db, assemblies) -> float:
+    """Step 8: screen mode on the card, held to the CPU screen; returns the median asm/s."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu.utils.profiling import phase_report, reset_phases
+    from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    serotyper = Serotyper(db, device="cuda")
+
+    def streams():
+        return [_named_stream(name, fasta) for name, *_, fasta in assemblies]
+
+    serotyper.screen(streams())  # priming: tables to the card, first launches
+    rates, overflow = [], 0
+    reset_phases()
+    for _ in range(3):
+        reset_metrics()
+        t0 = time.perf_counter()
+        genomes, best, weighted = serotyper.screen(streams())
+        rates.append(len(assemblies) / (time.perf_counter() - t0))
+        counts = snapshot()
+        if counts.get("scan.cuda.rowcompact", 0) == 0 or counts.get("scan.plain.rowcompact", 0) != 0:
+            raise AssertionError(f"the screen did not scan on the kernel: {counts}")
+        overflow = counts.get("screen.overflow", 0)
+    phases = {name: total / 3 for name, (_, total) in phase_report(stream=io.StringIO()).items()
+              if name.startswith("screen.")}
+
+    codes = encode_assemblies_to_batch(genomes)
+    tables = ScreenTables.build(db, serotyper.gene_index)
+    n_genes = len(db.genes)
+    best_c, weighted_c, tallies_c = locus_screen_batch(torch.from_numpy(codes).cuda(), tables, n_genes)
+    if not (np.array_equal(best_c.cpu().numpy(), best) and np.array_equal(weighted_c.cpu().numpy(), weighted)):
+        raise AssertionError("Serotyper.screen differs from locus_screen_batch on the same batch")
+    t0 = time.perf_counter()
+    best_p, weighted_p, tallies_p = locus_screen_batch(torch.from_numpy(codes), tables, n_genes)
+    cpu_s = time.perf_counter() - t0
+    if not torch.equal(tallies_c.cpu(), tallies_p) or not torch.equal(best_c.cpu(), best_p):
+        raise AssertionError("screen on the card and on the CPU differ in tallies or best")
+    if not torch.allclose(weighted_c.cpu(), weighted_p, rtol=1e-6, atol=0):
+        raise AssertionError("screen on the card and on the CPU differ in weighted beyond rtol=1e-6")
+    hits = sum(db.loci.ids[int(b)] == a[1] for b, a in zip(best, assemblies))
+    rate = statistics.median(rates)
+    print(f"# screen: {len(assemblies)} assemblies, codes {codes.shape}, {hits}/{len(assemblies)} best loci match "
+          f"the truth ({', '.join(f'{a[2]}:{db.loci.ids[int(b)] == a[1]}' for b, a in zip(best, assemblies))}), "
+          f"screen.overflow {overflow}; card == CPU (tallies, best exact; weighted rtol 1e-6; CPU screen "
+          f"{cpu_s:.2f} s); {', '.join(f'{r:.3f}' for r in rates)} asm/s, median {rate:.3f} "
+          f"(FASTA parse included); seconds per pass: "
+          f"{', '.join(f'{k} {v:.4f}' for k, v in sorted(phases.items()))} [{card}]", flush=True)
+    return rate
+
+
+def cigar_phase(serotyper, db, assemblies) -> tuple[dict, int]:
+    """Step 9: CIGAR mode on the card in both seeding modes; returns the bucket check and the launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from kaptive_tpu.core.alignment import Alignments
+    from kaptive_tpu.core.genome import GenomeAssembly
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.core import pairwise
+    from kaptive_tpu_torch.ops.mapper import map_genes_batch
+
+    genomes = [GenomeAssembly.ensure(_named_stream(name, fasta)) for name, *_, fasta in assemblies]
+    names = tuple(str(i) for i in range(len(db.genes)))
+    count_only = serotyper.mapper_params
+    with_cigars = dataclasses.replace(count_only, emit_cigars=True)
+    stats = [f.name for f in dataclasses.fields(Alignments) if f.name != "cigars"]
+    recorder = _CigarRecorder(pairwise.banded_swg_cigars)
+    launches = 0
+    for mode in ("host", "device"):
+        plain = map_genes_batch(serotyper.gene_index, genomes, names, count_only, seed_mode=mode, device="cuda")
+        pairwise.banded_swg_cigars = recorder
+        reset_metrics()
+        try:
+            hits = map_genes_batch(serotyper.gene_index, genomes, names, with_cigars, seed_mode=mode, device="cuda")
+        finally:
+            pairwise.banded_swg_cigars = recorder.inner
+        counts = snapshot()
+        if counts.get("swg.cuda.traceback_cigar", 0) == 0 or counts.get("swg.plain.traceback_cigar", 0) != 0 \
+                or counts.get("swg.cuda.traceback", 0) != 0:
+            raise AssertionError(f"CIGAR mode ({mode}) did not run the CIGAR traceback kernel: {counts}")
+        launches += counts["swg.cuda.traceback_cigar"]
+        n_hits = n_empty = n_runs = 0
+        for a, got, want in zip(assemblies, hits, plain):
+            for field in stats:
+                g, w = getattr(got, field), getattr(want, field)
+                if not (np.array_equal(g, w) if isinstance(w, np.ndarray) else g == w):
+                    raise AssertionError(f"{a[0]} ({mode}): {field} differs between CIGAR and count-only mode")
+            for r in range(len(got)):
+                ops = got.cigars[r]
+                if len(ops) == 0:
+                    n_empty += 1
+                    continue
+                runs, kinds = ops >> 4, ops & 0xF
+                m = int(runs[kinds == 0].sum())
+                if (m + int(runs[kinds == 1].sum()) != got.q_ends[r] - got.q_starts[r]
+                        or m + int(runs[kinds == 2].sum()) != got.t_ends[r] - got.t_starts[r]):
+                    raise AssertionError(f"{a[0]} ({mode}): hit {r}'s CIGAR does not sum to its spans")
+                n_runs += len(ops)
+            n_hits += len(got)
+        print(f"# CIGAR mode, {mode}-seeded: {n_hits} hits, statistics == count-only mode, {n_runs} runs, "
+              f"every CIGAR sums to its spans ({n_empty} empty: overflowed); traceback_cigar launches "
+              f"{counts['swg.cuda.traceback_cigar']}, plain 0", flush=True)
+    if recorder.largest is None:
+        raise AssertionError("no CIGAR bucket was recorded")
+    _, args, kw = recorder.largest
+    check = _check_cigar_bucket(args, kw, "largest recorded")
+    # The mapper's buckets hold few gaps and no pair past 256 runs: a planted
+    # bucket of the same geometry holds the I/D naming and the overflow slot
+    # (runs past the last slot overwrite it, then the prefix is reversed).
+    planted = _planted_cigar_bucket()
+    if planted["overflowed"] < 1 or min(planted["runs"].values()) == 0:
+        raise AssertionError(f"the planted CIGAR bucket lacks an overflow or an op kind: {planted}")
+    check["max_abs_err"] = max(check["max_abs_err"], planted["max_abs_err"])
+    return check, launches
+
+
+def _planted_cigar_bucket() -> dict:
+    """``_check_cigar_bucket`` on ``swg_panels.cigar_bucket`` (indel copies and one pair
+    of more than 256 runs) at the largest extension bucket's geometry, (384, 1024, 128)."""
+    import numpy as np
+    import torch
+    from swg_panels import cigar_bucket
+
+    arrays, matrix, go, ge, rows_max, w_pad = cigar_bucket(np.random.default_rng(SEED), 384, 1024, 128)
+    args = (*(torch.from_numpy(a).cuda() for a in arrays), torch.from_numpy(matrix))
+    kw = {"gap_open": go, "gap_extend": ge, "rows_max": rows_max, "w_pad": w_pad, "t_pad": w_pad + 2}
+    return _check_cigar_bucket(args, kw, "planted")
+
+
 def build_workload(n_assemblies: int, seed: int = SEED):
     """bench.py's database (140 loci x 18 genes) and ``n_assemblies`` 5.3 Mb assemblies
-    cycling through its composition classes: ``(db, [(name, truth, class, fasta)])``."""
+    cycling through its composition classes: ``(db, [(name, truth, class, fasta)],
+    {file name: bytes} of the database's GenBank and TOML sources)``."""
     import numpy as np
 
     import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
@@ -190,6 +477,7 @@ def build_workload(n_assemblies: int, seed: int = SEED):
         gbk, truth = make_synthetic_db(Path(tmp), rng, n_loci=140, genes_per_locus=18,
                                        name="BenchDB", keyword="bench_db")
         db = Database.from_genbank(gbk)
+        sources = {p.name: p.read_bytes() for p in Path(tmp).iterdir() if p.suffix in (".gbk", ".toml")}
     names = list(truth["loci"])
     flank = int(GENOME_MB * 1e6 / 2)
     assemblies = []
@@ -197,7 +485,7 @@ def build_workload(n_assemblies: int, seed: int = SEED):
         locus = names[rng.integers(0, len(names))]
         kind = KINDS[i % len(KINDS)]
         assemblies.append((f"asm{i}", locus, kind, _compose_fasta(rng, kind, truth["loci"][locus]["seq"], flank)))
-    return db, assemblies
+    return db, assemblies, sources
 
 
 def type_all(serotyper, assemblies, batch_size: int):
@@ -205,7 +493,7 @@ def type_all(serotyper, assemblies, batch_size: int):
     Returns ``(results, host wall seconds)``."""
     from kaptive_tpu_torch.parallel import stream_type
 
-    streams = [io.BytesIO(fasta) for *_, fasta in assemblies]
+    streams = [_named_stream(name, fasta) for name, *_, fasta in assemblies]
     t_start = time.perf_counter()
     results = list(stream_type(serotyper, streams, batch_size=batch_size))
     elapsed = time.perf_counter() - t_start
@@ -235,7 +523,7 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 def measure(card: str) -> None:
     """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets (see the module docstring, steps 6 and 7)."""
+    full-size synthetic buckets (see the module docstring, steps 10 and 11)."""
     import statistics
 
     import numpy as np
@@ -249,7 +537,7 @@ def measure(card: str) -> None:
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    db, assemblies = build_workload(MEASURE_ASSEMBLIES)
+    db, assemblies, _ = build_workload(MEASURE_ASSEMBLIES)
     serotyper = Serotyper(db, device="cuda")
     for mode in ("host", "device"):
         os.environ["KAPTIVE_SEED_MODE"] = mode
@@ -340,7 +628,7 @@ def main() -> int:
     print(f"# native hostio build/load: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
-    db, assemblies = build_workload(N_ASSEMBLIES)
+    db, assemblies, sources = build_workload(N_ASSEMBLIES)
     serotyper = Serotyper(db, device="cuda")
     print(f"# workload: {len(db.loci)} loci, {len(db.genes)} genes, {N_ASSEMBLIES} x {GENOME_MB} Mb "
           f"assemblies ({'/'.join(KINDS)}); set-up {time.perf_counter() - t0:.1f} s", flush=True)
@@ -371,7 +659,7 @@ def main() -> int:
     # The CUDA results must equal the plain PyTorch path's on the CPU.
     sample = [KINDS.index(k) for k in KINDS]
     cpu_results = Serotyper(db, device="cpu").batch(
-        [io.BytesIO(assemblies[i][3]) for i in sample]
+        [_named_stream(assemblies[i][0], assemblies[i][3]) for i in sample]
     )
     for i, cpu in zip(sample, cpu_results):
         if bytes(KaptiveRow.from_result(cpu)) != bytes(KaptiveRow.from_result(results[i])):
@@ -432,6 +720,10 @@ def main() -> int:
         raise AssertionError("no scan batch was recorded in the device-seeded pass")
     scan_check = _check_scan(*scans.largest)
 
+    cli_walls = cli_phase(card, sources, assemblies, results)
+    screen_rate = screen_phase(card, db, assemblies)
+    cigar_check, cigar_launches = cigar_phase(serotyper, db, assemblies)
+
     if opts.measure:
         measure(card)
 
@@ -454,11 +746,16 @@ def main() -> int:
         {"name": "rowcompact_scan", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
          "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": scan_launches,
          "max_abs_err": scan_check["max_abs_err"], "ms": scan_check["ms"], "plain_ms": scan_check["plain_ms"]},
+        {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
+         "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
+         "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"]},
     ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
           f"protein bucket {prot['shape']} (B, rows_max, w_pad); scan on the batch {scan_check['shape']} "
-          f"(B, rows); {N_ASSEMBLIES / elapsed:.3f} asm/s host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} "
-          f"device-seeded [{card}]", flush=True)
+          f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
+          f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,8 +12,12 @@ Unless ``jax`` is already loaded in this process, both packages are
 registered here as bare package modules (``__path__`` only, plus
 ``__version__`` on the top one), so their submodules load without those
 ``__init__`` files and ``jax`` is never imported, even where it is installed.
-A name that only those ``__init__`` files define (``Serotyper``, say) then
-raises an ImportError that says so.  Where ``jax`` is already loaded (the
+The bare ``kaptive_tpu.serotyping`` also carries the names its ``__init__``
+re-exports from the jax-free ``io`` and ``models`` modules (``KaptiveRow``,
+``SerotypingResult``, ...), so the JAX package's CLI writers, which import
+them from the package root, are reused unchanged.  Any other name that only
+those ``__init__`` files define (``Serotyper``, say) raises an ImportError
+that says so.  Where ``jax`` is already loaded (the
 parity tests import it first), the normal packages are used, so the tests'
 JAX objects and the port's are the same classes.  This module must be
 imported before anything of ``kaptive_tpu``; ``kaptive_tpu_torch/__init__.py``
@@ -52,9 +56,10 @@ def _bare_package(name: str, path: Path) -> types.ModuleType:
     return pkg
 
 
-def _install_bare_packages() -> None:
+def _install_bare_packages() -> types.ModuleType | None:
+    r"""Register the bare packages; returns the bare ``kaptive_tpu.serotyping`` when this call made it."""
     if "jax" in sys.modules:
-        return
+        return None
     spec = importlib.util.find_spec("kaptive_tpu")
     if spec is None or not spec.submodule_search_locations:
         raise ImportError("kaptive_tpu_torch needs the kaptive_tpu package beside it")
@@ -62,11 +67,14 @@ def _install_bare_packages() -> None:
     if "kaptive_tpu" not in sys.modules:
         top = _bare_package("kaptive_tpu", root)
         top.__version__ = importlib.import_module("kaptive_tpu._version").__version__
-    if "kaptive_tpu.serotyping" not in sys.modules:
-        sys.modules["kaptive_tpu"].serotyping = _bare_package("kaptive_tpu.serotyping", root / "serotyping")
+    if "kaptive_tpu.serotyping" in sys.modules:
+        return None
+    pkg = _bare_package("kaptive_tpu.serotyping", root / "serotyping")
+    sys.modules["kaptive_tpu"].serotyping = pkg
+    return pkg
 
 
-_install_bare_packages()
+_bare_serotyping = _install_bare_packages()
 
 from kaptive_tpu._version import __version__  # noqa: E402
 from kaptive_tpu.serotyping.analysis import (  # noqa: E402
@@ -85,6 +93,12 @@ from kaptive_tpu.serotyping.models import (  # noqa: E402
     SerotypingProblem,
     SerotypingResult,
 )
+
+if _bare_serotyping is not None:
+    # The jax-free half of the skipped __init__'s re-exports.
+    for _name in ("GeneHits", "GeneState", "KaptiveRow", "LocusPieces", "Pha4geRow",
+                  "SerotypingProblem", "SerotypingResult"):
+        setattr(_bare_serotyping, _name, globals()[_name])
 
 __all__ = [
     "GeneHits",

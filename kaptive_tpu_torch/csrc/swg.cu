@@ -1,11 +1,13 @@
-// Banded Smith-Waterman-Gotoh fill and traceback for NVIDIA Hopper (sm_90a).
+// Banded Smith-Waterman-Gotoh fill and tracebacks for NVIDIA Hopper (sm_90a).
 //
 // Replaces kaptive_tpu/ops/swg_pallas.py::_swg_fill_kernel (the Pallas band
-// fill) and kaptive_tpu/ops/swg.py::_traceback (the XLA while_loop walk).
-// Both compute exactly what the JAX package computes, bit for bit: the same
-// band geometry, masks, local reset, tie rules and packed traceback bits, so
-// every SwgResult field equals banded_swg_lax's.  The plain PyTorch version
-// of both lives in kaptive_tpu_torch/ops/swg.py.
+// fill), kaptive_tpu/ops/swg.py::_traceback (the XLA while_loop walk) and
+// kaptive_tpu/ops/swg.py::_traceback_cigar (the same walk recording BAM CIGAR
+// runs).  All compute exactly what the JAX package computes, bit for bit: the
+// same band geometry, masks, local reset, tie rules and packed traceback
+// bits, so every SwgResult field equals banded_swg_lax's and every CIGAR
+// output banded_swg_lax_cigars's.  The plain PyTorch versions live in
+// kaptive_tpu_torch/ops/swg.py.
 //
 // Built by kaptive_tpu_torch/ops/swg_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -46,6 +48,7 @@ constexpr int MAX_THREADS = 512;
 constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MATRIX_BYTES = 256 * 256;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_CIGAR_OPS = 256;  // runs kept per pair (ops/swg.py's MAX_CIGAR_OPS)
 
 __host__ __device__ inline size_t fill_smem_bytes(int w_pad) {
     // int8 matrix | M, D, I bands (int32) | warp scan, warp best value, warp
@@ -289,6 +292,95 @@ __global__ void swg_traceback_kernel(
     out[7 * n_pairs + b] = best_j[b];
 }
 
+// swg_traceback_kernel's walk, also recording BAM CIGAR runs (M=0 on the
+// diagonal, I=1 in the vertical D state, D=2 in the horizontal I state; a
+// transition step emits none).  The walk goes end to start, so each pair's
+// runs are written in that order into its own row of `ops` in device memory
+// and the valid prefix is reversed in place at the end; the rest of the row
+// is zeroed.  A run past `MAX_CIGAR_OPS` overwrites the last slot, as the JAX
+// package's buffer does, and sets the pair's overflow flag.  Like the plain
+// traceback this is a serial walk per pair: a thread's rows of `ops` are
+// 1 KB apart, so its writes do not coalesce, but there is one write per run,
+// not per step, and the walk's dependent loads of the traceback bits bound it.
+__global__ void swg_traceback_cigar_kernel(
+    const uint8_t* __restrict__ tb, const uint8_t* __restrict__ q,
+    const uint8_t* __restrict__ t, const int32_t* __restrict__ best,
+    const int32_t* __restrict__ best_i, const int32_t* __restrict__ best_j,
+    const int32_t* __restrict__ offsets, int n_pairs, int rows_max, int w_pad,
+    int t_cols, int t_pad,
+    int32_t* __restrict__ out,        // (8, B) as swg_traceback_kernel's
+    int32_t* __restrict__ ops,        // (B, MAX_CIGAR_OPS) BAM runs, len << 4 | op
+    int32_t* __restrict__ n_ops_out,  // (B,) runs kept, min(runs, MAX_CIGAR_OPS)
+    uint8_t* __restrict__ overflow) { // (B,) more than MAX_CIGAR_OPS runs
+    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    if (b >= n_pairs) return;
+    const int k_pad = (w_pad - 3) / 2;
+    const uint8_t* tbb = tb + (size_t)b * rows_max * w_pad;
+    const uint8_t* qb = q + (size_t)b * rows_max;
+    const uint8_t* tt = t + (size_t)b * t_cols;
+    int32_t* ob = ops + (size_t)b * MAX_CIGAR_OPS;
+    const int off = offsets[b];
+    int i = best_i[b], j = best_j[b];
+    int state = 0, matches = 0, mismatches = 0, gaps = 0;
+    int cur_op = -1, run = 0, ptr = 0;  // the open run; runs emitted so far
+    while (i > 0 && j > 0) {
+        const int r = min(max(i - 1, 0), rows_max - 1);
+        const int dm = min(max(j - (i - off) + k_pad + 1, 0), w_pad - 1);
+        const int cell = tbb[(size_t)r * w_pad + dm];
+        int step_op = -1;
+        if (state == 0) {
+            const int tb_m = cell & 3;
+            if (tb_m == 3) break;
+            if (tb_m == 0) {
+                const int tc = tt[min(max(j - 1 + t_pad, 0), t_cols - 1)];
+                if (qb[r] == tc) ++matches; else ++mismatches;
+                --i;
+                --j;
+                step_op = 0;
+            } else {
+                state = tb_m;  // 1: into D, 2: into I (no move on the transition)
+            }
+        } else if (state == 1) {
+            ++gaps;
+            --i;
+            step_op = 1;
+            if (!((cell >> 2) & 1)) state = 0;
+        } else {
+            ++gaps;
+            --j;
+            step_op = 2;
+            if (!((cell >> 3) & 1)) state = 0;
+        }
+        if (step_op >= 0) {
+            if (step_op != cur_op) {
+                if (cur_op >= 0) ob[min(ptr++, MAX_CIGAR_OPS - 1)] = (run << 4) | cur_op;
+                run = 1;
+                cur_op = step_op;
+            } else {
+                ++run;
+            }
+        }
+    }
+    if (cur_op >= 0) ob[min(ptr++, MAX_CIGAR_OPS - 1)] = (run << 4) | cur_op;  // the final run
+    const int n = min(ptr, MAX_CIGAR_OPS);
+    for (int lo = 0, hi = n - 1; lo < hi; ++lo, --hi) {
+        const int32_t x = ob[lo];
+        ob[lo] = ob[hi];
+        ob[hi] = x;
+    }
+    for (int k = n; k < MAX_CIGAR_OPS; ++k) ob[k] = 0;
+    out[0 * n_pairs + b] = best[b];
+    out[1 * n_pairs + b] = matches;
+    out[2 * n_pairs + b] = mismatches;
+    out[3 * n_pairs + b] = gaps;
+    out[4 * n_pairs + b] = i;
+    out[5 * n_pairs + b] = best_i[b];
+    out[6 * n_pairs + b] = j;
+    out[7 * n_pairs + b] = best_j[b];
+    n_ops_out[b] = n;
+    overflow[b] = ptr > MAX_CIGAR_OPS ? 1 : 0;
+}
+
 template <int LPT>
 cudaError_t launch_fill(int n_pairs, int w_pad, cudaStream_t stream, const uint8_t* q,
                         const uint8_t* t, const int32_t* q_lens, const int32_t* t_lens,
@@ -355,6 +447,24 @@ int kts_swg_traceback(const void* tb, const void* q, const void* t, const void* 
         static_cast<const int32_t*>(best_i), static_cast<const int32_t*>(best_j),
         static_cast<const int32_t*>(offsets), n_pairs, rows_max, w_pad, t_cols, t_pad,
         static_cast<int32_t*>(out));
+    return (int)cudaGetLastError();
+}
+
+int kts_swg_traceback_cigar(const void* tb, const void* q, const void* t, const void* best,
+                            const void* best_i, const void* best_j, const void* offsets,
+                            int n_pairs, int rows_max, int w_pad, int t_cols, int t_pad,
+                            void* out, void* ops, void* n_ops, void* overflow,
+                            void* stream) {
+    if (n_pairs == 0) return (int)cudaSuccess;
+    const int threads = 128;
+    swg_traceback_cigar_kernel<<<(n_pairs + threads - 1) / threads, threads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(q),
+        static_cast<const uint8_t*>(t), static_cast<const int32_t*>(best),
+        static_cast<const int32_t*>(best_i), static_cast<const int32_t*>(best_j),
+        static_cast<const int32_t*>(offsets), n_pairs, rows_max, w_pad, t_cols, t_pad,
+        static_cast<int32_t*>(out), static_cast<int32_t*>(ops), static_cast<int32_t*>(n_ops),
+        static_cast<uint8_t*>(overflow));
     return (int)cudaGetLastError();
 }
 

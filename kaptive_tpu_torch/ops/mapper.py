@@ -34,7 +34,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from kaptive_tpu.core.alignment import Alignments
+from kaptive_tpu.core.alignment import Alignments, Cigars
 from kaptive_tpu.core.collections import cumulative_offsets, ragged_gather_indices
 from kaptive_tpu.core.genome import GenomeAssembly
 from kaptive_tpu.core.pairwise import PairwiseAlignments
@@ -223,8 +223,7 @@ class GeneIndex:
 
 @dataclass(frozen=True, slots=True)
 class MapperParams:
-    r"""Tunables for the seed-chain-extend pipeline (the JAX package's, less the
-    CIGAR switch: CIGAR mode is ROADMAP Queue 1, item 8)."""
+    r"""Tunables for the seed-chain-extend pipeline (the JAX package's, in its field order)."""
 
     min_anchors: int = 2  # chains with fewer anchors are dropped
     max_diag_drift: int = 100  # single-linkage diagonal tolerance within a chain
@@ -233,6 +232,7 @@ class MapperParams:
     window_pad: int = 64  # extra target window around the projected gene span
     min_score: int = 30  # discard extensions below this SW score
     max_occ: int = 1024  # per-contig-minimizer occurrence cap in the gene table
+    emit_cigars: bool = False  # record BAM CIGARs during the extension traceback
     lattice: object = None  # optional SwgLattice freezing the extension-DP shapes
 
 
@@ -429,17 +429,22 @@ def build_extension_problems(
     )
 
 
-def _run_extension_dp(problems: dict, lattice=None, device: str | torch.device = "cuda") -> PairwiseAlignments:
-    r"""One batched banded-SWG sweep over concatenated extension problems."""
-    from kaptive_tpu_torch.core.pairwise import batched_swg_align
+def _run_extension_dp(
+    problems: dict, lattice=None, device: str | torch.device = "cuda", emit_cigars: bool = False,
+) -> tuple[PairwiseAlignments, Cigars | None]:
+    r"""One batched banded-SWG sweep over concatenated extension problems:
+    ``(PairwiseAlignments, Cigars or None)``, the CIGARs with ``emit_cigars``."""
+    from kaptive_tpu_torch.core.pairwise import batched_swg_align, batched_swg_align_cigars
 
-    return batched_swg_align(
+    args = (
         problems["q_codes"], problems["q_offsets"], problems["q_lengths"],
         problems["t_codes"], problems["t_offsets"], problems["t_lengths"],
         problems["offsets"], problems["k_locals"],
-        matrix=_NT_MATRIX, gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND,
-        lattice=lattice, device=device,
     )
+    kw = dict(matrix=_NT_MATRIX, gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, lattice=lattice, device=device)
+    if emit_cigars:
+        return batched_swg_align_cigars(*args, **kw)
+    return batched_swg_align(*args, **kw), None
 
 
 def _alignments_from_extension(
@@ -452,8 +457,10 @@ def _alignments_from_extension(
     contig_index: ContigIndex,
     gene_names: tuple[str, ...],
     params: MapperParams,
+    cigars: Cigars | None = None,
 ) -> Alignments:
-    r"""Filter/dedupe DP results and assemble the SoA alignment batch."""
+    r"""Filter/dedupe DP results and assemble the SoA alignment batch (with the
+    kept rows' ``cigars`` when given)."""
     keep = np.asarray(res.scores) >= params.min_score
     keep &= np.asarray(res.q_ends) > np.asarray(res.q_starts)
     if not keep.any():
@@ -496,6 +503,7 @@ def _alignments_from_extension(
     scores, matches, mismatches, gaps = scores[sel], matches[sel], mismatches[sel], gaps[sel]
     q_start, q_end, t_start, t_end = q_start[sel], q_end[sel], t_start[sel], t_end[sel]
     gl = gl[sel]
+    kept_cigars = cigars[np.flatnonzero(keep)[sel]] if cigars is not None else None
 
     # Primary flag + mapq (minimap2's mm_set_mapq):
     #   mapq = 60 * (1 - s2/s1) * min(1, s1/100), clipped to [0, 60]
@@ -548,6 +556,7 @@ def _alignments_from_extension(
         scores=scores,
         qualities=mapq,
         block_lengths=np.maximum(q_end - q_start, t_end - t_start).astype(np.int32),
+        cigars=kept_cigars,
         is_primary=is_primary,
         divergence=divergence,
     )
@@ -596,7 +605,9 @@ def _map_genes_host_seeded(
     merged["q_offsets"] = cumulative_offsets(merged["q_lengths"])
     merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
     with phase_timer("map.extension_dp"):
-        res = _run_extension_dp(merged, lattice=params.lattice, device=device)
+        res, cigars_all = _run_extension_dp(
+            merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars,
+        )
     counts = [len(p["q_lengths"]) if p is not None else 0 for p in all_problems]
     bounds = np.cumsum([0] + counts)
     results: list[Alignments] = []
@@ -613,6 +624,7 @@ def _map_genes_host_seeded(
             _alignments_from_extension(
                 all_chains[b], res_b, all_problems[b]["t_lo"], all_problems[b]["glen"],
                 gene_index, genomes[b], indexes[b], gene_names, params,
+                cigars=cigars_all[sl] if cigars_all is not None else None,
             )
         )
     return results
@@ -988,10 +1000,15 @@ def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: t
     ``flat_codes`` the flattened padded stream batch on the device.  Bucket
     shapes follow :func:`plan_swg_buckets` with ``params.lattice``; padding
     pairs are (gene 0, length 1, band 1, empty target), as in the JAX
-    package.  Returns the pending ``(n, [(pair indices, stacked (8, b) results)])``
-    for :func:`collect_extension_dp_device`; nothing is copied back here.
+    package.  With ``params.emit_cigars`` each bucket runs
+    :func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and its run buffers
+    travel with the statistics; the problem build stays on the device either
+    way.  Returns the pending ``(n, [(pair indices, stacked results)],
+    emit_cigars)`` for :func:`collect_extension_dp_device`; nothing is copied
+    back here.
     """
-    from kaptive_tpu_torch.ops.swg import banded_swg, plan_swg_buckets
+    from kaptive_tpu_torch.core.pairwise import run_bucket
+    from kaptive_tpu_torch.ops.swg import plan_swg_buckets
 
     dev = flat_codes.device
     if dev.type == "cuda":
@@ -1017,26 +1034,18 @@ def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: t
             rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
         )
         i32 = torch.int32
-        res = banded_swg(
-            q_mat, glen.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), matrix,
-            gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
-        )
-        launched.append((sel, torch.stack(tuple(res))[:, : len(sel)]))
-    return n, launched
+        args = (q_mat, glen.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), matrix)
+        statics = dict(gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
+        launched.append((sel, run_bucket(args, statics, params.emit_cigars)[:, : len(sel)]))
+    return n, launched, params.emit_cigars
 
 
-def collect_extension_dp_device(pending) -> PairwiseAlignments:
-    r"""Bring a :func:`launch_extension_dp_device` sweep back to the host in one copy."""
-    from kaptive_tpu_torch.core.pairwise import _RESULT_FIELDS
+def collect_extension_dp_device(pending) -> tuple[PairwiseAlignments, Cigars | None]:
+    r"""Bring a :func:`launch_extension_dp_device` sweep back to the host in one copy:
+    ``(PairwiseAlignments, Cigars or None)``."""
+    from kaptive_tpu_torch.core.pairwise import collect_buckets
 
-    n, launched = pending
-    out = {f: np.zeros(n, dtype=np.int32) for f in _RESULT_FIELDS}
-    if launched:
-        stacked = torch.cat([r for _, r in launched], dim=1).cpu().numpy()
-        order = np.concatenate([sel for sel, _ in launched])
-        for i, f in enumerate(_RESULT_FIELDS):
-            out[f][order] = stacked[i]
-    return PairwiseAlignments(*(out[f] for f in _RESULT_FIELDS))
+    return collect_buckets(*pending)
 
 
 def _map_genes_device_seeded(
@@ -1119,17 +1128,21 @@ def _map_genes_device_seeded(
         return [Alignments.empty() for _ in range(n_genomes)]
     merged = {key: np.concatenate([s[key] for s in live]) for key in live[0] if key != "t_lo"}
     with phase_timer("map.extension_dp"):
-        res = collect_extension_dp_device(launch_extension_dp_device(merged, gene_index, flat_codes, params))
+        res, cigars_all = collect_extension_dp_device(
+            launch_extension_dp_device(merged, gene_index, flat_codes, params)
+        )
     bounds = np.cumsum([0] + [len(s["glen"]) if s is not None else 0 for s in all_specs])
     results: list[Alignments] = []
     for b in range(n_genomes):
         if all_specs[b] is None:
             results.append(Alignments.empty())
             continue
+        sl = slice(bounds[b], bounds[b + 1])
         results.append(
             _alignments_from_extension(
-                all_chains[b], res[bounds[b] : bounds[b + 1]], all_specs[b]["t_lo"], all_specs[b]["glen"],
+                all_chains[b], res[sl], all_specs[b]["t_lo"], all_specs[b]["glen"],
                 gene_index, genomes[b], indexes[b], gene_names, params,
+                cigars=cigars_all[sl] if cigars_all is not None else None,
             )
         )
     return results

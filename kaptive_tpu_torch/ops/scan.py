@@ -93,28 +93,21 @@ def compact_lanes(selected: torch.Tensor, payloads, out_slots: int):
     return live[..., :out_slots], [v[..., :out_slots] for v in vals], counts
 
 
-def rowcompact_scan_plain(codes_padded: torch.Tensor, k: int, w: int):
-    r"""Plain PyTorch row-compact scan (``_scan_tile`` + ``_compact_rows`` of the JAX package).
+def _scan_positions(codes: torch.Tensor, pad: int, length: int, k: int, w: int):
+    r"""Per-position minimizer selection over (B, N) int64 codes whose stream of
+    ``length`` positions starts at column ``pad``: ``(selected, hashes, strands)``.
 
-    ``codes_padded`` is (B, R + 2*HALO_ROWS, 128) uint8 on any device; one
-    vectorised pass per k-mer offset, window offset and selection offset over
-    the whole batch.  Returns ``(hashes, aux, counts)`` as described in the
-    module docstring.
+    ``hashes`` are int64 in ``[0, 2^32)``, ``0xFFFFFFFF`` where no valid k-mer
+    starts.  Reads past column N wrap to its start, as the JAX package's
+    rolls do, and the packing is its uint32 packing of the raw codes, so
+    ``strands`` agree even where no valid k-mer starts; positions outside the
+    stream select nothing.
     """
-    count("scan.plain.rowcompact")
-    B, r_pad, row = codes_padded.shape
-    if row != ROW or r_pad < 2 * HALO_ROWS:
-        raise ValueError(f"expected (B, R + {2 * HALO_ROWS}, {ROW}) codes, got {tuple(codes_padded.shape)}")
-    R = r_pad - 2 * HALO_ROWS
-    length = R * ROW
-    dev = codes_padded.device
+    B, N = codes.shape
+    dev = codes.device
     i64 = torch.int64
-    codes = codes_padded.reshape(B, -1).to(i64)
-    N = codes.shape[1]
-    gpos = torch.arange(N, device=dev) - PAD_POS
-    # Reads past the padded stream see sentinels; the halo rows keep every
-    # read of an interior position inside the stream.
-    ext = torch.cat([codes, torch.full((B, k), SENTINEL, dtype=i64, device=dev)], 1)
+    gpos = torch.arange(N, device=dev) - pad
+    ext = torch.cat([codes, codes[:, :k]], 1)
 
     fwd = torch.zeros((B, N), dtype=i64, device=dev)
     rev = torch.zeros_like(fwd)
@@ -122,8 +115,8 @@ def rowcompact_scan_plain(codes_padded: torch.Tensor, k: int, w: int):
     for j in range(k):
         c = ext[:, j : j + N]
         bad |= c >= SENTINEL
-        fwd |= (c & 3) << (2 * (k - 1 - j))
-        rev |= (3 - (c & 3)) << (2 * j)
+        fwd |= (c << (2 * (k - 1 - j))) & _U32
+        rev |= (((3 - c) & _U32) << (2 * j)) & _U32
     valid = ~bad & (gpos >= 0) & (gpos < length - k + 1)
     strands = fwd <= rev
     hashes = torch.where(valid, _mix32(torch.minimum(fwd, rev)), _U32)
@@ -145,13 +138,46 @@ def rowcompact_scan_plain(codes_padded: torch.Tensor, k: int, w: int):
     sel = delta == 0
     for d in range(1, w):
         sel |= d_ext[:, w - d : w - d + N] == d
-    selected = sel & valid
+    return sel & valid, hashes, strands
+
+
+def minimizer_scan_plain(codes: torch.Tensor, k: int, w: int):
+    r"""Flat minimizer scan (``kaptive_tpu.ops.minimizer.minimizer_scan``) over (L,) or (B, L) codes.
+
+    Returns ``(selected, hashes, strands)`` of the input's shape, on its
+    device: ``hashes`` as int64 values in ``[0, 2^32)`` (``0xFFFFFFFF`` where
+    invalid).  The stream is the whole last axis, so the end guards sit at
+    ``L``; :func:`rowcompact_scan_plain` runs the same body over the
+    halo-padded rows and compacts the result.
+    """
+    flat = codes.reshape(-1, codes.shape[-1]).to(torch.int64)
+    out = _scan_positions(flat, 0, flat.shape[1], k, w)
+    return tuple(x.reshape(codes.shape) for x in out)
+
+
+def rowcompact_scan_plain(codes_padded: torch.Tensor, k: int, w: int):
+    r"""Plain PyTorch row-compact scan (``_scan_tile`` + ``_compact_rows`` of the JAX package).
+
+    ``codes_padded`` is (B, R + 2*HALO_ROWS, 128) uint8 on any device; one
+    vectorised pass per k-mer offset, window offset and selection offset over
+    the whole batch.  Returns ``(hashes, aux, counts)`` as described in the
+    module docstring.
+    """
+    count("scan.plain.rowcompact")
+    B, r_pad, row = codes_padded.shape
+    if row != ROW or r_pad < 2 * HALO_ROWS:
+        raise ValueError(f"expected (B, R + {2 * HALO_ROWS}, {ROW}) codes, got {tuple(codes_padded.shape)}")
+    R = r_pad - 2 * HALO_ROWS
+    length = R * ROW
+    selected, hashes, strands = _scan_positions(
+        codes_padded.reshape(B, -1).to(torch.int64), PAD_POS, length, k, w
+    )
 
     interior = slice(PAD_POS, PAD_POS + length)
     sel_m = selected[:, interior].reshape(B, R, ROW)
     h_m = hashes[:, interior].reshape(B, R, ROW)
-    col = torch.arange(ROW, dtype=i64, device=dev)
-    aux = col | (strands[:, interior].reshape(B, R, ROW).to(i64) << 7)
+    col = torch.arange(ROW, dtype=torch.int64, device=codes_padded.device)
+    aux = col | (strands[:, interior].reshape(B, R, ROW).to(torch.int64) << 7)
     live, (h, a), counts = compact_lanes(sel_m, (h_m, aux), SLOTS)
     h = as_int32_bits(torch.where(live, h, _U32))
     a = torch.where(live, a, -1).to(torch.int32)
@@ -172,7 +198,7 @@ def rowcompact_scan(codes_padded: torch.Tensor, k: int, w: int):
     return rowcompact_scan_plain(codes_padded, k, w)
 
 
-def _add_halo(codes: torch.Tensor) -> torch.Tensor:
+def add_halo(codes: torch.Tensor) -> torch.Tensor:
     r"""(B, L) codes -> (B, L/128 + 2*HALO_ROWS, 128) with sentinel halo rows."""
     B = codes.shape[0]
     pad = torch.full((B, HALO_ROWS, ROW), SENTINEL, dtype=torch.uint8, device=codes.device)
@@ -189,7 +215,7 @@ def pad_codes_for_scan_any(codes: np.ndarray) -> np.ndarray:
 def unpack_to_padded(packed: torch.Tensor, valid_bits: torch.Tensor, length: int) -> torch.Tensor:
     r"""Dense upload form -> scan input: (B, L/4) 2-bit codes and (B, L/8) validity
     bits -> (B, L/128 + 16, 128) sentinel-padded codes, on the device of the inputs."""
-    return _add_halo(unpack_2bit_with_bits(packed, valid_bits, length))
+    return add_halo(unpack_2bit_with_bits(packed, valid_bits, length))
 
 
 def unpack_sparse_to_padded(
@@ -215,4 +241,4 @@ def unpack_sparse_to_padded(
     codes = codes[:, :n]
     if n < length:
         codes = torch.cat([codes, codes.new_full((B, length - n), SENTINEL)], 1)
-    return _add_halo(codes[:, :length])
+    return add_halo(codes[:, :length])

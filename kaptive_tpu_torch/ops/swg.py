@@ -11,7 +11,9 @@ the hand-written Hopper kernels (:mod:`kaptive_tpu_torch.ops.swg_cuda`) or
 raises; a CPU tensor goes to :func:`banded_swg_plain`, the plain PyTorch
 version (one vectorised step per DP row, batched over pairs).  The plain
 version also runs on CUDA tensors when called directly, which is how the
-kernels are checked on the card.
+kernels are checked on the card.  :func:`banded_swg_cigars` (CIGAR mode,
+``banded_swg_lax_cigars``) routes the same way, its traceback also recording
+each pair's BAM CIGAR runs (:func:`traceback_cigar_plain` on the CPU).
 
 :class:`SwgLattice` and :func:`plan_swg_buckets` are re-homed unchanged from
 the JAX module (which imports ``jax`` at the top); the bucket plan decides
@@ -29,6 +31,7 @@ import torch
 from kaptive_tpu.utils.metrics import count
 
 NEG_INF = -1_000_000_000
+MAX_CIGAR_OPS = 256  # run-length op capacity per pair (overflowing pairs flag + truncate)
 
 
 def round_up(x: int, m: int) -> int:
@@ -260,6 +263,94 @@ def fill_band_plain(
     return tb, best, best_i, best_j
 
 
+def _traceback_lockstep(
+    tb, q_codes, t_codes, best_i, best_j, offsets, *, rows_max: int, w_pad: int, t_pad: int,
+    cigar: bool,
+):
+    r"""The traceback state machine over every pair at once; with ``cigar`` it
+    also records BAM CIGAR runs.
+
+    Returns ``(matches, mismatches, gaps, i, j, runs)`` as int64 tensors,
+    ``runs`` being ``(ops, ptr)`` (int64 (B, MAX_CIGAR_OPS) runs in walk order
+    and the number of runs emitted, which may exceed ``MAX_CIGAR_OPS``) or
+    ``None``.
+    """
+    dev = tb.device
+    B, T = q_codes.shape[0], t_codes.shape[1]
+    i64 = torch.int64
+    k_pad = (w_pad - 3) // 2
+    rows = torch.arange(B, device=dev)
+    q = q_codes.to(i64)
+    t = t_codes.to(i64)
+    off = offsets.to(dev, i64)
+    i = best_i.to(i64).clone()
+    j = best_j.to(i64).clone()
+    state = torch.zeros(B, dtype=i64, device=dev)
+    matches = torch.zeros_like(state)
+    mism = torch.zeros_like(state)
+    gaps = torch.zeros_like(state)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    if cigar:
+        ops = torch.zeros((B, MAX_CIGAR_OPS), dtype=i64, device=dev)
+        ptr = torch.zeros_like(state)
+        cur_op = torch.full_like(state, -1)  # no run open yet
+        run = torch.zeros_like(state)
+
+    def emit(mask):
+        # A run ending past the capacity overwrites the last slot.
+        slot = ptr.clamp(max=MAX_CIGAR_OPS - 1)
+        ops[rows[mask], slot[mask]] = (run[mask] << 4) | cur_op[mask]
+        return ptr + mask.to(i64)
+
+    while True:
+        alive = ~done & (i > 0) & (j > 0)
+        if not bool(alive.any()):
+            break
+        r = (i - 1).clamp(0, rows_max - 1)
+        cell = tb[rows, r, (j - (i - off) + k_pad + 1).clamp(0, w_pad - 1)].to(i64)
+        tb_m = cell & 3
+        tb_d_ext = (cell >> 2) & 1
+        tb_i_ext = (cell >> 3) & 1
+        is_match = q[rows, r] == t[rows, (j - 1 + t_pad).clamp(0, T - 1)]
+
+        in_m = alive & (state == 0)
+        m_stop = in_m & (tb_m == 3)
+        m_diag = in_m & (tb_m == 0)
+        m_to_d = in_m & (tb_m == 1)
+        m_to_i = in_m & (tb_m == 2)
+        in_d = alive & (state == 1)
+        in_i = alive & (state == 2)
+
+        matches += (m_diag & is_match).to(i64)
+        mism += (m_diag & ~is_match).to(i64)
+        gaps += (in_d | in_i).to(i64)
+        if cigar:
+            # BAM ops: M=0 on the diagonal, I=1 in the vertical D state, D=2 in
+            # the horizontal I state; a transition step emits none.
+            step_op = torch.where(m_diag, 0, torch.where(in_d, 1, 2))
+            advances = m_diag | in_d | in_i
+            flush = advances & (step_op != cur_op)
+            ptr = emit(flush & (cur_op != -1))
+            run = torch.where(flush, 1, torch.where(advances, run + 1, run))
+            cur_op = torch.where(advances, step_op, cur_op)
+        i -= (m_diag | in_d).to(i64)
+        j -= (m_diag | in_i).to(i64)
+        state = torch.where(
+            m_to_d, 1,
+            torch.where(
+                m_to_i, 2,
+                torch.where((in_d & (tb_d_ext == 0)) | (in_i & (tb_i_ext == 0)), 0, state),
+            ),
+        )
+        state = torch.where(m_diag | m_stop, 0, state)
+        done |= m_stop
+    runs = None
+    if cigar:
+        ptr = emit(cur_op != -1)  # the final run; a walk that never moved has none
+        runs = (ops, ptr)
+    return matches, mism, gaps, i, j, runs
+
+
 def traceback_plain(
     tb: torch.Tensor,
     q_codes: torch.Tensor,
@@ -279,58 +370,54 @@ def traceback_plain(
     bits until every pair stops; a pair that has stopped no longer changes.
     """
     count("swg.plain.traceback")
-    dev = tb.device
-    B, T = q_codes.shape[0], t_codes.shape[1]
-    k_pad = (w_pad - 3) // 2
-    rows = torch.arange(B, device=dev)
-    q = q_codes.to(torch.int64)
-    t = t_codes.to(torch.int64)
-    off = offsets.to(dev, torch.int64)
-    i = best_i.to(torch.int64).clone()
-    j = best_j.to(torch.int64).clone()
-    state = torch.zeros(B, dtype=torch.int64, device=dev)
-    matches = torch.zeros_like(state)
-    mism = torch.zeros_like(state)
-    gaps = torch.zeros_like(state)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    while True:
-        alive = ~done & (i > 0) & (j > 0)
-        if not bool(alive.any()):
-            break
-        r = (i - 1).clamp(0, rows_max - 1)
-        cell = tb[rows, r, (j - (i - off) + k_pad + 1).clamp(0, w_pad - 1)].to(torch.int64)
-        tb_m = cell & 3
-        tb_d_ext = (cell >> 2) & 1
-        tb_i_ext = (cell >> 3) & 1
-        is_match = q[rows, r] == t[rows, (j - 1 + t_pad).clamp(0, T - 1)]
-
-        in_m = alive & (state == 0)
-        m_stop = in_m & (tb_m == 3)
-        m_diag = in_m & (tb_m == 0)
-        m_to_d = in_m & (tb_m == 1)
-        m_to_i = in_m & (tb_m == 2)
-        in_d = alive & (state == 1)
-        in_i = alive & (state == 2)
-
-        matches += (m_diag & is_match).to(torch.int64)
-        mism += (m_diag & ~is_match).to(torch.int64)
-        gaps += (in_d | in_i).to(torch.int64)
-        i -= (m_diag | in_d).to(torch.int64)
-        j -= (m_diag | in_i).to(torch.int64)
-        state = torch.where(
-            m_to_d, 1,
-            torch.where(
-                m_to_i, 2,
-                torch.where((in_d & (tb_d_ext == 0)) | (in_i & (tb_i_ext == 0)), 0, state),
-            ),
-        )
-        state = torch.where(m_diag | m_stop, 0, state)
-        done |= m_stop
+    m, x, g, i, j, _ = _traceback_lockstep(
+        tb, q_codes, t_codes, best_i, best_j, offsets,
+        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad, cigar=False,
+    )
     i32 = torch.int32
     return SwgResult(
-        best.to(i32), matches.to(i32), mism.to(i32), gaps.to(i32),
+        best.to(i32), m.to(i32), x.to(i32), g.to(i32),
         i.to(i32), best_i.to(i32), j.to(i32), best_j.to(i32),
     )
+
+
+def traceback_cigar_plain(
+    tb: torch.Tensor,
+    q_codes: torch.Tensor,
+    t_codes: torch.Tensor,
+    best: torch.Tensor,
+    best_i: torch.Tensor,
+    best_j: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    rows_max: int,
+    w_pad: int,
+    t_pad: int,
+):
+    r"""Plain PyTorch CIGAR traceback (``kaptive_tpu.ops.swg._traceback_cigar``), all pairs in lockstep.
+
+    Returns ``(SwgResult, ops, n_ops, overflow)``: ``ops`` (B, MAX_CIGAR_OPS)
+    int32 holds each pair's BAM runs (``length << 4 | op``) start to end, 0
+    past ``n_ops`` (B,) int32; ``overflow`` (B,) bool marks a pair that
+    emitted more than ``MAX_CIGAR_OPS`` runs.  Overflow is the JAX package's:
+    runs past the capacity overwrite the last slot in walk order, so after the
+    flip slot 0 holds the alignment's first run and ``n_ops == MAX_CIGAR_OPS``.
+    """
+    count("swg.plain.traceback_cigar")
+    m, x, g, i, j, (ops, ptr) = _traceback_lockstep(
+        tb, q_codes, t_codes, best_i, best_j, offsets,
+        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad, cigar=True,
+    )
+    cap = MAX_CIGAR_OPS
+    n_ops = ptr.clamp(max=cap)
+    idx = torch.arange(cap, device=ops.device)[None, :]
+    flipped = torch.where(idx < n_ops[:, None], ops.gather(1, (n_ops[:, None] - 1 - idx).clamp(0, cap - 1)), 0)
+    i32 = torch.int32
+    res = SwgResult(
+        best.to(i32), m.to(i32), x.to(i32), g.to(i32),
+        i.to(i32), best_i.to(i32), j.to(i32), best_j.to(i32),
+    )
+    return res, flipped.to(i32), n_ops.to(i32), ptr > cap
 
 
 def banded_swg_plain(
@@ -384,5 +471,48 @@ def banded_swg(
     return banded_swg_plain(
         q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
         gap_open=gap_open, gap_extend=gap_extend,
+        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
+    )
+
+
+def banded_swg_cigars(
+    q_codes: torch.Tensor,
+    q_lens: torch.Tensor,
+    t_codes: torch.Tensor,
+    t_lens: torch.Tensor,
+    offsets: torch.Tensor,
+    k_locals: torch.Tensor,
+    matrix: torch.Tensor,
+    *,
+    gap_open: int,
+    gap_extend: int,
+    rows_max: int,
+    w_pad: int,
+    t_pad: int,
+):
+    r"""Banded SWG with BAM CIGARs (``banded_swg_lax_cigars``): ``(SwgResult, ops, n_ops, overflow)``.
+
+    The fill kernel then the CIGAR traceback kernel for CUDA tensors, the
+    plain pair (:func:`fill_band_plain`, :func:`traceback_cigar_plain`) on the
+    CPU; no fallback.  Outputs as :func:`traceback_cigar_plain` describes.
+    """
+    if t_pad != w_pad + 2:
+        raise ValueError(f"banded SWG requires t_pad == w_pad + 2 (got {t_pad}, {w_pad})")
+    if q_codes.is_cuda:
+        from kaptive_tpu_torch.ops import swg_cuda
+
+        return swg_cuda.banded_swg_cigars_cuda(
+            q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+            gap_open=gap_open, gap_extend=gap_extend,
+            rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
+        )
+    if q_codes.device.type != "cpu":
+        raise ValueError(f"banded_swg_cigars: unsupported device {q_codes.device}")
+    tb, best, bi, bj = fill_band_plain(
+        q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+        gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad,
+    )
+    return traceback_cigar_plain(
+        tb, q_codes, t_codes, best, bi, bj, offsets,
         rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
     )

@@ -1,8 +1,9 @@
 r"""ctypes binding of the Hopper banded-SWG kernels (``csrc/swg.cu``).
 
-Replaces ``kaptive_tpu/ops/swg_pallas.py::_swg_fill_kernel`` (the band fill)
-and ``kaptive_tpu/ops/swg.py::_traceback`` (the walk back from the best
-cell).  The library is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`,
+Replaces ``kaptive_tpu/ops/swg_pallas.py::_swg_fill_kernel`` (the band fill),
+``kaptive_tpu/ops/swg.py::_traceback`` (the walk back from the best cell) and
+``kaptive_tpu/ops/swg.py::_traceback_cigar`` (the same walk recording BAM
+CIGAR runs).  The library is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`,
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into ``build/kaptive_tpu_torch/``
 at the root of the checkout) and loaded with ctypes; nothing is compiled at
 import.
@@ -10,7 +11,8 @@ import.
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises
 if the launch returns a CUDA error, and counts its launches
-(``swg.cuda.fill`` / ``swg.cuda.traceback`` in :mod:`kaptive_tpu.utils.metrics`).
+(``swg.cuda.fill`` / ``swg.cuda.traceback`` / ``swg.cuda.traceback_cigar`` in
+:mod:`kaptive_tpu.utils.metrics`).
 There is no fallback: what the kernels cannot take raises.
 """
 
@@ -23,7 +25,7 @@ import torch
 
 from kaptive_tpu.utils.metrics import count
 
-from kaptive_tpu_torch.ops.swg import SwgResult
+from kaptive_tpu_torch.ops.swg import MAX_CIGAR_OPS, SwgResult
 from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 
@@ -35,6 +37,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
     lib.kts_swg_traceback.restype = i32
     lib.kts_swg_traceback.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 2
+    lib.kts_swg_traceback_cigar.restype = i32
+    lib.kts_swg_traceback_cigar.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 5
 
 
 LIBRARY = CudaLibrary("swg.cu", _declare)
@@ -136,6 +140,52 @@ def swg_traceback_cuda(
     return out
 
 
+def swg_traceback_cigar_cuda(
+    tb: torch.Tensor,
+    q_codes: torch.Tensor,
+    t_codes: torch.Tensor,
+    best: torch.Tensor,
+    best_i: torch.Tensor,
+    best_j: torch.Tensor,
+    offsets: torch.Tensor,
+    *,
+    rows_max: int,
+    w_pad: int,
+    t_pad: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    r"""CIGAR traceback on the card: ``(out, ops, n_ops, overflow)``.
+
+    ``out`` is (8, B) int32 in :class:`SwgResult` field order; ``ops``,
+    ``n_ops`` and ``overflow`` are :func:`~kaptive_tpu_torch.ops.swg.traceback_cigar_plain`'s.
+    """
+    device = tb.device
+    if device.type != "cuda":
+        raise ValueError(f"swg_traceback_cigar_cuda expects CUDA tensors, got {device}")
+    lib = build()
+    B = q_codes.shape[0]
+    T = t_codes.shape[1] if t_codes.dim() == 2 else -1
+    check_tensor("tb", tb, torch.uint8, (B, rows_max, w_pad), device)
+    check_tensor("q_codes", q_codes, torch.uint8, (B, rows_max), device)
+    check_tensor("t_codes", t_codes, torch.uint8, (B, T), device)
+    for name, x in (("best", best), ("best_i", best_i), ("best_j", best_j), ("offsets", offsets)):
+        check_tensor(name, x, torch.int32, (B,), device)
+    out = torch.empty((8, B), dtype=torch.int32, device=device)
+    ops = torch.empty((B, MAX_CIGAR_OPS), dtype=torch.int32, device=device)
+    n_ops = torch.empty(B, dtype=torch.int32, device=device)
+    overflow = torch.empty(B, dtype=torch.bool, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.kts_swg_traceback_cigar(
+        tb.data_ptr(), q_codes.data_ptr(), t_codes.data_ptr(), best.data_ptr(),
+        best_i.data_ptr(), best_j.data_ptr(), offsets.data_ptr(),
+        B, rows_max, w_pad, T, int(t_pad),
+        out.data_ptr(), ops.data_ptr(), n_ops.data_ptr(), overflow.data_ptr(), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"swg CIGAR traceback kernel launch failed: CUDA error {rc}")
+    count("swg.cuda.traceback_cigar")
+    return out, ops, n_ops, overflow
+
+
 def as_kernel_matrix(matrix: torch.Tensor | object, device: torch.device) -> torch.Tensor:
     r"""A (256, 256) substitution matrix as the kernels' contiguous int8 tensor on ``device``.
 
@@ -167,3 +217,22 @@ def banded_swg_cuda(
         rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
     )
     return SwgResult(*out.unbind(0))
+
+
+def banded_swg_cigars_cuda(
+    q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+    *, gap_open: int, gap_extend: int, rows_max: int, w_pad: int, t_pad: int,
+):
+    r"""Fill + CIGAR traceback on the card: ``(SwgResult, ops, n_ops, overflow)`` as the plain version."""
+    if t_pad != w_pad + 2:
+        raise ValueError(f"banded SWG requires t_pad == w_pad + 2 (got {t_pad}, {w_pad})")
+    matrix = as_kernel_matrix(matrix, q_codes.device)
+    tb, best, best_i, best_j = swg_fill_cuda(
+        q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+        gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad,
+    )
+    out, ops, n_ops, overflow = swg_traceback_cigar_cuda(
+        tb, q_codes, t_codes, best, best_i, best_j, offsets,
+        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
+    )
+    return SwgResult(*out.unbind(0)), ops, n_ops, overflow

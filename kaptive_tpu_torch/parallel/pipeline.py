@@ -56,11 +56,13 @@ def stream_batches(
     *,
     pre_seed: PreSeed | None = None,
     upload_to: torch.device | None = None,
+    max_workers: int | None = None,
 ) -> Iterator[list[Ingested]]:
     r"""Yield ingested ``(assembly, contig index)`` batches, prefetching ahead of
     the consumer.  ``pre_seed(ci)`` returns the ``host_chains`` entry (host
     seeding); ``upload_to`` is the device each assembly's upload form is
-    copied to (device seeding)."""
+    copied to (device seeding).  ``max_workers`` sizes the ingest pool
+    (``None``: the machine's core count, between 2 and 16)."""
     genome_list = list(genomes)
     if not genome_list:
         return
@@ -72,7 +74,9 @@ def stream_batches(
         bounds.append(min(bounds[-1] + batch_size, len(genome_list)))
     groups = [genome_list[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
     # Ingest is CPU work with no blocking waits: size the pool to the machine.
-    with ThreadPoolExecutor(max_workers=max(2, min(16, os.cpu_count() or 8))) as pool:
+    if max_workers is None:
+        max_workers = max(2, min(16, os.cpu_count() or 8))
+    with ThreadPoolExecutor(max_workers=max_workers) as pool:
         pending = [
             [pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[gi]]
             for gi in range(min(PREFETCH_BATCHES + 1, len(groups)))
@@ -86,10 +90,16 @@ def stream_batches(
             yield [f.result() for f in futures]
 
 
+def auto_batch_size(per_device: int = 16) -> int:
+    r"""Default assemblies per stream batch: ``per_device`` x the cards used, one today."""
+    return per_device
+
+
 def stream_type(
     serotyper,
     genomes: Iterable[str | Path | IO[bytes]],
     batch_size: int = 8,
+    max_workers: int | None = None,
 ):
     r"""Generator of SerotypingResult over a streamed, prefetched genome list.
 
@@ -97,6 +107,7 @@ def stream_type(
     thread) overlaps batch k's ``Serotyper.finish_batch`` (this thread).  The
     ingest pool pre-seeds every assembly against the serotyper's gene index
     in host mode, and pre-uploads it to the serotyper's device in device mode.
+    ``max_workers`` sizes the ingest pool (:func:`stream_batches`).
     """
     if resolve_seed_mode() == "host":
         gene_index = serotyper.gene_index
@@ -107,9 +118,9 @@ def stream_type(
         def pre_seed(ci: ContigIndex) -> tuple:
             return gene_index, mp, host_seed_chains(gene_index, ci, mp)
 
-        batches = stream_batches(genomes, batch_size, pre_seed=pre_seed)
+        batches = stream_batches(genomes, batch_size, pre_seed=pre_seed, max_workers=max_workers)
     else:
-        batches = stream_batches(genomes, batch_size, upload_to=serotyper.device)
+        batches = stream_batches(genomes, batch_size, upload_to=serotyper.device, max_workers=max_workers)
     with ThreadPoolExecutor(max_workers=1) as device_stage:
         pending = None  # future over map_batch for the batch ahead
         for batch in batches:

@@ -112,6 +112,7 @@ class Serotyper:
         self._descr_bytes = _byte_vocab(db.description_keys)
         # Mapper q_names convention: stringified DB gene indices.
         self._gene_names = tuple(str(i) for i in range(len(db.genes)))
+        self._screen_tables = None
 
     @property
     def gene_index(self) -> GeneIndex:
@@ -272,6 +273,83 @@ class Serotyper:
                 for a in range(n_asm)
             ]
         return results
+
+    def screen(self, genomes: list) -> tuple[list, np.ndarray, np.ndarray]:
+        r"""Fast approximate batch pre-classification (scoring phase only).
+
+        The JAX package's :meth:`~kaptive_tpu.serotyping.core.Serotyper.screen`
+        on ``device`` (:mod:`kaptive_tpu_torch.parallel.screen`): minimizer
+        scan, gene-table tallies, one-hot locus scoring with the reference's
+        completeness^3 weighting.  Its best-locus calls agree with full typing
+        on clean assemblies; it produces no gene table, reconstruction,
+        phenotype or confidence call (``type --screen-only``).
+
+        The batch is scanned at the JAX package's stream width
+        (:func:`~kaptive_tpu_torch.parallel.screen.encode_assemblies_to_batch`).
+        Returns ``(assemblies,
+        best_locus_indices, weighted_scores)`` with ``weighted_scores``
+        (B, n_loci) float32.
+        """
+        from kaptive_tpu_torch.parallel.screen import (
+            ScreenTables,
+            encode_assemblies_to_batch,
+            locus_screen_batch,
+        )
+
+        with phase_timer("screen.parse"):
+            assemblies = [GenomeAssembly.ensure(g) for g in genomes]
+        if not assemblies:
+            return [], np.empty(0, dtype=np.int32), np.empty((0, len(self._db.loci)))
+        if self._screen_tables is None:
+            self._screen_tables = ScreenTables.build(self._db, self._gene_index)
+        with phase_timer("screen.encode"):
+            codes = encode_assemblies_to_batch(assemblies)
+        with phase_timer("screen.device"):
+            best, weighted, _ = locus_screen_batch(
+                torch.from_numpy(codes).to(self.device), self._screen_tables, n_genes=len(self._db.genes)
+            )
+            best, weighted = best.cpu().numpy(), weighted.cpu().numpy()
+        return assemblies, best, weighted
+
+    def warmup(self, genome_length: int = 5_500_000, batch_size: int = 8, seed: int = 0) -> float:
+        r"""Build the kernels and type one synthetic batch; returns elapsed seconds.
+
+        The counterpart of the JAX package's ``Serotyper.warmup`` (``type
+        --precompile``): on CUDA it builds ``csrc/swg.cu`` and ``csrc/scan.cu``
+        (nvcc at first use), then types ``min(batch_size, 8)`` synthetic
+        assemblies of ``genome_length`` built exactly as the JAX package
+        builds them (random flanks around one DB locus each, from ``seed``),
+        so the first real batch pays no build, allocator or first-launch
+        cost.  Nothing is precompiled per DP shape: eager PyTorch has no
+        per-shape programs.
+        """
+        import io
+        import time
+
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from kaptive_tpu_torch.ops import scan_cuda, swg_cuda
+
+            swg_cuda.build()
+            scan_cuda.build()
+        db = self._db
+        rng = np.random.default_rng(seed)
+        bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+        genomes = []
+        for i in range(min(batch_size, 8)):  # the JAX package's one scan chunk
+            li = i % max(len(db.loci), 1)
+            locus = db.loci.seqs[
+                db.loci.offsets[li] : db.loci.offsets[li] + db.loci.lengths[li]
+            ].tobytes() if len(db.loci) else b""
+            flank = max((genome_length - len(locus)) // 2, 1)
+            contig = (
+                bases[rng.integers(0, 4, flank)].tobytes()
+                + locus
+                + bases[rng.integers(0, 4, flank)].tobytes()
+            )
+            genomes.append(GenomeAssembly.from_stream(io.BytesIO(b">c1\n%s\n" % contig), f"warmup{i}"))
+        self.batch(genomes)
+        return time.perf_counter() - t0
 
     def _assemble_result(
         self, genome, a, pick, recon, hits, rows, pieces,

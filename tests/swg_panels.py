@@ -67,3 +67,91 @@ def random_swg_batch(rng, alphabet: bytes, n_pairs: int, rows_max: int, w_pad: i
         else:
             kls[p] = min(max(20, abs(len(a) - len(b)) + 1), k_cap)
     return q, q_lens, t, t_lens, offs, kls
+
+
+def _padded_bucket(pairs, rows_max: int, w_pad: int, k_local: int):
+    """(q, q_lens, t, t_lens, offsets, k_locals) of (query, target) byte pairs, seeded on diagonal 0."""
+    t_pad = w_pad + 2
+    n = len(pairs)
+    q = np.zeros((n, rows_max), np.uint8)
+    t = np.zeros((n, rows_max + 2 * t_pad), np.uint8)
+    for p, (a, b) in enumerate(pairs):
+        q[p, : len(a)] = np.frombuffer(a, np.uint8)
+        t[p, t_pad : t_pad + len(b)] = np.frombuffer(b, np.uint8)
+    lens = [np.array([len(x) for x in side], np.int32) for side in zip(*pairs)]
+    return q, lens[0], t, lens[1], np.zeros(n, np.int32), np.full(n, k_local, np.int32)
+
+
+def _random_bytes(rng, alphabet: bytes, n: int) -> bytes:
+    return np.frombuffer(alphabet, np.uint8)[rng.integers(0, len(alphabet), n)].tobytes()
+
+
+def _indel_copy(rng, a: bytes) -> bytes:
+    """``a`` with about 3% substitutions, 2% deletions and 2% insertions of 1-3 bases."""
+    b = bytearray()
+    for c in a:
+        r = rng.random()
+        if r < 0.02:
+            continue  # deletion from the target
+        b.append(c if r > 0.05 else NT[rng.integers(0, 4)])
+        if r > 0.98:
+            b += _random_bytes(rng, NT, int(rng.integers(1, 4)))  # insertion
+    return bytes(b)
+
+
+def _alternating_indels(rng, a: bytes) -> bytes:
+    """``a`` with an inserted and a deleted base in turn every four bases: two runs per four bases."""
+    b = bytearray()
+    for k in range(0, len(a), 4):
+        chunk = a[k : k + 4]
+        b += _random_bytes(rng, NT, 1) + chunk if (k // 4) % 2 == 0 else chunk[1:]
+    return bytes(b)
+
+
+def cigar_bucket(rng, n_pairs: int = 384, rows_max: int = 1024, w_pad: int = 128):
+    """A full-size DNA CIGAR bucket: ``(arrays, matrix, gap_open, gap_extend, rows_max, w_pad)``.
+
+    Pair 0 emits far more than 256 runs (:func:`_alternating_indels` over
+    nearly ``rows_max`` bases); the others are indel copies of 100 to
+    ``rows_max`` bases, so both BAM ``I`` and ``D`` runs are common.
+    """
+    a = _random_bytes(rng, NT, rows_max - 16)
+    pairs = [(a, _alternating_indels(rng, a)[:rows_max])]
+    for _ in range(n_pairs - 1):
+        a = _random_bytes(rng, NT, int(rng.integers(100, rows_max + 1)))
+        pairs.append((a, _indel_copy(rng, a)[:rows_max]))
+    return _padded_bucket(pairs, rows_max, w_pad, 20), nt_matrix(), 4, 2, rows_max, w_pad
+
+
+def cigar_panel(rng, kind: str):
+    """A CIGAR-mode bucket: ``(arrays, matrix, gap_open, gap_extend, rows_max, w_pad)``.
+
+    ``nt-indels``: mutated DNA copies with substitutions, insertions and
+    deletions; ``protein``: BLOSUM62 pairs; ``overflow``: one pair whose
+    alignment alternates an inserted and a deleted base every four bases (far
+    more than 256 runs) beside two ordinary pairs; ``no-op``: pairs whose walk
+    emits no run (empty query, empty target, nothing that scores) beside one
+    that does.
+    """
+    if kind == "protein":
+        return random_swg_batch(rng, AA, 10, 128, 128, seeded=False), blosum_matrix(), 11, 1, 128, 128
+    pairs = []
+    if kind == "nt-indels":
+        for _ in range(12):
+            a = _random_bytes(rng, NT, int(rng.integers(40, 240)))
+            pairs.append((a, _indel_copy(rng, a)[:256]))
+        return _padded_bucket(pairs, 256, 128, 20), nt_matrix(), 4, 2, 256, 128
+    if kind == "overflow":
+        a = _random_bytes(rng, NT, 1200)
+        b = _alternating_indels(rng, a)
+        c = _random_bytes(rng, NT, 300)
+        pairs = [(a, b[:1280]), (c, c), (c[:200], _random_bytes(rng, NT, 220))]
+        return _padded_bucket(pairs, 1280, 128, 20), nt_matrix(), 4, 2, 1280, 128
+    if kind == "no-op":
+        c = _random_bytes(rng, NT, 90)
+        pairs = [(b"", c), (c, b""), (b"A" * 60, b"C" * 60), (c, c)]
+        return _padded_bucket(pairs, 128, 128, 20), nt_matrix(), 4, 2, 128, 128
+    raise ValueError(kind)
+
+
+CIGAR_PANELS = ("nt-indels", "protein", "overflow", "no-op")

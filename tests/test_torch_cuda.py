@@ -1,4 +1,4 @@
-"""Hopper kernels (banded SWG, row-compact scan) vs their plain PyTorch versions, on the card.
+"""Hopper kernels (banded SWG, CIGAR traceback, row-compact scan) vs their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file imports
 only torch, numpy and the port; ``tests/conftest.py`` imports jax and sets it
@@ -6,8 +6,11 @@ up for the JAX package's CPU tests, so run this file on the card's machine
 with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``.
 
 Tolerance: exact.  The DP is integer arithmetic; every SwgResult field and
-every traceback byte on rows the query reaches must be equal.  The scan's
-``hashes``, ``aux`` and ``counts`` must be equal.
+every traceback byte on rows the query reaches must be equal; the CIGAR
+traceback's whole ``ops`` buffers, ``n_ops`` and ``overflow`` too.  The scan's
+``hashes``, ``aux`` and ``counts`` must be equal.  The screen's ``best`` and
+tallies on the card equal the CPU's exactly, its float32 ``weighted`` scores
+to ``rtol=1e-6``; the CLI on the card writes the in-process rows' bytes.
 """
 
 import numpy as np
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 from scan_panels import PANELS, random_stream
-from swg_panels import AA, NT, blosum_matrix, nt_matrix, random_swg_batch
+from swg_panels import AA, CIGAR_PANELS, NT, blosum_matrix, cigar_panel, nt_matrix, random_swg_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +187,138 @@ def test_device_seeded_serotyper_on_card_equals_host(scan_device, monkeypatch, t
     assert counts.get("scan.cuda.rowcompact", 0) > 0 and "scan.plain.rowcompact" not in counts
     assert counts.get("swg.cuda.fill", 0) > 0 and "swg.plain.fill" not in counts
     assert counts.get("map.device_chained") == 2 * len(genomes)
+
+
+@pytest.mark.parametrize("kind", CIGAR_PANELS)
+def test_cigar_kernel_equals_plain(device, kind):
+    from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_cigar_plain
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, swg_fill_cuda, swg_traceback_cigar_cuda
+
+    arrays, matrix, go, ge, rows_max, w_pad = cigar_panel(np.random.default_rng(sum(map(ord, kind))), kind)
+    q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
+    mat = as_kernel_matrix(torch.from_numpy(matrix), device)
+    tb, *best = swg_fill_cuda(q, ql, t, tl, off, kl, mat, gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
+    # Both walks read the kernel's traceback bits (the fill is held to its plain version above).
+    tr = dict(rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
+    out, ops, n_ops, overflow = swg_traceback_cigar_cuda(tb, q, t, *best, off, **tr)
+    res_p, ops_p, n_p, over_p = traceback_cigar_plain(tb, q, t, *best, off, **tr)
+    torch.cuda.synchronize()
+    for f, got, want in zip(res_p._fields, out.unbind(0), res_p):
+        assert torch.equal(got, want), f
+    assert ops.dtype == ops_p.dtype and torch.equal(ops, ops_p)
+    assert torch.equal(n_ops, n_p) and torch.equal(overflow, over_p)
+    if kind == "overflow":
+        assert bool(overflow[0]) and not overflow[1:].any()
+
+
+def test_cigar_front_door_routes_cuda_to_kernels(device):
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+
+    from kaptive_tpu_torch.ops.swg import banded_swg_cigars
+
+    arrays, matrix, go, ge, rows_max, w_pad = cigar_panel(np.random.default_rng(9), "nt-indels")
+    kw = dict(gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
+    reset_metrics()
+    on_card = banded_swg_cigars(*(torch.from_numpy(a).to(device) for a in arrays),
+                                torch.from_numpy(matrix).to(device), **kw)
+    assert snapshot() == {"swg.cuda.fill": 1, "swg.cuda.traceback_cigar": 1}
+    reset_metrics()
+    on_cpu = banded_swg_cigars(*(torch.from_numpy(a) for a in arrays), torch.from_numpy(matrix), **kw)
+    assert snapshot() == {"swg.plain.fill": 1, "swg.plain.traceback_cigar": 1}
+    for got, want in zip([*on_card[0], *on_card[1:]], [*on_cpu[0], *on_cpu[1:]]):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("seed_mode", ["host", "device"])
+def test_mapper_cigars_on_card_equal_cpu(scan_device, seed_mode, tmp_path):
+    import io
+
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import assert_same, make_typing_panel
+
+    from kaptive_tpu.core.genome import GenomeAssembly
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch
+
+    db, genomes = make_typing_panel(tmp_path)
+    assemblies = [GenomeAssembly.from_stream(io.BytesIO(f), n) for n, f in genomes]
+    gi = GeneIndex.build(db.genes)
+    names = tuple(str(i) for i in range(len(db.genes)))
+    params = MapperParams(emit_cigars=True)
+    reset_metrics()
+    got = map_genes_batch(gi, assemblies, names, params, seed_mode=seed_mode, device="cuda")
+    counts = snapshot()
+    assert counts.get("swg.cuda.traceback_cigar", 0) > 0 and "swg.plain.traceback_cigar" not in counts
+    want = map_genes_batch(gi, assemblies, names, params, seed_mode=seed_mode, device="cpu")
+    assert_same(got, want)
+    assert sum(int(a.cigars.lengths.sum()) for a in got) > 0
+
+
+def test_screen_on_card_equals_cpu(scan_device, tmp_path):
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import TRUTH, make_typing_panel
+
+    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.ops.mapper import GeneIndex
+    from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    db, genomes = make_typing_panel(tmp_path)
+    # A 400-base poly-A run before the KL3 locus: its scan rows hold more than
+    # 64 minimizers, so the card re-tallies that genome from the flat plain scan.
+    revcomp = dict(genomes)["revcomp"]
+    genomes.append(("poly_a", revcomp[:4] + b"A" * 400 + revcomp[4:]))
+    paths = []
+    for name, fasta in genomes:
+        (path := tmp_path / f"{name}.fasta").write_bytes(fasta)
+        paths.append(path)
+    reset_metrics()
+    assemblies, best, weighted = Serotyper(db, device="cuda").screen(paths)
+    counts = snapshot()
+    assert counts.get("scan.cuda.rowcompact") == 1 and "scan.plain.rowcompact" not in counts
+    assert counts.get("screen.overflow") == 1
+    reset_metrics()
+    _, best_cpu, weighted_cpu = Serotyper(db, device="cpu").screen(paths)
+    assert snapshot().get("screen.overflow") == 1
+    np.testing.assert_array_equal(best, best_cpu)
+    np.testing.assert_allclose(weighted, weighted_cpu, rtol=1e-6)
+    assert [db.loci.ids[b] for b in best[:2]] == TRUTH[:2]
+    codes = torch.from_numpy(encode_assemblies_to_batch(assemblies))
+    tables = ScreenTables.build(db, GeneIndex.build(db.genes))
+    best_card, _, tallies_card = locus_screen_batch(codes.to(scan_device), tables, len(db.genes))
+    best_plain, _, tallies_cpu = locus_screen_batch(codes, tables, len(db.genes))
+    assert torch.equal(tallies_card.cpu(), tallies_cpu)
+    assert torch.equal(best_card.cpu(), best_plain)
+
+
+def test_cli_on_card_equals_in_process_rows(scan_device, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import make_typing_panel
+
+    from kaptive_tpu.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    db, genomes = make_typing_panel(tmp_path)
+    paths = []
+    for name, fasta in genomes:
+        (path := tmp_path / f"{name}.fasta").write_bytes(fasta)
+        paths.append(str(path))
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    want = KaptiveRow.header() + b"".join(bytes(KaptiveRow.from_result(r))
+                                          for r in Serotyper(db, device="cuda").batch(paths))
+    for mode in ("host", "device"):
+        out = tmp_path / f"{mode}.tsv"
+        proc = subprocess.run(
+            [sys.executable, "-m", "kaptive_tpu_torch.cli", "type", str(tmp_path / "TestDB.gbk"), *paths,
+             "-o", str(out), "--device", "cuda", "--seed-mode", mode, "--batch-size", "2",
+             *(["--precompile"] if mode == "device" else [])],
+            cwd=tmp_path, env=env, capture_output=True, timeout=600,
+        )
+        assert proc.returncode == 0, proc.stderr.decode()[-3000:]
+        assert out.read_bytes() == want, mode

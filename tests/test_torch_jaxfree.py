@@ -1,9 +1,12 @@
 """The port never imports jax: a subprocess imports the port, types one small genome
-on the CPU in host- and in device-seeded mode and checks that no ``jax*``
-module was loaded — once with every
+on the CPU in host- and in device-seeded mode, runs the port's command line
+(``kaptive_tpu_torch.cli.main``) on it and checks that no ``jax*`` module was
+loaded — once with every
 ``jax*`` import blocked (a machine without jax) and once with jax importable
 (as on the GPU machine, where jax is installed but must stay unused).  In that
-process the JAX package's ``Serotyper`` raises an ImportError that names the cause."""
+process the names the JAX package's ``kaptive_tpu.serotyping`` re-exports from
+its jax-free modules (``KaptiveRow``, ``SerotypingResult``, ...) import as the
+port's, and its ``Serotyper`` raises an ImportError that names the cause."""
 
 import json
 import os
@@ -16,7 +19,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import importlib.abc, io, json, os, sys, tempfile
+import importlib.abc, io, json, os, shutil, sys, tempfile
 from pathlib import Path
 
 
@@ -45,10 +48,10 @@ from kaptive_tpu_torch.parallel import stream_type
 from kaptive_tpu_torch.serotyping import KaptiveRow, Serotyper
 
 rng = np.random.default_rng(17)
-with tempfile.TemporaryDirectory() as tmp:
-    gbk, truth = make_synthetic_db(Path(tmp), rng, n_loci=3, genes_per_locus=4)
-    db = Database.from_genbank(gbk)
-    fasta = make_genome_from_locus(rng, truth, "KL2")
+tmp = Path(tempfile.mkdtemp())
+gbk, truth = make_synthetic_db(tmp, rng, n_loci=3, genes_per_locus=4)
+db = Database.from_genbank(gbk)
+fasta = make_genome_from_locus(rng, truth, "KL2")
 serotyper = Serotyper(db, device="cpu")
 result = serotyper(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))
 streamed = list(stream_type(serotyper, [io.BytesIO(fasta)], batch_size=1))
@@ -62,10 +65,26 @@ try:
     skipped_init = None
 except ImportError as err:
     skipped_init = str(err)
+from kaptive_tpu.serotyping import KaptiveRow as BareRow, SerotypingResult as BareResult
+from kaptive_tpu_torch.serotyping import SerotypingResult
+reexports = BareRow is KaptiveRow and BareResult is SerotypingResult
+
+from kaptive_tpu_torch.cli import main
+
+(tmp / "g.fasta").write_bytes(fasta)
+sys.argv = ["kaptive-tpu-torch", "type", str(gbk), str(tmp / "g.fasta"), "-o", str(tmp / "out.tsv"),
+            "-j", str(tmp / "out.jsonl"), "--device", "cpu"]
+main()
+cli_rows = (tmp / "out.tsv").read_bytes().splitlines()[1:]
+sys.argv = ["kaptive-tpu-torch", "convert", str(tmp / "out.jsonl"), "-t", str(tmp / "conv.tsv")]
+main()
+converted = (tmp / "conv.tsv").read_bytes().splitlines()[1:] == cli_rows
+shutil.rmtree(tmp)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
 print(json.dumps({"locus": result.best_locus_name, "streamed": streamed[0].best_locus_name,
                   "row_bytes": len(row), "device_rows_equal": device_rows == [row, bytes(KaptiveRow.from_result(streamed[0]))],
-                  "skipped_init": skipped_init, "jax_modules": loaded}))
+                  "skipped_init": skipped_init, "reexports": reexports,
+                  "cli_rows_equal": cli_rows == row.splitlines(), "converted": converted, "jax_modules": loaded}))
 """
 
 
@@ -84,3 +103,6 @@ def test_port_types_without_jax(jax_import):
     assert out["device_rows_equal"]
     # The JAX package's own entry points say why they are missing.
     assert "kaptive_tpu_torch loaded 'kaptive_tpu.serotyping' as a bare package" in out["skipped_init"]
+    # ... and the writers' row classes are there, so the CLI's writers work.
+    assert out["reexports"]
+    assert out["cli_rows_equal"] and out["converted"]
