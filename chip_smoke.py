@@ -5,12 +5,15 @@ Run from the root of a checkout on a machine with a CUDA card::
 
     python3 chip_smoke.py
 
-It needs one card, no network and no jax.  Steps:
+It needs one card and no network, and it imports the port alone: neither jax
+nor the JAX package ``kaptive_tpu`` (a check before the last lines fails if a
+module of either was loaded).  Steps:
 
 1. Print the card's ``name, power.limit`` (``nvidia-smi``), refuse to run
-   without CUDA, and build the Hopper kernels (``kaptive_tpu_torch/csrc/swg.cu``
-   and ``csrc/scan.cu``, one nvcc each, started together, into ``build/``) and
-   the native host library, printing build seconds.
+   without CUDA, and build what the port builds, all from
+   ``kaptive_tpu_torch/csrc/`` into ``build/kaptive_tpu_torch/``: the Hopper
+   kernels (``swg.cu`` and ``scan.cu``, one nvcc each) and the native host
+   library (``hostio.cpp``, g++), started together, printing build seconds.
 2. Build bench.py's workload: a 140-locus x 18-gene synthetic database and
    eight 5.3 Mb assemblies, two per composition class (clean, diverged,
    fragmented, draft), from seed 2026.
@@ -24,7 +27,10 @@ It needs one card, no network and no jax.  Steps:
 5. The largest extension bucket and the largest protein bucket of the
    measured pass are re-run through each kernel and its plain version on the
    card: every SwgResult field must be equal, and the traceback bits on the
-   rows each query reaches.  Both are timed with CUDA events.
+   rows each query reaches.  Both are timed with CUDA events.  Both buckets
+   take the fill's warp form; a synthetic protein bucket with ``w_pad`` 1152
+   holds the fill's wide form (and the traceback after it) to the plain
+   versions too.
 6. The same 8 assemblies are typed device-seeded (``KAPTIVE_SEED_MODE=device``)
    on ``cuda``: a priming pass, then a measured pass with the counts set to 0
    just before and read just after.  All 8 calls must be correct and every
@@ -69,9 +75,19 @@ It needs one card, no network and no jax.  Steps:
 11. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
     ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
     times, and band cells per second of the fill.
+12. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
+    (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
+    lattice batch of 384 pairs fills the card.
 
 Any failure raises (non-zero exit).  The last lines are the kernels' JSON
 record, the card line, and ``{"ok": true, "device": {...}}``.
+
+Each kernel's ``bound_ms`` is the least time the card could take for the work
+this run's data needs: the larger of the bytes moved (inputs read once,
+outputs written once) over 3.35 TB/s and the integer operations over the
+card's int32 rate, taken as a quarter of its 67 TFLOP/s float32 rate (half
+the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
+PyTorch call computes any of the four functions, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -94,16 +110,52 @@ MEASURE_PASSES = 3
 # (alphabet, B, rows_max, w_pad): the extension lattice's full buckets, and a protein one.
 SYNTHETIC_BUCKETS = (("nt", 384, 1024, 128), ("nt", 384, 2560, 128), ("nt", 384, 2560, 512),
                      ("aa", 96, 1024, 640))
-sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # bench.py and tests/synthetic.py
+WIDE_FORM_BUCKET = (24, 512, 1152)  # (B, rows_max, w_pad): protein pairs, above the warp form's widths
+LIVE_PAIR_STEPS = (44, 384, 1536)  # live pairs of the (1024, 128) shape timed by --measure
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+INT32_OPS_PER_S = 67e12 / 4  # a quarter of the float32 rate: half the lanes, no multiply-add counted double
+FILL_OPS_PER_CELL = 50  # integer operations of the fill's two passes for one band cell
+WALK_OPS_PER_STEP = 10  # integer operations of one traceback step
+SCAN_OPS_PER_POSITION = 35  # rolling k-mer, hash and sliding-window minimum for one position
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # bench.py and the tests' workload builders
+
+
+def _bound(n_bytes: int, n_ops: int) -> dict:
+    """``bound_ms`` and ``bound_by`` for work of ``n_bytes`` moved and ``n_ops`` integer operations."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _fill_bound(q_lens, t_cols: int, rows_max: int, w_pad: int) -> dict:
+    """The fill's bound: one traceback byte written per band cell of the rows each query
+    reaches, the query and target windows, lengths and matrix read once; ~50 operations a cell."""
+    rows = int(q_lens.clamp(0, rows_max).long().sum())
+    pairs = int(q_lens.numel())
+    live = int((q_lens > 0).sum())
+    n_bytes = rows * w_pad + rows + live * 2 * w_pad + rows + 65536 + 28 * pairs
+    return _bound(n_bytes, rows * w_pad * FILL_OPS_PER_CELL)
+
+
+def _walk_bound(res, extra_bytes: int = 0) -> dict:
+    """A traceback's bound from the walks' own lengths (``res`` is its (8, B) output): a 32-byte
+    sector of traceback bits, a query and a target byte per step; 28 bytes in and 32 out per pair."""
+    steps = int((res[1] + res[2] + res[3]).long().sum())
+    return _bound(steps * 34 + 60 * int(res.shape[1]) + extra_bytes, steps * WALK_OPS_PER_STEP)
 
 
 def _timed(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` over ``reps`` calls on the card (CUDA events, after one warm-up)."""
+    """Mean milliseconds of ``fn()`` over ``reps`` calls on the card (CUDA events, after one warm-up).
+
+    A short kernel takes less time than its Python wrapper takes to enqueue it,
+    so the card is first kept busy for ~10 ms while every call is queued: the
+    events then bracket the calls running back to back, not the host's pace.
+    """
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -170,18 +222,25 @@ def _check_scan(codes, k: int, w: int) -> dict:
     times = {"ms": _timed(lambda: rowcompact_scan_cuda(codes, k, w), 20),
              "plain_ms": _timed(lambda: rowcompact_scan_plain(codes, k, w), 2)}
     B, r_pad, _ = codes.shape
+    n_bytes = codes.numel() * codes.element_size() + sum(g.numel() * g.element_size() for g in got)
+    times.update(_bound(n_bytes, codes.numel() * SCAN_OPS_PER_POSITION))
     print(f"# scan batch (B, rows) = ({B}, {r_pad - 16}), {int(got[2].sum())} minimizers, max row count "
           f"{int(got[2].max())}: kernel == plain on hashes, aux, counts; kernel {times['ms']:.4f} ms, "
-          f"plain {times['plain_ms']:.4f} ms", flush=True)
+          f"plain {times['plain_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']}", flush=True)
     return {"max_abs_err": max_err, "shape": (B, r_pad - 16), **times}
 
 
-def _check_bucket(label: str, args, kw) -> dict:
-    """Kernel vs plain version on one recorded bucket; returns times and the largest difference."""
+def _check_bucket(label: str, args, kw, form: str) -> dict:
+    """Kernel vs plain version on one bucket, which must take the fill's ``form``;
+    returns times, bounds and the largest difference."""
     import torch
 
     from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_plain
-    from kaptive_tpu_torch.ops.swg_cuda import swg_fill_cuda, swg_traceback_cuda
+    from kaptive_tpu_torch.ops.swg_cuda import fill_form, swg_fill_cuda, swg_traceback_cuda
+
+    if fill_form(kw["w_pad"]) != form:
+        raise AssertionError(f"{label} bucket: w_pad {kw['w_pad']} takes the fill's {fill_form(kw['w_pad'])} form, "
+                             f"not the {form} form")
 
     q, q_lens, t, t_lens, offsets, k_locals, matrix = args
     fill_kw = {k: kw[k] for k in ("gap_open", "gap_extend", "rows_max", "w_pad")}
@@ -208,9 +267,13 @@ def _check_bucket(label: str, args, kw) -> dict:
     }
     shape = (int(q.shape[0]), kw["rows_max"], kw["w_pad"])
     live = int((q_lens > 0).sum())
-    print(f"# {label} bucket (B, rows_max, w_pad) = {shape}, {live} live pairs: kernel == plain; "
-          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
-    return {"max_abs_err": max_err, "shape": shape, **times}
+    fill_b = _fill_bound(q_lens, int(t.shape[1]), kw["rows_max"], kw["w_pad"])
+    walk_b = _walk_bound(res_k)
+    print(f"# {label} bucket (B, rows_max, w_pad) = {shape}, {live} live pairs, fill in its {form} form: "
+          "kernel == plain; " + ", ".join(f"{k} {v:.4f}" for k, v in times.items())
+          + f"; bounds: fill {fill_b['bound_ms']:.5f} ms by {fill_b['bound_by']}, traceback "
+          f"{walk_b['bound_ms']:.6f} ms by {walk_b['bound_by']}", flush=True)
+    return {"max_abs_err": max_err, "shape": shape, "fill_bound": fill_b, "traceback_bound": walk_b, **times}
 
 
 def _check_cigar_bucket(args, kw, label: str) -> dict:
@@ -238,6 +301,7 @@ def _check_cigar_bucket(args, kw, label: str) -> dict:
     times = {"ms": _timed(lambda: swg_traceback_cigar_cuda(tb, q, t, *best, offsets, **tb_kw), 20),
              "plain_ms": _timed(lambda: traceback_cigar_plain(tb, q, t, *best, offsets, **tb_kw), 2)}
     shape = (int(q.shape[0]), kw["rows_max"], kw["w_pad"])
+    times.update(_walk_bound(out, extra_bytes=ops.numel() * 4 + 5 * int(q.shape[0])))
     kinds = torch.where(ops != 0, ops & 0xF, -1)
     runs = {op: int((kinds == code).sum()) for op, code in (("M", 0), ("I", 1), ("D", 2))}
     print(f"# {label} CIGAR bucket (B, rows_max, w_pad) = {shape}, {int((q_lens > 0).sum())} live pairs, "
@@ -270,7 +334,7 @@ def cli_phase(card: str, sources: dict, assemblies, results) -> dict:
     """Step 7: the port's ``type`` and ``convert`` as subprocesses; returns wall seconds per mode."""
     import subprocess
 
-    from kaptive_tpu.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
 
     want = KaptiveRow.header() + b"".join(bytes(KaptiveRow.from_result(r)) for r in results)
     truth = [a[1].encode() for a in assemblies]
@@ -331,10 +395,10 @@ def screen_phase(card: str, db, assemblies) -> float:
     import numpy as np
     import torch
 
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-    from kaptive_tpu.utils.profiling import phase_report, reset_phases
     from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
     from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.profiling import phase_report, reset_phases
 
     serotyper = Serotyper(db, device="cuda")
 
@@ -386,11 +450,11 @@ def cigar_phase(serotyper, db, assemblies) -> tuple[dict, int]:
 
     import numpy as np
 
-    from kaptive_tpu.core.alignment import Alignments
-    from kaptive_tpu.core.genome import GenomeAssembly
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
     from kaptive_tpu_torch.core import pairwise
+    from kaptive_tpu_torch.core.alignment import Alignments
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
     from kaptive_tpu_torch.ops.mapper import map_genes_batch
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     genomes = [GenomeAssembly.ensure(_named_stream(name, fasta)) for name, *_, fasta in assemblies]
     names = tuple(str(i) for i in range(len(db.genes)))
@@ -466,11 +530,10 @@ def build_workload(n_assemblies: int, seed: int = SEED):
     {file name: bytes} of the database's GenBank and TOML sources)``."""
     import numpy as np
 
-    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
     from bench import GENOME_MB, KINDS, _compose_fasta
-    from synthetic import make_synthetic_db
+    from torch_synthetic import make_synthetic_db
 
-    from kaptive_tpu.db import Database
+    from kaptive_tpu_torch.db import Database
 
     rng = np.random.default_rng(seed)
     with tempfile.TemporaryDirectory() as tmp:
@@ -532,10 +595,10 @@ def measure(card: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from kaptive_tpu.core.pairwise import blosum62_matrix
-    from kaptive_tpu.utils.profiling import phase_report, reset_phases
-    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
+    from kaptive_tpu_torch.core.pairwise import blosum62_matrix
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form, swg_fill_cuda, swg_traceback_cuda
     from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.utils.profiling import phase_report, reset_phases
 
     db, assemblies, _ = build_workload(MEASURE_ASSEMBLIES)
     serotyper = Serotyper(db, device="cuda")
@@ -579,10 +642,29 @@ def measure(card: str) -> None:
         matrix = as_kernel_matrix(blosum62_matrix() if protein else nt_matrix(), args[0].device)
         kw = dict(gap_open=11 if protein else 4, gap_extend=1 if protein else 2,
                   rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
-        times = _check_bucket(f"synthetic {'protein' if protein else 'extension'}", (*args, matrix), kw)
+        times = _check_bucket(f"synthetic {'protein' if protein else 'extension'}", (*args, matrix), kw,
+                              fill_form(w_pad))
         cells = int(arrays[1].astype(np.int64).sum()) * w_pad
         print(f"#   fill: {cells / times['fill_ms'] / 1e6:.2f} G band-cells/s "
               f"(band cells = sum of q_len x w_pad) [{card}]", flush=True)
+
+    # Step 12: one shape, more and more live pairs (the rest of the bucket is empty pairs).
+    rows_max, w_pad = 1024, 128
+    matrix = as_kernel_matrix(nt_matrix(), torch.device("cuda"))
+    fill_kw = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad)
+    for live in LIVE_PAIR_STEPS:
+        B = max(384, live)
+        arrays = list(_synthetic_bucket(rng, NT, B, rows_max, w_pad))
+        arrays[1][live:] = 0
+        arrays[3][live:] = 0
+        q, ql, t, tl, off, kl = (torch.from_numpy(a).cuda() for a in arrays)
+        tb, *best = swg_fill_cuda(q, ql, t, tl, off, kl, matrix, **fill_kw)
+        fill_ms = _timed(lambda: swg_fill_cuda(q, ql, t, tl, off, kl, matrix, **fill_kw), 20)
+        walk_ms = _timed(lambda: swg_traceback_cuda(tb, q, t, *best, off, rows_max=rows_max, w_pad=w_pad,
+                                                    t_pad=w_pad + 2), 20)
+        cells = int(arrays[1].astype(np.int64).sum()) * w_pad
+        print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
+              f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
 
 def main() -> int:
@@ -596,16 +678,18 @@ def main() -> int:
                         help="after the smoke, also run the measurements of steps 6 and 7")
     opts = parser.parse_args()
 
-    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
     from bench import GENOME_MB, KINDS
+    from swg_panels import AA
 
-    from kaptive_tpu.serotyping.io import KaptiveRow
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-    from kaptive_tpu.utils.profiling import phase_report, reset_phases
     from kaptive_tpu_torch.core import pairwise
+    from kaptive_tpu_torch.core.pairwise import blosum62_matrix
+    from kaptive_tpu_torch.native import hostio
     from kaptive_tpu_torch.ops import mapper, scan_cuda, swg_cuda
     from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
     from kaptive_tpu_torch.utils.device import card_info, require_cuda
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.profiling import phase_report, reset_phases
 
     os.environ["KAPTIVE_PROFILE"] = "1"
     os.environ["KAPTIVE_SEED_MODE"] = "host"  # steps 3-5; step 6 is device-seeded
@@ -615,17 +699,14 @@ def main() -> int:
     print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # one nvcc per source, started together
-        for build in [pool.submit(m.build) for m in (swg_cuda, scan_cuda)]:
+    with ThreadPoolExecutor(max_workers=3) as pool:  # one compiler per source, all started together
+        for build in [pool.submit(fn) for fn in (swg_cuda.build, scan_cuda.build, hostio.load)]:
             build.result()
     build_s = time.perf_counter() - t0
-    print(f"# nvcc builds of csrc/swg.cu and csrc/scan.cu (in parallel): {build_s:.1f} s", flush=True)
+    print(f"# builds of csrc/swg.cu, csrc/scan.cu (nvcc) and csrc/hostio.cpp (g++), in parallel, into "
+          f"{swg_cuda.LIBRARY.library.parent.relative_to(ROOT)}/: {build_s:.1f} s", flush=True)
     for m in (swg_cuda, scan_cuda):
         print(f"# ptxas {m.LIBRARY.source.name}: {m.LIBRARY.ptxas_report()}", flush=True)
-    t0 = time.perf_counter()
-    from kaptive_tpu.native import hostio  # noqa: F401  (g++ build of native/hostio.cpp)
-
-    print(f"# native hostio build/load: {time.perf_counter() - t0:.1f} s", flush=True)
 
     t0 = time.perf_counter()
     db, assemblies, sources = build_workload(N_ASSEMBLIES)
@@ -679,7 +760,15 @@ def main() -> int:
         if gap_open not in recorder.buckets:
             raise AssertionError(f"no {label} bucket was recorded in the measured pass")
         _, args, kw = recorder.buckets[gap_open]
-        checks[label] = _check_bucket(label, args, kw)
+        checks[label] = _check_bucket(label, args, kw, "warp")
+    # The wide form of the fill (bands a warp cannot hold): synthetic protein pairs.
+    B, rows_max, w_pad = WIDE_FORM_BUCKET
+    wide_args = [torch.from_numpy(a).cuda()
+                 for a in _synthetic_bucket(np.random.default_rng(SEED), AA, B, rows_max, w_pad)]
+    wide_matrix = swg_cuda.as_kernel_matrix(blosum62_matrix(), wide_args[0].device)
+    checks["wide"] = _check_bucket(
+        "synthetic wide-form", (*wide_args, wide_matrix),
+        dict(gap_open=11, gap_extend=1, rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2), "wide")
 
     # Device-seeded mode on the same assemblies: its own priming and measured pass.
     os.environ["KAPTIVE_SEED_MODE"] = "device"
@@ -727,31 +816,42 @@ def main() -> int:
     if opts.measure:
         measure(card)
 
-    jax_loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
-    if jax_loaded:
-        raise AssertionError(f"jax modules were imported: {jax_loaded}")
+    for roots, what in ((("jax", "jaxlib"), "jax"), (("kaptive_tpu",), "kaptive_tpu")):
+        loaded = sorted(m for m in sys.modules if m.split(".")[0] in roots)
+        if loaded:
+            raise AssertionError(f"{what} modules were imported: {loaded}")
+        print(f"# no {what} module was loaded", flush=True)
 
-    ext, prot = checks["extension"], checks["protein"]
+    ext, prot, wide = checks["extension"], checks["protein"], checks["wide"]
+    swg_err = max(ext["max_abs_err"], prot["max_abs_err"], wide["max_abs_err"])
     kernels = [
         {"name": "swg_fill", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": launches["fill"],
-         "max_abs_err": max(ext["max_abs_err"], prot["max_abs_err"]),
-         "ms": ext["fill_ms"], "plain_ms": ext["fill_plain_ms"],
-         "protein_ms": prot["fill_ms"], "protein_plain_ms": prot["fill_plain_ms"]},
+         "max_abs_err": swg_err, "ms": ext["fill_ms"], "plain_ms": ext["fill_plain_ms"],
+         **ext["fill_bound"], "library_ms": None,
+         "protein_ms": prot["fill_ms"], "protein_plain_ms": prot["fill_plain_ms"],
+         "protein_bound_ms": prot["fill_bound"]["bound_ms"],
+         "wide_form_ms": wide["fill_ms"], "wide_form_plain_ms": wide["fill_plain_ms"],
+         "wide_form_bound_ms": wide["fill_bound"]["bound_ms"]},
         {"name": "swg_traceback", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:324", "launches": launches["traceback"],
-         "max_abs_err": max(ext["max_abs_err"], prot["max_abs_err"]),
-         "ms": ext["traceback_ms"], "plain_ms": ext["traceback_plain_ms"],
-         "protein_ms": prot["traceback_ms"], "protein_plain_ms": prot["traceback_plain_ms"]},
+         "max_abs_err": swg_err, "ms": ext["traceback_ms"], "plain_ms": ext["traceback_plain_ms"],
+         **ext["traceback_bound"], "library_ms": None,
+         "protein_ms": prot["traceback_ms"], "protein_plain_ms": prot["traceback_plain_ms"],
+         "protein_bound_ms": prot["traceback_bound"]["bound_ms"]},
         {"name": "rowcompact_scan", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
          "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": scan_launches,
-         "max_abs_err": scan_check["max_abs_err"], "ms": scan_check["ms"], "plain_ms": scan_check["plain_ms"]},
+         "max_abs_err": scan_check["max_abs_err"], "ms": scan_check["ms"], "plain_ms": scan_check["plain_ms"],
+         "bound_ms": scan_check["bound_ms"], "bound_by": scan_check["bound_by"], "library_ms": None},
         {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
-         "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"]},
+         "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],
+         "bound_ms": cigar_check["bound_ms"], "bound_by": cigar_check["bound_by"], "library_ms": None},
     ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
-          f"protein bucket {prot['shape']} (B, rows_max, w_pad); scan on the batch {scan_check['shape']} "
+          f"protein bucket {prot['shape']} (B, rows_max, w_pad); wide_form_ms: the fill's wide form on "
+          f"{wide['shape']}; launches: host-seeded measured pass (device-seeded pass: fill {dev_swg['fill']}, "
+          f"traceback {dev_swg['traceback']}, scan {scan_launches}); scan on the batch {scan_check['shape']} "
           f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",

@@ -1,7 +1,7 @@
 r"""kaptive-tpu on PyTorch and CUDA: the locus-typing path for one NVIDIA H100.
 
 A second package beside :mod:`kaptive_tpu` (the JAX reference, left as it is).
-It imports ``torch`` and never ``jax``.  Sub-layout and names follow the JAX
+It imports ``torch``, never ``jax`` and nothing of :mod:`kaptive_tpu`.  Sub-layout and names follow the JAX
 package so each counterpart is easy to find:
 
 - :mod:`kaptive_tpu_torch.cli` — the ``kaptive-tpu-torch`` command line
@@ -24,12 +24,17 @@ package so each counterpart is easy to find:
 - :mod:`kaptive_tpu_torch.parallel.pipeline` — ``stream_type``;
   :mod:`kaptive_tpu_torch.parallel.screen` — screen mode's tallies and scores.
 
-The backend-neutral layers (``core``, ``db``, the serotyping decision,
-result and report modules, ``utils.metrics``/``utils.profiling``) are reused
-from :mod:`kaptive_tpu` by import.  :mod:`kaptive_tpu_torch._reuse` is
-imported first so that doing so never imports ``jax``.
+- :mod:`kaptive_tpu_torch.core`, :mod:`kaptive_tpu_torch.db`,
+  :mod:`kaptive_tpu_torch.compare`, the serotyping decision, result and
+  report modules, :mod:`kaptive_tpu_torch.native.hostio` (``csrc/hostio.cpp``)
+  and ``utils.metrics``/``utils.profiling`` — the port's own copies of the
+  backend-neutral layers, under the same relative paths and names.
+- :mod:`kaptive_tpu_torch.utils.state` — loads state pickled by the JAX package.
+
+The port imports nothing of :mod:`kaptive_tpu`: both packages can be loaded
+in one process in any order, and the port runs where the other is absent.
 """
 
-from kaptive_tpu_torch._reuse import __version__
+from kaptive_tpu_torch._version import __version__
 
 __all__ = ["__version__"]

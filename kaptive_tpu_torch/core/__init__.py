@@ -1,5 +1,17 @@
-r"""Core data plane of the port: the batched pairwise aligner.
+r"""Core data plane of the port: sequence containers, intervals, alignments, k-mer sketches, pairwise DP.
 
-Sequence, interval and alignment containers are the JAX package's
-(:mod:`kaptive_tpu.core`), reused by import.
+Host-side orchestration uses vectorised numpy over Structure-of-Arrays
+containers; device compute lives in :mod:`kaptive_tpu_torch.ops`.
 """
+
+from kaptive_tpu_torch.core.interval import Interval, Intervals, Strand
+from kaptive_tpu_torch.core.seq import BacterialTranslationTable, SeqRecord, Sequences
+
+__all__ = [
+    "BacterialTranslationTable",
+    "Interval",
+    "Intervals",
+    "SeqRecord",
+    "Sequences",
+    "Strand",
+]

@@ -1,36 +1,135 @@
-r"""Batched banded protein/nucleotide aligner on PyTorch (counterpart of ``kaptive_tpu.core.pairwise``).
+r"""Pairwise alignment containers and the batched banded protein/nucleotide aligner on PyTorch.
 
-:class:`PairwiseAligner` keeps the reference's defaults (gap_open=11,
-gap_extend=1, band k=20; unseeded band ``max(k, |len1-len2|+1)``, seeded band
-``k`` on the seed diagonal) and returns the JAX package's
-:class:`~kaptive_tpu.core.pairwise.PairwiseAlignments`.
+:class:`PairwiseAlignment` / :class:`PairwiseAlignments` hold the results and
+:func:`blosum62_matrix` is the 256x256 byte-indexed BLOSUM62 (standard public
+values).  :class:`PairwiseAligner` keeps upstream Kaptive's defaults
+(gap_open=11, gap_extend=1, band k=20; unseeded band ``max(k, |len1-len2|+1)``,
+seeded band ``k`` on the seed diagonal).
 
 :func:`batched_swg_align` uploads the two ragged byte streams once, gathers
 each bucket's padded (query, target) matrices on the device with torch
 indexing, runs :func:`kaptive_tpu_torch.ops.swg.banded_swg` per bucket and
 brings every bucket's results back in one device-to-host copy per sweep.
 :func:`batched_swg_align_cigars` does the same through
-:func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and also returns the
-JAX package's :class:`~kaptive_tpu.core.alignment.Cigars`.
+:func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and also returns
+:class:`~kaptive_tpu_torch.core.alignment.Cigars`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import cache
 from typing import Any
 
 import numpy as np
+import numpy.typing as npt
 import torch
 
-from kaptive_tpu.core.alignment import Cigars
-from kaptive_tpu.core.collections import cumulative_offsets
-from kaptive_tpu.core.pairwise import PairwiseAlignments, blosum62_matrix
-from kaptive_tpu.core.seq import Sequences
-
+from kaptive_tpu_torch.core.alignment import Cigars
+from kaptive_tpu_torch.core.collections import SoAContainer, cumulative_offsets, soa
+from kaptive_tpu_torch.core.seq import Sequences
 from kaptive_tpu_torch.ops.swg import MAX_CIGAR_OPS, SwgLattice, banded_swg, banded_swg_cigars, plan_swg_buckets
 from kaptive_tpu_torch.utils.device import resolve_device
 
 _RESULT_FIELDS = ("scores", "matches", "mismatches", "gaps", "q_starts", "q_ends", "t_starts", "t_ends")
+
+
+@dataclass(frozen=True, slots=True)
+class PairwiseAlignment:
+    r"""Summary statistics and coordinates for one pairwise alignment."""
+
+    score: int
+    matches: int
+    mismatches: int
+    gaps: int
+    q_start: int
+    q_end: int
+    t_start: int
+    t_end: int
+
+    @property
+    def pident(self) -> float:
+        total = self.matches + self.mismatches + self.gaps
+        return (self.matches / total) * 100.0 if total > 0 else 0.0
+
+
+@dataclass(frozen=True, slots=True)
+class PairwiseAlignments(SoAContainer):
+    r"""SoA batch of pairwise alignment results.
+
+    Batch protocol derived by :class:`~kaptive_tpu_torch.core.collections.SoAContainer`;
+    integer indexing yields a scalar :class:`PairwiseAlignment` view.
+    """
+
+    scores: npt.NDArray[np.int32] = soa(np.int32)
+    matches: npt.NDArray[np.int32] = soa(np.int32)
+    mismatches: npt.NDArray[np.int32] = soa(np.int32)
+    gaps: npt.NDArray[np.int32] = soa(np.int32)
+    q_starts: npt.NDArray[np.int32] = soa(np.int32)
+    q_ends: npt.NDArray[np.int32] = soa(np.int32)
+    t_starts: npt.NDArray[np.int32] = soa(np.int32)
+    t_ends: npt.NDArray[np.int32] = soa(np.int32)
+
+    def __getitem__(self, item: Any) -> PairwiseAlignment | PairwiseAlignments:
+        if isinstance(item, (int, np.integer)):
+            if item < 0:
+                item += len(self)
+            if item < 0 or item >= len(self):
+                raise IndexError("Batch index out of range")
+            return PairwiseAlignment(
+                *(int(getattr(self, name)[item]) for name, _, _ in self._soa_spec()[0])
+            )
+        # Explicit base call: slots=True dataclasses recreate the class, which
+        # breaks zero-argument super() inside method bodies.
+        return SoAContainer.__getitem__(self, item)
+
+    @property
+    def pidents(self) -> npt.NDArray[np.float64]:
+        total = self.matches + self.mismatches + self.gaps
+        return np.divide(self.matches * 100.0, total, out=np.zeros(len(self), dtype=np.float64), where=total > 0)
+
+
+@cache
+def blosum62_matrix(fill_value: int = -128) -> npt.NDArray[np.int8]:
+    r"""256x256 byte-indexed BLOSUM62 substitution matrix (standard public values)."""
+    # Standard BLOSUM62 over the NCBI alphabet ARNDCQEGHILKMFPSTWYVBJZX* .
+    blosum62 = np.array(
+        [
+            [4, -1, -2, -2, 0, -1, -1, 0, -2, -1, -1, -1, -1, -2, -1, 1, 0, -3, -2, 0, -2, -1, -1, -1, -4],
+            [-1, 5, 0, -2, -3, 1, 0, -2, 0, -3, -2, 2, -1, -3, -2, -1, -1, -3, -2, -3, -1, -2, 0, -1, -4],
+            [-2, 0, 6, 1, -3, 0, 0, 0, 1, -3, -3, 0, -2, -3, -2, 1, 0, -4, -2, -3, 4, -3, 0, -1, -4],
+            [-2, -2, 1, 6, -3, 0, 2, -1, -1, -3, -4, -1, -3, -3, -1, 0, -1, -4, -3, -3, 4, -3, 1, -1, -4],
+            [0, -3, -3, -3, 9, -3, -4, -3, -3, -1, -1, -3, -1, -2, -3, -1, -1, -2, -2, -1, -3, -1, -3, -1, -4],
+            [-1, 1, 0, 0, -3, 5, 2, -2, 0, -3, -2, 1, 0, -3, -1, 0, -1, -2, -1, -2, 0, -2, 4, -1, -4],
+            [-1, 0, 0, 2, -4, 2, 5, -2, 0, -3, -3, 1, -2, -3, -1, 0, -1, -3, -2, -2, 1, -3, 4, -1, -4],
+            [0, -2, 0, -1, -3, -2, -2, 6, -2, -4, -4, -2, -3, -3, -2, 0, -2, -2, -3, -3, -1, -4, -2, -1, -4],
+            [-2, 0, 1, -1, -3, 0, 0, -2, 8, -3, -3, -1, -2, -1, -2, -1, -2, -2, 2, -3, 0, -3, 0, -1, -4],
+            [-1, -3, -3, -3, -1, -3, -3, -4, -3, 4, 2, -3, 1, 0, -3, -2, -1, -3, -1, 3, -3, 3, -3, -1, -4],
+            [-1, -2, -3, -4, -1, -2, -3, -4, -3, 2, 4, -2, 2, 0, -3, -2, -1, -2, -1, 1, -4, 3, -3, -1, -4],
+            [-1, 2, 0, -1, -3, 1, 1, -2, -1, -3, -2, 5, -1, -3, -1, 0, -1, -3, -2, -2, 0, -3, 1, -1, -4],
+            [-1, -1, -2, -3, -1, 0, -2, -3, -2, 1, 2, -1, 5, 0, -2, -1, -1, -1, -1, 1, -3, 2, -1, -1, -4],
+            [-2, -3, -3, -3, -2, -3, -3, -3, -1, 0, 0, -3, 0, 6, -4, -2, -2, 1, 3, -1, -3, 0, -3, -1, -4],
+            [-1, -2, -2, -1, -3, -1, -1, -2, -2, -3, -3, -1, -2, -4, 7, -1, -1, -4, -3, -2, -2, -3, -1, -1, -4],
+            [1, -1, 1, 0, -1, 0, 0, 0, -1, -2, -2, 0, -1, -2, -1, 4, 1, -3, -2, -2, 0, -2, 0, -1, -4],
+            [0, -1, 0, -1, -1, -1, -1, -2, -2, -1, -1, -1, -1, -2, -1, 1, 5, -2, -2, 0, -1, -1, -1, -1, -4],
+            [-3, -3, -4, -4, -2, -2, -3, -2, -2, -3, -2, -3, -1, 1, -4, -3, -2, 11, 2, -3, -4, -2, -2, -1, -4],
+            [-2, -2, -2, -3, -2, -1, -2, -3, 2, -1, -1, -2, -1, 3, -3, -2, -2, 2, 7, -1, -3, -1, -2, -1, -4],
+            [0, -3, -3, -3, -1, -2, -2, -3, -3, 3, 1, -2, 1, -1, -2, -2, 0, -3, -1, 4, -3, 2, -2, -1, -4],
+            [-2, -1, 4, 4, -3, 0, 1, -1, 0, -3, -4, 0, -3, -3, -2, 0, -1, -4, -3, -3, 4, -3, 0, -1, -4],
+            [-1, -2, -3, -3, -1, -2, -3, -4, -3, 3, 3, -3, 2, 0, -3, -2, -1, -2, -1, 2, -3, 3, -3, -1, -4],
+            [-1, 0, 0, 1, -3, 4, 4, -2, 0, -3, -3, 1, -1, -3, -1, 0, -1, -2, -2, -2, 0, -3, 4, -1, -4],
+            [-1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -1, -4],
+            [-4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, -4, 1],
+        ],
+        dtype=np.int8,
+    )
+    alphabet = list(b"ARNDCQEGHILKMFPSTWYVBJZX*")
+    score_matrix = np.full((256, 256), fill_value, dtype=np.int8)
+    for a, i in enumerate(alphabet):
+        for b, j in enumerate(alphabet):
+            score_matrix[i, j] = blosum62[a, b]
+    score_matrix.flags.writeable = False
+    return score_matrix
 
 
 @dataclass(frozen=True, slots=True)
@@ -67,6 +166,10 @@ class PairwiseAligner:
             gap_open=self.gap_open, gap_extend=self.gap_extend,
             lattice=self.lattice, device=self.device,
         )
+
+    def align_seeds(self, queries: Sequences, targets: Sequences, seeds: Any) -> PairwiseAlignments:
+        paired_queries, paired_targets = seeds.extract_sequences(queries, targets)
+        return self(paired_queries, paired_targets, seeds)
 
 
 def _upload_stream(data: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -13,20 +13,37 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with a plain C interface, loaded with ctypes.
 //
-// What bounds the fill on this card, and what the design does about it:
-// - The DP is a sequential recurrence over rows: row i needs row i-1's M and
-//   D bands.  Nothing of it crosses pairs, so one thread block owns one pair
-//   and walks its rows in a loop (the Pallas kernel's sequential row-tile
-//   grid axis).  The M and D bands stay in shared memory for the whole walk;
-//   only the packed traceback bits (one byte per cell) go to device memory.
-// - Inside a row, the horizontal gap state I is a max-plus prefix scan along
-//   the band (lazy-F).  Threads own contiguous runs of band lanes; each scans
-//   its run, a warp __shfl_up_sync scan combines the run totals, and one
-//   shared-memory pass combines the warps.  With the per-row best (a block
-//   reduction, lowest lane winning ties) that costs two barriers per row, and
-//   those barriers, not arithmetic or bytes, bound the kernel: the cells of
-//   one row are a few hundred integer operations.  Pairs run in parallel, one
-//   block each, across the SMs.
+// What bounds each kernel on this card, and what the design does about it:
+//
+// The fill.  The DP is a sequential recurrence over rows (row i needs row
+// i-1's M and D bands) and a row is only a few hundred integer operations, so
+// neither bytes nor arithmetic bound it: the chain of latencies inside one row
+// does, times the number of rows.  Two forms, chosen from w_pad alone:
+// - Warp form (w_pad a multiple of 128 up to 1024, the widths the lattices
+//   produce): ONE WARP owns one pair and each thread owns w_pad / 32
+//   contiguous band lanes.  M and D stay in registers from row to row; the
+//   lane dm+1 of the row above, the left neighbour's I-extension bit and the
+//   next target byte of the thread's sliding window each come by one
+//   __shfl.  The lazy-F max-plus scan is the thread's serial run plus a
+//   five-step warp shuffle scan.  The row loop has no __syncthreads(), no
+//   shared-memory band and no dependent global load: the next 32 query bytes
+//   and the next 32 bytes entering the target window are fetched with one
+//   coalesced load each, a whole stage (32 rows) ahead of use, and handed out
+//   by __shfl.  The best cell leaves the loop: each lane keeps its own best
+//   (strictly greater, so its earliest row and lowest lane win) and the warp
+//   reduces once at the end by (highest value, lowest row, lowest lane), which
+//   is the cell the per-row rule picks.  With the latencies gone a row is
+//   bound by instruction issue (a few hundred instructions a warp), so the
+//   arithmetic per cell is cut to what each value is used for (see the
+//   kernel) and four pairs share a block, one warp for each of the SM's four
+//   schedulers, and one 64 KB int8 copy of the substitution matrix; up to
+//   three blocks fit an SM.  A block whose pairs are all empty exits before it
+//   loads the matrix.  Traceback bits leave as 4-32 bytes a thread, whole
+//   128-byte lines a row.
+// - Wide form (any other w_pad up to 8192): one block owns one pair, the
+//   bands live in shared memory, threads own runs of lanes, and each row pays
+//   two block barriers (scan and per-row best).  Kept for bands a warp cannot
+//   hold in registers.
 // - Substitution scores are gathers from the full 256x256 matrix kept as
 //   int8 in shared memory (64 KB).  The Pallas kernel factored the matrix
 //   into class tables because the TPU has no vector gathers; here the gather
@@ -34,6 +51,17 @@
 // - Rows past the query's length hold no filled cell and the traceback never
 //   reads them: the walk stops at min(q_len, rows_max), and those rows of the
 //   traceback output are left unwritten.
+//
+// The traceback.  A walk is a chain of dependent loads of one traceback byte
+// per step, each a round trip to L2: latency bounds it, not bytes.  ONE WARP
+// walks one pair and reads a stretch of the walk at once: in state M the next
+// 32 cells lie on one diagonal, in D on one column, in I on one row, so the
+// lanes load their bytes together, __ballot_sync finds the first lane whose
+// cell leaves the run, matches are a __popc of the q == t ballot below that
+// lane, and the walk jumps the whole run.  A transition re-reads the same cell
+// in the new state.  The clamps of the row, the band lane and the target
+// index are those of the serial walk.  The CIGAR traceback keeps the serial
+// walk, one thread per pair.
 //
 // Scores stay in int32: NEG_INF = -1e9 plus the unmasked drift of the D
 // carry over a few thousand rows stays far inside the int32 range.
@@ -49,6 +77,9 @@ constexpr int MAX_WARPS = MAX_THREADS / 32;
 constexpr int MATRIX_BYTES = 256 * 256;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr int MAX_CIGAR_OPS = 256;  // runs kept per pair (ops/swg.py's MAX_CIGAR_OPS)
+constexpr int WARP_FORM_MAX_W_PAD = 1024;  // 32 band lanes a thread: M and D fit in registers without spills
+constexpr int FILL_WARPS = 4;       // pairs per block in the fill's warp form: one warp per scheduler
+constexpr int TRACEBACK_WARPS = 4;  // pairs per block in the traceback
 
 __host__ __device__ inline size_t fill_smem_bytes(int w_pad) {
     // int8 matrix | M, D, I bands (int32) | warp scan, warp best value, warp
@@ -57,6 +88,230 @@ __host__ __device__ inline size_t fill_smem_bytes(int w_pad) {
            + 3 * sizeof(int32_t) * MAX_WARPS + (size_t)w_pad;
 }
 
+// The low n bits set, for n clamped into [0, 32].
+__device__ __forceinline__ uint32_t low_bits(int n) {
+    return n <= 0 ? 0u : (n >= 32 ? FULL_MASK : (1u << n) - 1u);
+}
+
+// Warp form of the fill: one warp per pair, LPT = w_pad / 32 band lanes per
+// thread in registers (see the note at the head of the file).  The row's
+// arithmetic is the wide form's, reduced to what each value is used for:
+// - filled and in_pad are bit masks over the thread's lanes, computed once a
+//   row from the lane range whose column lies in [1, cols) or [0, cols);
+// - the lazy-F scan runs in the band lane's own frame: P(dm) is the best
+//   H(dm') - (dm - dm') * gap_extend over dm' < dm, so one lane further
+//   P <- max(P, H) - gap_extend and I = P - gap_open, with no per-lane offset;
+//   across threads the carry decays by LPT * gap_extend a thread;
+// - H >= 0 in filled cells, so M = max(H, I); an unfilled cell keeps its
+//   border value (0 or -INF) as M, is never above the running best, and its
+//   traceback code is 3 because M <= 0; in a cell that does not stop,
+//   I > H decides the code exactly as I > max(diag, D) does.
+template <int LPT>
+__global__ void __launch_bounds__(FILL_WARPS * 32) swg_fill_warp_kernel(
+    const uint8_t* __restrict__ q,         // (B, rows_max)
+    const uint8_t* __restrict__ t,         // (B, t_cols), left-padded by w_pad + 2
+    const int32_t* __restrict__ q_lens,    // (B,)
+    const int32_t* __restrict__ t_lens,    // (B,)
+    const int32_t* __restrict__ offsets,   // (B,) diagonal offsets q_pos - t_pos
+    const int32_t* __restrict__ k_locals,  // (B,) half band widths
+    const int8_t* __restrict__ matrix,     // (256, 256)
+    int n_pairs, int rows_max, int t_cols, int gap_open, int gap_extend,
+    uint8_t* __restrict__ tb,              // out (B, rows_max, w_pad)
+    int32_t* __restrict__ best_out,        // out (B,)
+    int32_t* __restrict__ best_i_out,      // out (B,)
+    int32_t* __restrict__ best_j_out) {    // out (B,)
+    static_assert(LPT % 4 == 0 && LPT >= 4 && LPT <= 32, "LPT is a multiple of 4 up to 32");
+    constexpr int W_PAD = 32 * LPT;
+    constexpr int K_PAD = (W_PAD - 3) / 2;
+    constexpr int WORDS = LPT / 4;
+    extern __shared__ __align__(16) unsigned char smem[];
+    int8_t* mat = reinterpret_cast<int8_t*>(smem);
+
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * FILL_WARPS + (threadIdx.x >> 5);
+    const bool has_pair = b < n_pairs;
+    const int n_rows = has_pair ? min(q_lens[b], rows_max) : 0;
+    const bool block_live = __syncthreads_or(n_rows > 0);
+    if (block_live) {
+        const int4* src = reinterpret_cast<const int4*>(matrix);
+        int4* dst = reinterpret_cast<int4*>(mat);
+        for (int x = threadIdx.x; x < MATRIX_BYTES / 16; x += FILL_WARPS * 32) dst[x] = src[x];
+        __syncthreads();
+    }
+    if (n_rows <= 0) {  // an empty pair, or no pair: no row, best stays (0, 0, 0)
+        if (has_pair && lane == 0) {
+            best_out[b] = 0;
+            best_i_out[b] = 0;
+            best_j_out[b] = 0;
+        }
+        return;
+    }
+
+    const int cols = t_lens[b] + 1;
+    const int off = offsets[b];
+    const int kl = k_locals[b];
+    const int ge = gap_extend;
+    const int lo = lane * LPT;  // this thread's lanes: [lo, lo + LPT)
+    const uint8_t* qb = q + (size_t)b * rows_max;
+    const uint8_t* tt = t + (size_t)b * t_cols;
+    uint8_t* tbb = tb + (size_t)b * rows_max * W_PAD + lo;
+
+    // Row 0: padded-band border cells get M=0, everything else -INF.  The band
+    // masks are per lane and do not change with the row.  The target window
+    // starts one position before row 1's: every row begins by sliding it.
+    int M[LPT], D[LPT];
+    uint32_t in_kl = 0, in_kl1 = 0;  // bit k: |dm - (k_pad + 1)| <= kl, <= kl + 1
+    uint32_t tcw[WORDS];             // the thread's LPT target bytes, lane k in byte k
+#pragma unroll
+    for (int w = 0; w < WORDS; ++w) tcw[w] = 0;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+        const int dm = lo + k;
+        const int band = abs(dm - (K_PAD + 1));
+        in_kl |= (band <= kl ? 1u : 0u) << k;
+        in_kl1 |= (band <= kl + 1 ? 1u : 0u) << k;
+        const int j0 = dm - off - K_PAD - 1;
+        M[k] = (band <= kl + 1 && j0 >= 0 && j0 < cols) ? 0 : NEG_INF;
+        D[k] = NEG_INF;
+        const int p0 = min(max(W_PAD - K_PAD - off + dm, 0), t_cols - 1);  // row 0's window index
+        tcw[k >> 2] |= (uint32_t)tt[p0] << (8 * (k & 3));
+    }
+
+    // Stage s serves rows 32 s + 1 .. 32 s + 32: lane l holds row 32 s + 1 + l's
+    // query byte and the target byte that enters the window's last lane there.
+    const int t_in_base = 2 * W_PAD - K_PAD - off;  // + (i - 1): index of lane w_pad-1 in row i
+    int q_next = qb[min(lane, rows_max - 1)];
+    int t_next = tt[min(max(t_in_base + lane, 0), t_cols - 1)];
+    int q_cur = 0, t_cur = 0;
+
+    // The next thread's lane 0 of the row above (-INF past the band's end),
+    // fetched as soon as a row has its own: the first thing the next row needs.
+    int m_nb = __shfl_down_sync(FULL_MASK, M[0], 1);
+    int d_nb = NEG_INF;
+    if (lane == 31) m_nb = NEG_INF;
+    const int thread_step = LPT * ge;            // what the scan's carry loses from one thread to the next
+    const int lane_frame = (lane + 1) * thread_step;
+
+    int best = 0, best_pos = 0;  // best_pos = i * W_PAD + dm: lowest row, then lowest lane
+    for (int i = 1; i <= n_rows; ++i) {
+        const int sl = (i - 1) & 31;
+        if (sl == 0) {  // a new stage: take what was fetched 32 rows ago, fetch the next
+            q_cur = q_next;
+            t_cur = t_next;
+            q_next = qb[min(i + 31 + lane, rows_max - 1)];
+            t_next = tt[min(max(t_in_base + i + 31 + lane, 0), t_cols - 1)];
+        }
+        const int qc = __shfl_sync(FULL_MASK, q_cur, sl);
+        const int t_in = __shfl_sync(FULL_MASK, t_cur, sl);
+        const uint32_t t_nb = __shfl_down_sync(FULL_MASK, tcw[0], 1);
+        // Slide the target window one position: byte k <- byte k + 1.
+#pragma unroll
+        for (int w = 0; w + 1 < WORDS; ++w) tcw[w] = __funnelshift_r(tcw[w], tcw[w + 1], 8);
+        tcw[WORDS - 1] = (tcw[WORDS - 1] >> 8) | ((lane == 31 ? (uint32_t)t_in : (t_nb & 0xffu)) << 24);
+
+        const int8_t* mrow = mat + 256 * qc;
+        const int j_lo = i - off - K_PAD - 1 + lo;  // 1-based DP column of this thread's lane 0
+        const uint32_t in_cols = low_bits(cols - j_lo);
+        const uint32_t f_filled = in_kl & in_cols & ~low_bits(1 - j_lo);
+        const uint32_t f_pad = in_kl1 & in_cols & ~low_bits(-j_lo);
+
+        // Pass 1: D, diagonal, H (kept in M[k]: the row above's M[k] is dead
+        // once lane k - 1 and lane k have read it); the thread's own scan.
+        uint32_t f_dgt = 0, f_ext = 0;
+        int carry = NEG_INF;  // P after the thread's last lane, had nothing come in from the left
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+            // Vertical gap from the previous row's dm+1 lane (unmasked carry).
+            const int d_open = (k + 1 < LPT ? M[k + 1] : m_nb) - gap_open;  // both less gap_extend, below
+            const int d_ext = k + 1 < LPT ? D[k + 1] : d_nb;
+            const int d_cur = max(d_open, d_ext) - ge;
+            const int tc = (tcw[k >> 2] >> (8 * (k & 3))) & 0xffu;
+            const int diag = M[k] + mrow[tc];
+            D[k] = d_cur;  // D[k] of the row above was read at k - 1
+            f_dgt |= (d_cur > diag ? 1u : 0u) << k;   // tb_m candidate: D beats diagonal
+            f_ext |= (d_open < d_ext ? 1u : 0u) << k;  // open wins ties
+            const int border = (f_pad >> k) & 1u ? 0 : NEG_INF;
+            const int h_c = (f_filled >> k) & 1u ? max(max(diag, d_cur), 0) : border;
+            M[k] = h_c;
+            carry = max(carry, h_c) - ge;
+        }
+
+        const int d_nb_next = __shfl_down_sync(FULL_MASK, D[0], 1);  // for the next row, off its critical path
+
+        // Warp-wide exclusive max-plus scan of the carries.  One thread further
+        // costs LPT * gap_extend: in the frame of thread 0 that is a plain
+        // max-scan (a lane below the shuffle distance gets its own value back).
+        int incl = carry + lane_frame;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) incl = max(incl, __shfl_up_sync(FULL_MASK, incl, s));
+        int P = __shfl_up_sync(FULL_MASK, incl, 1) - lane_frame + thread_step;
+        if (lane == 0) P = NEG_INF;
+
+        // Pass 2: I, M, the traceback bits, this thread's running best.
+        uint32_t tbw[WORDS];
+#pragma unroll
+        for (int w = 0; w < WORDS; ++w) tbw[w] = 0;
+        uint32_t i_ext_left = 0;  // the I-state bit of lane k: its left neighbour's final M and I
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+            const int h_c = M[k];
+            const int i_cur = (f_filled >> k) & 1u ? P - gap_open : NEG_INF;
+            P = max(P, h_c) - ge;
+            const int m_cur = max(h_c, i_cur);
+            const uint32_t tb_m = m_cur <= 0 ? 3u : (i_cur > h_c ? 2u : (f_dgt >> k) & 1u);
+            M[k] = m_cur;
+            tbw[k >> 2] |= (tb_m | (((f_ext >> k) & 1u) << 2) | (i_ext_left << 3)) << (8 * (k & 3));
+            i_ext_left = m_cur - i_cur < gap_open ? 1u : 0u;  // M - open - extend < I - extend
+            if (m_cur > best) {  // strictly greater: earliest row, then lowest lane
+                best = m_cur;
+                best_pos = i * W_PAD + lo + k;
+            }
+        }
+        m_nb = __shfl_down_sync(FULL_MASK, M[0], 1);
+        d_nb = d_nb_next;
+        if (lane == 31) {
+            m_nb = NEG_INF;
+            d_nb = NEG_INF;
+        }
+        uint32_t i_ext_nb = __shfl_up_sync(FULL_MASK, i_ext_left, 1);  // the previous thread's last lane
+        if (lane == 0) i_ext_nb = gap_open > 0 ? 1u : 0u;  // lane 0's left neighbour: M = I = -INF
+        tbw[0] |= i_ext_nb << 3;
+
+        uint8_t* tb_row = tbb + (size_t)(i - 1) * W_PAD;
+        if constexpr (LPT % 16 == 0) {
+#pragma unroll
+            for (int w = 0; w < WORDS; w += 4)
+                *reinterpret_cast<uint4*>(tb_row + 4 * w) = make_uint4(tbw[w], tbw[w + 1], tbw[w + 2], tbw[w + 3]);
+        } else if constexpr (LPT % 8 == 0) {
+#pragma unroll
+            for (int w = 0; w < WORDS; w += 2)
+                *reinterpret_cast<uint2*>(tb_row + 4 * w) = make_uint2(tbw[w], tbw[w + 1]);
+        } else {
+#pragma unroll
+            for (int w = 0; w < WORDS; ++w) *reinterpret_cast<uint32_t*>(tb_row + 4 * w) = tbw[w];
+        }
+    }
+
+    // One reduction after the last row: highest value, then lowest row, then
+    // lowest lane (best_pos orders by row first).
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const int v = __shfl_down_sync(FULL_MASK, best, s);
+        const int pos = __shfl_down_sync(FULL_MASK, best_pos, s);
+        if (v > best || (v == best && pos < best_pos)) {
+            best = v;
+            best_pos = pos;
+        }
+    }
+    if (lane == 0) {
+        const int bi = best_pos / W_PAD;
+        best_out[b] = best;
+        best_i_out[b] = bi;
+        best_j_out[b] = best > 0 ? bi - off - K_PAD - 1 + best_pos % W_PAD : 0;
+    }
+}
+
+// Wide form of the fill: one block per pair, bands in shared memory.
 // LPT = band lanes per thread (compile time, so the per-lane values carried
 // from the scan's first pass to its second stay in registers).
 template <int LPT>
@@ -238,61 +493,99 @@ __global__ void __launch_bounds__(MAX_THREADS) swg_fill_kernel(
     }
 }
 
-// One thread per pair replays the traceback state machine (0 = in M,
-// 1 = in D, 2 = in I) over the packed bits, from the best cell back to a
-// local-alignment start.
-__global__ void swg_traceback_kernel(
+// One warp per pair replays the traceback state machine (0 = in M, 1 = in D,
+// 2 = in I) over the packed bits, from the best cell back to a
+// local-alignment start, a run of up to 32 steps at a time: lane l reads the
+// cell the serial walk would reach after l more steps in the current state.
+// i, j and the state are the same in every lane (they change only by ballots
+// and broadcasts).
+__global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
     const uint8_t* __restrict__ tb, const uint8_t* __restrict__ q,
     const uint8_t* __restrict__ t, const int32_t* __restrict__ best,
     const int32_t* __restrict__ best_i, const int32_t* __restrict__ best_j,
     const int32_t* __restrict__ offsets, int n_pairs, int rows_max, int w_pad,
     int t_cols, int t_pad,
     int32_t* __restrict__ out) {  // (8, B): score, matches, mismatches, gaps, q/t starts+ends
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    const int lane = threadIdx.x & 31;
+    const int b = blockIdx.x * TRACEBACK_WARPS + (threadIdx.x >> 5);
     if (b >= n_pairs) return;
     const int k_pad = (w_pad - 3) / 2;
     const uint8_t* tbb = tb + (size_t)b * rows_max * w_pad;
     const uint8_t* qb = q + (size_t)b * rows_max;
     const uint8_t* tt = t + (size_t)b * t_cols;
     const int off = offsets[b];
-    int i = best_i[b], j = best_j[b];
+    const int end_i = best_i[b], end_j = best_j[b];
+    int i = end_i, j = end_j;
     int state = 0, matches = 0, mismatches = 0, gaps = 0;
     while (i > 0 && j > 0) {
-        const int r = min(max(i - 1, 0), rows_max - 1);
-        const int dm = min(max(j - (i - off) + k_pad + 1, 0), w_pad - 1);
-        const int cell = tbb[(size_t)r * w_pad + dm];
+        const int dm0 = j - (i - off) + k_pad + 1;  // the band lane of (i, j)
         if (state == 0) {
-            const int tb_m = cell & 3;
-            if (tb_m == 3) break;
-            if (tb_m == 0) {
-                const int tc = tt[min(max(j - 1 + t_pad, 0), t_cols - 1)];
-                if (qb[r] == tc) ++matches; else ++mismatches;
-                --i;
-                --j;
-            } else {
-                state = tb_m;  // 1: into D, 2: into I (no move on the transition)
+            // Diagonal run: lane l looks at (i - l, j - l), all on band lane dm0.
+            const int il = i - lane, jl = j - lane;
+            const bool valid = il > 0 && jl > 0;
+            const int r = min(max(il - 1, 0), rows_max - 1);
+            const int dm = min(max(dm0, 0), w_pad - 1);
+            const int tb_m = tbb[(size_t)r * w_pad + dm] & 3;
+            const int tc = tt[min(max(jl - 1 + t_pad, 0), t_cols - 1)];
+            const bool same = qb[r] == tc;
+            const unsigned stop = ~__ballot_sync(FULL_MASK, valid && tb_m == 0);
+            const int n = stop ? __ffs(stop) - 1 : 32;  // diagonal steps taken
+            const int m = __popc(__ballot_sync(FULL_MASK, same) & (n == 32 ? FULL_MASK : (1u << n) - 1u));
+            matches += m;
+            mismatches += n - m;
+            i -= n;
+            j -= n;
+            if (n < 32) {  // lane n's cell ends the run, unless the walk left the matrix there
+                const int how = __shfl_sync(FULL_MASK, valid ? tb_m : -1, n);
+                if (how == 3) break;
+                if (how > 0) state = how;  // 1: into D, 2: into I (no move on the transition)
             }
         } else if (state == 1) {
-            ++gaps;
-            --i;
-            if (!((cell >> 2) & 1)) state = 0;
+            // Column run: lane l looks at (i - l, j); each step is one gap.
+            const int il = i - lane;
+            const bool valid = il > 0;
+            const int r = min(max(il - 1, 0), rows_max - 1);
+            const int dm = min(max(dm0 + lane, 0), w_pad - 1);
+            const bool extend = (tbb[(size_t)r * w_pad + dm] >> 2) & 1;
+            const unsigned stop = ~__ballot_sync(FULL_MASK, valid && extend);
+            int n = stop ? __ffs(stop) - 1 : 32;
+            if (n < 32 && __shfl_sync(FULL_MASK, (int)valid, n)) {  // lane n's cell closes the gap
+                ++n;
+                state = 0;
+            }
+            gaps += n;
+            i -= n;
         } else {
-            ++gaps;
-            --j;
-            if (!((cell >> 3) & 1)) state = 0;
+            // Row run: lane l looks at (i, j - l).
+            const int jl = j - lane;
+            const bool valid = jl > 0;
+            const int r = min(max(i - 1, 0), rows_max - 1);
+            const int dm = min(max(dm0 - lane, 0), w_pad - 1);
+            const bool extend = (tbb[(size_t)r * w_pad + dm] >> 3) & 1;
+            const unsigned stop = ~__ballot_sync(FULL_MASK, valid && extend);
+            int n = stop ? __ffs(stop) - 1 : 32;
+            if (n < 32 && __shfl_sync(FULL_MASK, (int)valid, n)) {
+                ++n;
+                state = 0;
+            }
+            gaps += n;
+            j -= n;
         }
     }
-    out[0 * n_pairs + b] = best[b];
-    out[1 * n_pairs + b] = matches;
-    out[2 * n_pairs + b] = mismatches;
-    out[3 * n_pairs + b] = gaps;
-    out[4 * n_pairs + b] = i;
-    out[5 * n_pairs + b] = best_i[b];
-    out[6 * n_pairs + b] = j;
-    out[7 * n_pairs + b] = best_j[b];
+    if (lane == 0) {
+        out[0 * n_pairs + b] = best[b];
+        out[1 * n_pairs + b] = matches;
+        out[2 * n_pairs + b] = mismatches;
+        out[3 * n_pairs + b] = gaps;
+        out[4 * n_pairs + b] = i;
+        out[5 * n_pairs + b] = end_i;
+        out[6 * n_pairs + b] = j;
+        out[7 * n_pairs + b] = end_j;
+    }
 }
 
-// swg_traceback_kernel's walk, also recording BAM CIGAR runs (M=0 on the
+// The serial form of swg_traceback_kernel's walk (one thread per pair, one
+// step at a time), also recording BAM CIGAR runs (M=0 on the
 // diagonal, I=1 in the vertical D state, D=2 in the horizontal I state; a
 // transition step emits none).  The walk goes end to start, so each pair's
 // runs are written in that order into its own row of `ops` in device memory
@@ -399,12 +692,34 @@ cudaError_t launch_fill(int n_pairs, int w_pad, cudaStream_t stream, const uint8
     return cudaGetLastError();
 }
 
+template <int LPT>
+cudaError_t launch_fill_warp(int n_pairs, cudaStream_t stream, const uint8_t* q,
+                             const uint8_t* t, const int32_t* q_lens, const int32_t* t_lens,
+                             const int32_t* offsets, const int32_t* k_locals,
+                             const int8_t* matrix, int rows_max, int t_cols, int gap_open,
+                             int gap_extend, uint8_t* tb, int32_t* best, int32_t* best_i,
+                             int32_t* best_j) {
+    cudaError_t err = cudaFuncSetAttribute(
+        swg_fill_warp_kernel<LPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, MATRIX_BYTES);
+    if (err != cudaSuccess) return err;
+    swg_fill_warp_kernel<LPT><<<(n_pairs + FILL_WARPS - 1) / FILL_WARPS, FILL_WARPS * 32,
+                                MATRIX_BYTES, stream>>>(
+        q, t, q_lens, t_lens, offsets, k_locals, matrix, n_pairs, rows_max, t_cols, gap_open,
+        gap_extend, tb, best, best_i, best_j);
+    return cudaGetLastError();
+}
+
+bool warp_form(int w_pad) { return w_pad % 128 == 0 && w_pad <= WARP_FORM_MAX_W_PAD; }
+
 }  // namespace
 
 extern "C" {
 
 // Largest band the fill takes (16 lanes for each of 512 threads).
 int kts_swg_max_w_pad() { return 16 * MAX_THREADS; }
+
+// 1 when the fill takes this band width in its warp form, 0 in its wide form.
+int kts_swg_fill_warp_form(int w_pad) { return warp_form(w_pad) ? 1 : 0; }
 
 int kts_swg_fill(const void* q, const void* t, const void* q_lens, const void* t_lens,
                  const void* offsets, const void* k_locals, const void* matrix,
@@ -424,13 +739,36 @@ int kts_swg_fill(const void* q, const void* t, const void* q_lens, const void* t
                      static_cast<const int8_t*>(matrix), rows_max, t_cols, gap_open,      \
                      gap_extend, static_cast<uint8_t*>(tb), static_cast<int32_t*>(best),  \
                      static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j))
+#define KTS_FILL_WARP(LPT)                                                                 \
+    launch_fill_warp<LPT>(n_pairs, s, static_cast<const uint8_t*>(q),                     \
+                          static_cast<const uint8_t*>(t),                                 \
+                          static_cast<const int32_t*>(q_lens),                            \
+                          static_cast<const int32_t*>(t_lens),                            \
+                          static_cast<const int32_t*>(offsets),                           \
+                          static_cast<const int32_t*>(k_locals),                          \
+                          static_cast<const int8_t*>(matrix), rows_max, t_cols, gap_open, \
+                          gap_extend, static_cast<uint8_t*>(tb),                          \
+                          static_cast<int32_t*>(best), static_cast<int32_t*>(best_i),     \
+                          static_cast<int32_t*>(best_j))
     cudaError_t err;
-    if (w_pad <= MAX_THREADS) err = KTS_FILL(1);
+    if (warp_form(w_pad)) {
+        switch (w_pad / 32) {
+            case 4: err = KTS_FILL_WARP(4); break;
+            case 8: err = KTS_FILL_WARP(8); break;
+            case 12: err = KTS_FILL_WARP(12); break;
+            case 16: err = KTS_FILL_WARP(16); break;
+            case 20: err = KTS_FILL_WARP(20); break;
+            case 24: err = KTS_FILL_WARP(24); break;
+            case 28: err = KTS_FILL_WARP(28); break;
+            default: err = KTS_FILL_WARP(32); break;
+        }
+    } else if (w_pad <= MAX_THREADS) err = KTS_FILL(1);
     else if (w_pad <= 2 * MAX_THREADS) err = KTS_FILL(2);
     else if (w_pad <= 4 * MAX_THREADS) err = KTS_FILL(4);
     else if (w_pad <= 8 * MAX_THREADS) err = KTS_FILL(8);
     else err = KTS_FILL(16);
 #undef KTS_FILL
+#undef KTS_FILL_WARP
     return (int)err;
 }
 
@@ -439,9 +777,8 @@ int kts_swg_traceback(const void* tb, const void* q, const void* t, const void* 
                       int n_pairs, int rows_max, int w_pad, int t_cols, int t_pad, void* out,
                       void* stream) {
     if (n_pairs == 0) return (int)cudaSuccess;
-    const int threads = 128;
-    swg_traceback_kernel<<<(n_pairs + threads - 1) / threads, threads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+    swg_traceback_kernel<<<(n_pairs + TRACEBACK_WARPS - 1) / TRACEBACK_WARPS,
+                           TRACEBACK_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(q),
         static_cast<const uint8_t*>(t), static_cast<const int32_t*>(best),
         static_cast<const int32_t*>(best_i), static_cast<const int32_t*>(best_j),

@@ -3,10 +3,10 @@ r"""Gene-to-assembly mapper: seed, chain, extend (counterpart of :mod:`kaptive_t
 Two seeding modes, chosen by :func:`resolve_seed_mode` (``KAPTIVE_SEED_MODE``
 or the explicit ``seed_mode=``), give the same rows:
 
-- **Host-seeded** (the default where the native library builds): the native
-  C scan in ``native/hostio.cpp`` computes each assembly's minimizers and
-  matches them against the DB gene table (bloom-gated, bucketed search), or
-  the numpy :func:`find_anchors` does; :func:`chain_anchors` chains them on
+- **Host-seeded** (the default): the native C scan in ``csrc/hostio.cpp``
+  computes each assembly's minimizers and matches them against the DB gene
+  table (bloom-gated, bucketed search; the numpy :func:`find_anchors` finds
+  the same anchors and is what the tests hold it to); :func:`chain_anchors` chains them on
   the host; every chain of the batch becomes one banded SWG problem (gene vs
   projected contig window; match 2, mismatch -4, gap 4+2) in one bucketed
   sweep through :func:`kaptive_tpu_torch.core.pairwise.batched_swg_align`.
@@ -21,8 +21,8 @@ or the explicit ``seed_mode=``), give the same rows:
   a device buffer is seeded on the host instead, counted under
   ``map.host_fallback.<cause>``.
 
-Results are the JAX package's :class:`~kaptive_tpu.core.alignment.Alignments`,
-equal to its ``map_genes_batch(..., seed_mode=...)`` in either mode.
+Results are :class:`~kaptive_tpu_torch.core.alignment.Alignments`, equal field
+for field to the JAX package's ``map_genes_batch(..., seed_mode=...)`` in either mode.
 """
 
 from __future__ import annotations
@@ -34,14 +34,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from kaptive_tpu.core.alignment import Alignments, Cigars
-from kaptive_tpu.core.collections import cumulative_offsets, ragged_gather_indices
-from kaptive_tpu.core.genome import GenomeAssembly
-from kaptive_tpu.core.pairwise import PairwiseAlignments
-from kaptive_tpu.core.seq import Sequences
-from kaptive_tpu.utils.metrics import count
-from kaptive_tpu.utils.profiling import phase_timer
-
+from kaptive_tpu_torch.core.alignment import Alignments, Cigars
+from kaptive_tpu_torch.core.collections import cumulative_offsets, ragged_gather_indices
+from kaptive_tpu_torch.core.genome import GenomeAssembly
+from kaptive_tpu_torch.core.pairwise import PairwiseAlignments
+from kaptive_tpu_torch.core.seq import Sequences
 from kaptive_tpu_torch.ops.minimizer import (
     DEFAULT_K,
     DEFAULT_W,
@@ -65,6 +62,8 @@ from kaptive_tpu_torch.ops.scan import (
     unpack_to_padded,
 )
 from kaptive_tpu_torch.utils.device import resolve_device
+from kaptive_tpu_torch.utils.metrics import count
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 # Nucleotide scoring (minimap2-class defaults: match 2, mismatch -4, gap 4+2/base).
 NT_MATCH = 2
@@ -116,23 +115,6 @@ class GeneIndex:
         flat, starts = concat_with_sentinels(codes, genes.offsets, genes.lengths, k)
         mins = build_minimizer_set(genes, k=k, w=w)
         return cls(mins, flat, starts, genes.lengths.astype(np.int64), k, w)
-
-    @classmethod
-    def from_reference(cls, gene_index) -> GeneIndex:
-        r"""The port's index over the arrays of a JAX ``GeneIndex`` (shared, not copied).
-
-        The host bucket starts and bloom words are shared too when the JAX
-        index has built them; the port's device tables are built from these
-        arrays.
-        """
-        ms = gene_index.minimizers
-        mins = MinimizerSet(ms.hashes, ms.seq_indices, ms.positions, ms.strands, ms.n_seqs, ms.k, ms.w)
-        gi = cls(mins, gene_index.codes, gene_index.starts, gene_index.lengths,
-                 gene_index.k, gene_index.w)
-        for key in ("buckets_np", "bloom_np"):
-            if key in gene_index._cache:
-                gi._cache[key] = gene_index._cache[key]
-        return gi
 
     def _on_device(self, name: str, device: torch.device | str, make):
         key = (name, str(torch.device(device)))
@@ -263,52 +245,44 @@ def resolve_seed_mode(requested: str | None = None) -> str:
     r"""The seeding mode, ``"host"`` or ``"device"``.
 
     ``requested`` (or else ``KAPTIVE_SEED_MODE``) may be ``"host"``,
-    ``"device"`` or ``"auto"`` (the default).  ``auto`` is host seeding when
-    the native seeding library loads (the JAX package's choice on an
-    accelerator) and device seeding otherwise.  Any other value raises.
+    ``"device"`` or ``"auto"`` (the default).  ``auto`` is host seeding (the
+    JAX package's choice on an accelerator; the port always has its native
+    seeding library).  Any other value raises.
     """
     mode = requested or os.environ.get("KAPTIVE_SEED_MODE", "auto")
     if mode in ("host", "device"):
         return mode
     if mode != "auto":
         raise ValueError(f"seed mode {mode!r}: expected 'host', 'device' or 'auto'")
-    try:
-        from kaptive_tpu.native import hostio
-    except ImportError:
-        return "device"
-    return "host" if hasattr(hostio, "seed_anchors") else "device"
+    return "host"
 
 
 def host_seed_chains(gene_index: GeneIndex, contig_index: ContigIndex, params: MapperParams) -> dict:
     r"""Anchors + chains for ONE assembly, on the host.
 
-    Native C scan+match (:func:`kaptive_tpu.native.hostio.seed_anchors`,
-    bloom-gated) when the library builds, else the numpy :func:`find_anchors`;
-    both give the same anchor set.  Ingest threads call this ahead of the
+    Native C scan+match (:func:`kaptive_tpu_torch.native.hostio.seed_anchors`,
+    bloom-gated); the numpy :func:`find_anchors` gives the same anchor set and
+    is what the tests hold it to.  Ingest threads call this ahead of the
     mapping phase so seeding overlaps device compute.
     """
+    from kaptive_tpu_torch.native import hostio
+
     tm = gene_index.minimizers
-    try:
-        from kaptive_tpu.native import hostio
-    except ImportError:  # no C++ compiler: the numpy search finds the same anchors
-        count("map.host_seed.numpy")
-        anchors = find_anchors(gene_index, contig_index.minimizers, params)
-    else:
-        ti, cpos, cstrand, _, _ = hostio.seed_anchors(
-            contig_index.codes, gene_index.k, gene_index.w, tm.hashes,
-            min(params.max_occ, DEVICE_MAX_OCC),
-            bloom_words=gene_index.host_bloom, bloom_bits=BLOOM_BITS,
-            bucket_starts=gene_index.host_buckets, bucket_shift=BUCKET_SHIFT,
-        )
-        count("map.host_seed.native")
-        c_idx = np.searchsorted(contig_index.starts, cpos, side="right") - 1
-        anchors = (
-            tm.seq_indices[ti].astype(np.int64),
-            tm.positions[ti].astype(np.int64),
-            c_idx.astype(np.int64),
-            (cpos - contig_index.starts[c_idx]).astype(np.int64),
-            np.where(tm.strands[ti] == cstrand.astype(bool), 1, -1).astype(np.int64),
-        )
+    ti, cpos, cstrand, _, _ = hostio.seed_anchors(
+        contig_index.codes, gene_index.k, gene_index.w, tm.hashes,
+        min(params.max_occ, DEVICE_MAX_OCC),
+        bloom_words=gene_index.host_bloom, bloom_bits=BLOOM_BITS,
+        bucket_starts=gene_index.host_buckets, bucket_shift=BUCKET_SHIFT,
+    )
+    count("map.host_seed.native")
+    c_idx = np.searchsorted(contig_index.starts, cpos, side="right") - 1
+    anchors = (
+        tm.seq_indices[ti].astype(np.int64),
+        tm.positions[ti].astype(np.int64),
+        c_idx.astype(np.int64),
+        (cpos - contig_index.starts[c_idx]).astype(np.int64),
+        np.where(tm.strands[ti] == cstrand.astype(bool), 1, -1).astype(np.int64),
+    )
     return chain_anchors(*anchors, gene_index.lengths, gene_index.k, params)
 
 

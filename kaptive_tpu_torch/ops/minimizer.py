@@ -18,7 +18,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from kaptive_tpu.core.seq import Sequences
+from kaptive_tpu_torch.core.seq import Sequences
 
 # DNA byte -> 2-bit code LUT (A=0 C=1 G=2 T/U=3, else 4). Complement = 3-code.
 DNA_CODE_LUT = np.full(256, 4, dtype=np.uint8)
@@ -216,11 +216,8 @@ class ContigIndex:
         starts = np.zeros(len(contigs.offsets), dtype=np.int64)
         if len(starts) > 1:
             np.cumsum(contigs.lengths[:-1].astype(np.int64) + gap, out=starts[1:])
-        try:
-            from kaptive_tpu.native import hostio
-        except ImportError:  # no C++ compiler: the numpy encode + concat builds the same stream
-            flat, _ = concat_with_sentinels(encode_dna(contigs.seqs), contigs.offsets, contigs.lengths, k)
-            return cls(flat, starts, contigs.lengths.astype(np.int64), k, w)
+        from kaptive_tpu_torch.native import hostio
+
         # Native fused encode + sentinel-concat + 2-bit pack + exception scan
         # in one C pass; the pack outputs seed the sparse device upload.
         total = int(contigs.lengths.sum()) + gap * max(len(starts) - 1, 0)

@@ -34,9 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from kaptive_tpu.utils.metrics import count
-
 from kaptive_tpu_torch.ops.minimizer import SENTINEL, unpack_2bit_with_bits
+from kaptive_tpu_torch.utils.metrics import count
 
 SLOTS = 64  # per-row output capacity
 ROW = 128  # positions per row

@@ -7,7 +7,7 @@ ctypes; nothing is compiled at import.
 The wrapper checks device, dtype, shape and contiguity, allocates the outputs
 with ``torch.empty``, launches on the current stream, raises if the launch
 returns a CUDA error, and counts each launch as ``scan.cuda.rowcompact`` in
-:mod:`kaptive_tpu.utils.metrics`.  There is no fallback.
+:mod:`kaptive_tpu_torch.utils.metrics`.  There is no fallback.
 """
 
 from __future__ import annotations
@@ -16,9 +16,8 @@ import ctypes
 
 import torch
 
-from kaptive_tpu.utils.metrics import count
-
 from kaptive_tpu_torch.ops.scan import HALO_ROWS, ROW, SLOTS
+from kaptive_tpu_torch.utils.metrics import count
 from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 

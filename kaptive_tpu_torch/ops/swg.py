@@ -28,7 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kaptive_tpu.utils.metrics import count
+from kaptive_tpu_torch.utils.metrics import count
 
 NEG_INF = -1_000_000_000
 MAX_CIGAR_OPS = 256  # run-length op capacity per pair (overflowing pairs flag + truncate)

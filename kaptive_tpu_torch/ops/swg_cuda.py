@@ -8,11 +8,17 @@ CIGAR runs).  The library is compiled at first use (:mod:`kaptive_tpu_torch.util
 at the root of the checkout) and loaded with ctypes; nothing is compiled at
 import.
 
+The fill has two forms and picks one from ``w_pad`` alone (:func:`fill_form`):
+the warp form (one warp per pair, the band in registers) for the widths the
+lattices produce, a multiple of 128 up to 1024, and the wide form (one block
+per pair, the band in shared memory) for every other width up to
+``kts_swg_max_w_pad()``.  The traceback walks each pair with one warp.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises
 if the launch returns a CUDA error, and counts its launches
 (``swg.cuda.fill`` / ``swg.cuda.traceback`` / ``swg.cuda.traceback_cigar`` in
-:mod:`kaptive_tpu.utils.metrics`).
+:mod:`kaptive_tpu_torch.utils.metrics`).
 There is no fallback: what the kernels cannot take raises.
 """
 
@@ -23,9 +29,8 @@ import ctypes
 import numpy as np
 import torch
 
-from kaptive_tpu.utils.metrics import count
-
 from kaptive_tpu_torch.ops.swg import MAX_CIGAR_OPS, SwgResult
+from kaptive_tpu_torch.utils.metrics import count
 from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 
@@ -33,6 +38,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.kts_swg_max_w_pad.restype = i32
     lib.kts_swg_max_w_pad.argtypes = []
+    lib.kts_swg_fill_warp_form.restype = i32
+    lib.kts_swg_fill_warp_form.argtypes = [i32]
     lib.kts_swg_fill.restype = i32
     lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
     lib.kts_swg_traceback.restype = i32
@@ -47,6 +54,11 @@ LIBRARY = CudaLibrary("swg.cu", _declare)
 def build() -> ctypes.CDLL:
     r"""Compile (when the source is newer than the library) and load the kernels."""
     return LIBRARY.load()
+
+
+def fill_form(w_pad: int) -> str:
+    r"""The form of the fill kernel that takes ``w_pad``: ``"warp"`` or ``"wide"``."""
+    return "warp" if build().kts_swg_fill_warp_form(int(w_pad)) else "wide"
 
 
 def swg_fill_cuda(

@@ -23,11 +23,10 @@ from typing import IO
 
 import torch
 
-from kaptive_tpu.core.genome import GenomeAssembly
-from kaptive_tpu.utils.profiling import phase_timer
-
+from kaptive_tpu_torch.core.genome import GenomeAssembly
 from kaptive_tpu_torch.ops.mapper import device_inputs, host_seed_chains, resolve_seed_mode, upload_form
 from kaptive_tpu_torch.ops.minimizer import ContigIndex
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 Ingested = tuple[GenomeAssembly, ContigIndex]
 PreSeed = Callable[[ContigIndex], tuple]

@@ -25,8 +25,6 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from kaptive_tpu.utils.metrics import count
-
 from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W, bucket_length, concat_with_sentinels, encode_dna
 from kaptive_tpu_torch.ops.scan import (
     SLOTS,
@@ -35,6 +33,7 @@ from kaptive_tpu_torch.ops.scan import (
     minimizer_scan_plain,
     rowcompact_scan,
 )
+from kaptive_tpu_torch.utils.metrics import count
 
 MAX_OCC = 8  # per-minimizer occurrence cap of the table lookup
 

@@ -1,15 +1,14 @@
-r"""Serotyping engine of the port; result models and report rows are the JAX package's."""
+r"""Serotyping engine of the port: the ``Serotyper``, its decision logic, result models and report rows."""
 
-from kaptive_tpu_torch._reuse import (
+from kaptive_tpu_torch.serotyping.core import Serotyper
+from kaptive_tpu_torch.serotyping.io import KaptiveRow, Pha4geRow
+from kaptive_tpu_torch.serotyping.models import (
     GeneHits,
     GeneState,
-    KaptiveRow,
     LocusPieces,
-    Pha4geRow,
     SerotypingProblem,
     SerotypingResult,
 )
-from kaptive_tpu_torch.serotyping.core import Serotyper
 
 __all__ = [
     "GeneHits",

@@ -5,8 +5,9 @@ decision semantics.  The mapping phase is the port's mapper
 (:mod:`kaptive_tpu_torch.ops.mapper`, host- or device-seeded as
 ``KAPTIVE_SEED_MODE`` resolves) and the protein-identity DP is the
 port's :class:`~kaptive_tpu_torch.core.pairwise.PairwiseAligner`, both on an
-explicit ``device`` (CUDA by default).  The decision phases are the JAX
-package's numpy modules, reused through :mod:`kaptive_tpu_torch._reuse`, and
+explicit ``device`` (CUDA by default).  The decision phases are the numpy
+modules :mod:`kaptive_tpu_torch.serotyping.analysis` and
+:mod:`kaptive_tpu_torch.serotyping.models`, copies of the JAX package's, and
 :meth:`Serotyper.finish_batch` is carried over line for line, so results equal
 the JAX ``Serotyper``'s in the same seeding mode.
 """
@@ -19,30 +20,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from kaptive_tpu import __version__
-from kaptive_tpu.core.genome import GenomeAssembly
-from kaptive_tpu.core.interval import Intervals
-from kaptive_tpu.core.seq import Sequences
-from kaptive_tpu.db import Database
-from kaptive_tpu.utils.profiling import phase_timer
-
-from kaptive_tpu_torch._reuse import (
-    GeneHits,
-    GeneState,
+from kaptive_tpu_torch._version import __version__
+from kaptive_tpu_torch.core.genome import GenomeAssembly
+from kaptive_tpu_torch.core.interval import Intervals
+from kaptive_tpu_torch.core.pairwise import PairwiseAligner
+from kaptive_tpu_torch.core.seq import Sequences
+from kaptive_tpu_torch.db import Database
+from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch, resolve_seed_mode
+from kaptive_tpu_torch.ops.minimizer import ContigIndex
+from kaptive_tpu_torch.ops.swg import SwgLattice
+from kaptive_tpu_torch.serotyping.analysis import (
     HitTable,
-    LocusPieces,
-    SerotypingResult,
     call_typeability,
     edge_partial_mask,
     pick_best_loci,
     reconstruct_loci,
     resolve_phenotypes,
 )
-from kaptive_tpu_torch.core.pairwise import PairwiseAligner
-from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch, resolve_seed_mode
-from kaptive_tpu_torch.ops.minimizer import ContigIndex
-from kaptive_tpu_torch.ops.swg import SwgLattice
+from kaptive_tpu_torch.serotyping.models import GeneHits, GeneState, LocusPieces, SerotypingResult
 from kaptive_tpu_torch.utils.device import resolve_device
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 
 def _byte_vocab(strings, pad: int = 0) -> np.ndarray:
@@ -56,9 +53,10 @@ class Serotyper:
     r"""*In silico* serotyping engine for bacterial genome assemblies on ``device``.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present; the
-    CPU (the plain PyTorch DP) is used only when asked for.  The port builds
-    its own :class:`GeneIndex` from ``db.genes`` (never ``db.gene_index``,
-    which imports jax).
+    CPU (the plain PyTorch DP) is used only when asked for.  ``db`` is a
+    :class:`kaptive_tpu_torch.db.Database`; a database object of the JAX
+    package is refused (carry it across with
+    :func:`kaptive_tpu_torch.utils.state.loads_reference`).
     """
 
     def __init__(
@@ -73,6 +71,10 @@ class Serotyper:
         *,
         device: str | torch.device = "cuda",
     ) -> None:
+        if not isinstance(db, Database):
+            raise TypeError(
+                f"Serotyper needs a kaptive_tpu_torch.db.Database, got {type(db).__module__}.{type(db).__qualname__}"
+            )
         self.device = resolve_device(device)
         self._db = db
         self.max_other_genes = max_other_genes
@@ -80,7 +82,7 @@ class Serotyper:
         self.allow_below_threshold = allow_below_threshold
         self.min_gene_coverage = min_gene_coverage
         self.partial_edge_tolerance = partial_edge_tolerance
-        self._gene_index = GeneIndex.build(db.genes)
+        self._gene_index = db.gene_index
 
         # DP bucket lattices from what this database can produce (the JAX
         # package's policy): protein pairs are bounded by the longest DB

@@ -1,6 +1,6 @@
-r"""Port utilities: device selection (:mod:`kaptive_tpu_torch.utils.device`) and the
-build-at-first-use of the CUDA sources (:mod:`kaptive_tpu_torch.utils.nvcc`).
-
-Phase timers and pipeline counters are reused from
-:mod:`kaptive_tpu.utils.profiling` and :mod:`kaptive_tpu.utils.metrics`.
+r"""Port utilities: device selection (:mod:`kaptive_tpu_torch.utils.device`), the
+build-at-first-use of the CUDA sources (:mod:`kaptive_tpu_torch.utils.nvcc`),
+phase timers and device traces (:mod:`kaptive_tpu_torch.utils.profiling`),
+pipeline counters (:mod:`kaptive_tpu_torch.utils.metrics`) and the loader of
+state pickled by the JAX package (:mod:`kaptive_tpu_torch.utils.state`).
 """

@@ -1,23 +1,70 @@
-r"""Device trace capture (counterpart of ``kaptive_tpu.utils.profiling.device_trace``).
+r"""Per-phase timers and device trace capture.
 
-:func:`phase_timer` and :func:`phase_report` are the JAX package's, reused by
-import (they are plain wall-clock timers).  Its ``device_trace`` wraps
-``jax.profiler.trace``; the port's wraps ``torch.profiler`` and writes a
-Chrome trace (``chrome://tracing`` or Perfetto) into ``$KAPTIVE_TRACE_DIR``.
+The pipeline is a chain of device launches and host glue, and knowing which
+phase dominates decides where the next kernel goes.  This module has
+
+- :func:`phase_timer` — a nestable context manager accumulating wall time per
+  named phase (enabled with ``$KAPTIVE_PROFILE=1`` or ``--profile``; otherwise
+  one environment lookup);
+- :func:`phase_report` — one stderr line per phase (count, total, mean);
+- :func:`device_trace` — wraps ``torch.profiler`` and writes a Chrome trace
+  (``chrome://tracing`` or Perfetto) into ``$KAPTIVE_TRACE_DIR``.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
+from collections import defaultdict
 from contextlib import contextmanager
 from pathlib import Path
 
 import torch
 
-from kaptive_tpu.utils.profiling import phase_report, phase_timer
+__all__ = ["device_trace", "phase_report", "phase_timer", "phases_enabled", "reset_phases"]
 
-__all__ = ["device_trace", "phase_report", "phase_timer"]
+_PHASES: dict[str, list[float]] = defaultdict(lambda: [0, 0.0])  # name -> [count, total_s]
+
+
+def phases_enabled() -> bool:
+    return os.environ.get("KAPTIVE_PROFILE", "") == "1"
+
+
+def reset_phases() -> None:
+    _PHASES.clear()
+
+
+@contextmanager
+def phase_timer(name: str):
+    r"""Accumulate wall time under ``name`` when profiling is enabled."""
+    if not phases_enabled():
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        entry = _PHASES[name]
+        entry[0] += 1
+        entry[1] += time.perf_counter() - t0
+
+
+def phase_report(stream=None) -> dict[str, tuple[int, float]]:
+    r"""Print accumulated phase timings to stderr; returns {name: (count, total_s)}."""
+    stream = stream or sys.stderr
+    out = {}
+    if _PHASES:
+        width = max(len(k) for k in _PHASES)
+        print("⏱  phase timings:", file=stream)
+        for name, (count, total) in sorted(_PHASES.items(), key=lambda kv: -kv[1][1]):
+            mean = total / max(count, 1)
+            print(
+                f"   {name:<{width}}  n={count:<6d} total={total:8.3f}s  mean={mean * 1e3:9.3f}ms",
+                file=stream,
+            )
+            out[name] = (count, total)
+    return out
 
 
 @contextmanager

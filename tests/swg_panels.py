@@ -18,7 +18,7 @@ def nt_matrix() -> np.ndarray:
 
 
 def blosum_matrix() -> np.ndarray:
-    from kaptive_tpu.core.pairwise import blosum62_matrix
+    from kaptive_tpu_torch.core.pairwise import blosum62_matrix
 
     return blosum62_matrix().astype(np.int32)
 
@@ -155,3 +155,65 @@ def cigar_panel(rng, kind: str):
 
 
 CIGAR_PANELS = ("nt-indels", "protein", "overflow", "no-op")
+
+
+def best_cell_panel(rows_max: int = 64, w_pad: int = 128):
+    """Pairs whose best score is reached in more than one cell, or at the band's
+    last row: ``(arrays, expected (best_i, best_j) per pair)``, DNA scoring
+    (match 2, mismatch -4, gap 4 + 2 per base), unseeded on diagonal 0.
+
+    The fill keeps the first row that reaches the best score and, inside it,
+    the lowest band lane (the lowest column).  Two 12-mers ``S1``, ``S2`` score
+    24 each; C and A spacers of unequal length keep them from joining (the
+    joined alignment scores 18).
+
+    - ``two rows, later one on a lower lane``: query ``S1 C*9 S2``, target
+      ``S1 A*6 S2``: cells (12, 12) and (33, 30); the first row wins although
+      the second cell's lane is lower.
+    - ``two rows, later one on a higher lane``: spacers swapped: (12, 12) and (30, 33).
+    - ``one row``: query ``S1``, target ``S1 A*6 S1``: (12, 12) and (12, 30) in
+      one row; the lower lane wins.
+    - ``last row``: identical 40-mers, and identical ``rows_max``-mers: the best
+      cell is in the query's last row, which is the bucket's last row too.
+    - ``q_len above rows_max``: a ``rows_max``-mer whose stated length exceeds
+      the bucket's rows: the fill stops at ``rows_max``.
+    - ``nothing scores``: no cell above 0: the best cell stays (0, 0).
+    """
+    s1, s2 = b"ACGTTGCAAGCT", b"GATCCTAGGTCA"
+    rng = np.random.default_rng(97)
+    full = _random_bytes(rng, NT, rows_max)
+    pairs = [
+        (s1 + b"C" * 9 + s2, s1 + b"A" * 6 + s2),
+        (s1 + b"C" * 6 + s2, s1 + b"A" * 9 + s2),
+        (s1, s1 + b"A" * 6 + s1),
+        (full[:40], full[:40]),
+        (full, full),
+        (full, full),
+        (b"A" * 30, b"C" * 30),
+    ]
+    expected = [(12, 12), (12, 12), (12, 12), (40, 40), (rows_max, rows_max), (rows_max, rows_max), (0, 0)]
+    arrays = list(_padded_bucket(pairs, rows_max, w_pad, 40))
+    arrays[1][5] = rows_max + 50  # the stated query length runs past the bucket's rows
+    return tuple(arrays), expected
+
+
+GAP_RUNS = (31, 32, 33, 40, 64, 70)
+
+
+def gap_run_panel(rng, rows_max: int = 320, w_pad: int = 256):
+    """Pairs whose alignment holds one long gap: for each length in ``GAP_RUNS`` a
+    pair with that many extra bases in the query (a vertical run of the walk)
+    and one with them in the target (a horizontal run), between two matching
+    120-base flanks; then two identical pairs whose walk ends at the matrix
+    edge (i = 0 and j = 0 together) and one whose target starts 5 bases in
+    (the walk ends at i = 0 with j = 5).  DNA scoring, band 90 on diagonal 0.
+    """
+    pairs = []
+    for n in GAP_RUNS:
+        left, right = _random_bytes(rng, NT, 120), _random_bytes(rng, NT, 120)
+        extra = _random_bytes(rng, NT, n)
+        pairs.append((left + extra + right, left + right))
+        pairs.append((left + right, left + extra + right))
+    whole = _random_bytes(rng, NT, 200)
+    pairs += [(whole, whole), (whole[:33], whole[:33]), (whole, _random_bytes(rng, NT, 5) + whole)]
+    return _padded_bucket(pairs, rows_max, w_pad, 90)

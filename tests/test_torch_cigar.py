@@ -17,15 +17,12 @@ Three levels, each on seeded numpy panels fed unchanged to both packages:
 Tolerance: exact (integer DP and run-length records).
 """
 
-import io
-
 import numpy as np
 import pytest
 import torch
 from swg_panels import CIGAR_PANELS, cigar_panel, nt_matrix
+from torch_panel import both_assemblies
 from typing_panel import assert_same
-
-from kaptive_tpu.core.genome import GenomeAssembly
 
 # One intra-op thread: the plain DP issues many tiny ops, and idle OpenMP
 # workers spinning in several test processes at once starve the JAX side.
@@ -38,7 +35,7 @@ def test_banded_swg_cigars_equals_lax(kind):
 
     from kaptive_tpu.ops.swg import MAX_CIGAR_OPS as JAX_CAP
     from kaptive_tpu.ops.swg import banded_swg_lax_cigars
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.ops.swg import MAX_CIGAR_OPS, banded_swg_cigars
 
@@ -139,14 +136,16 @@ def cigar_genome(tmp_path_factory):
     """``tests/test_mapper.py``'s CIGAR panel: KL2 with 2% substitutions and 0.5% indels."""
     from synthetic import make_synthetic_db, mutate_dna, random_dna
 
-    from kaptive_tpu.db import Database
+    from kaptive_tpu.db import Database as JaxDatabase
+
+    from kaptive_tpu_torch.db import Database
 
     rng = np.random.default_rng(11)
     gbk, truth = make_synthetic_db(tmp_path_factory.mktemp("cigar"), rng, n_loci=3, genes_per_locus=4)
-    db = Database.from_genbank(gbk)
     locus = mutate_dna(rng, truth["loci"]["KL2"]["seq"], sub_rate=0.02, indel_rate=0.005)
     contig = random_dna(rng, 4000) + locus + random_dna(rng, 4000)
-    return db, GenomeAssembly.from_stream(io.BytesIO(b">c1\n%s\n" % contig), "cig")
+    ga, jax_ga = both_assemblies(b">c1\n%s\n" % contig, "cig")
+    return Database.from_genbank(gbk), ga, JaxDatabase.from_genbank(gbk), jax_ga
 
 
 @pytest.mark.parametrize("seed_mode", ["host", "device"])
@@ -154,12 +153,12 @@ def test_map_genes_batch_cigars_equal_jax(cigar_genome, seed_mode):
     from kaptive_tpu.ops.mapper import MapperParams as JaxParams
     from kaptive_tpu.ops.mapper import map_genes_batch as jax_map
 
-    from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch
+    from kaptive_tpu_torch.ops.mapper import MapperParams, map_genes_batch
 
-    db, ga = cigar_genome
+    db, ga, jax_db, jax_ga = cigar_genome
     names = tuple(str(i) for i in range(len(db.genes)))
-    want = jax_map(db.gene_index, [ga], names, JaxParams(emit_cigars=True), seed_mode=seed_mode)[0]
-    gi = GeneIndex.build(db.genes)
+    want = jax_map(jax_db.gene_index, [jax_ga], names, JaxParams(emit_cigars=True), seed_mode=seed_mode)[0]
+    gi = db.gene_index
     got = map_genes_batch(gi, [ga], names, MapperParams(emit_cigars=True), seed_mode=seed_mode, device="cpu")[0]
     assert len(want) > 0 and want.cigars.lengths.sum() > len(want)  # gapped hits
     assert_same(got, want)
@@ -188,14 +187,14 @@ def test_mapper_params_field_order_equals_jax():
 
 def test_device_mode_fallback_keeps_cigars(cigar_genome, monkeypatch):
     """A host-fallback genome in device mode keeps host mode's CIGARs."""
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.ops import mapper as tm
 
-    db, ga = cigar_genome
+    db, ga = cigar_genome[:2]
     monkeypatch.setattr(tm, "ANCHOR_CAP", 8)
     names = tuple(str(i) for i in range(len(db.genes)))
-    gi = tm.GeneIndex.build(db.genes)
+    gi = db.gene_index
     params = tm.MapperParams(emit_cigars=True)
     reset_metrics()
     got = tm.map_genes_batch(gi, [ga], names, params, seed_mode="device", device="cpu")[0]

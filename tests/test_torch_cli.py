@@ -2,8 +2,9 @@
 
 ``tests/test_cli.py``'s two-genome panel (seed 7: KL1 clean, KL3 1% diverged,
 3-locus database).  Each port command runs in a subprocess on the CPU
-(``--device cpu``, the kernels' plain versions), most with every ``jax*``
-import blocked, and reports the ``jax*`` modules it loaded (none may load).
+(``--device cpu``, the kernels' plain versions), most with every ``jax*`` and
+``kaptive_tpu`` import blocked, and reports the ``jax*`` and ``kaptive_tpu*``
+modules it loaded (none may load).
 The reference is computed in the test process, not by a second CLI run: the
 JAX ``Serotyper``'s results written by the JAX package's ``ResultExporter``,
 and ``Serotyper.screen``'s rows for ``--screen-only``.
@@ -21,7 +22,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import kaptive_tpu.native.hostio  # noqa: F401  (built here, before any subprocess imports it)
+from kaptive_tpu_torch.native import hostio
+
+hostio.load()  # built here once, before the subprocesses need it
 
 ROOT = Path(__file__).resolve().parent.parent
 GENOMES = ["../g1.fasta", "../g2.fasta"]
@@ -32,21 +35,24 @@ BOOT = r"""
 import atexit, importlib.abc, sys
 
 
-class BlockJax(importlib.abc.MetaPathFinder):
+FOREIGN = ("jax", "jaxlib", "kaptive_tpu")
+
+
+class BlockForeign(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in FOREIGN:
             raise ModuleNotFoundError(f"blocked: {name}", name=name)
         return None
 
 
 if sys.argv[1] == "block":
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, BlockForeign())
 
 
 @atexit.register
 def _report():
-    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
-    sys.stderr.write("\nJAX_MODULES=%s\n" % ",".join(loaded))
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    sys.stderr.write("\nFOREIGN_MODULES=%s\n" % ",".join(loaded))
 
 
 sys.argv = ["kaptive-tpu-torch", *sys.argv[2:]]
@@ -57,15 +63,15 @@ main()
 
 
 def run_port(args, cwd: Path, jax: str = "block", **extra_env: str) -> subprocess.CompletedProcess:
-    """Run the port's CLI in ``cwd``; asserts that no ``jax*`` module was loaded."""
+    """Run the port's CLI in ``cwd``; asserts that no ``jax*`` or ``kaptive_tpu*`` module was loaded."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env.update(PYTHONPATH=str(ROOT), KAPTIVE_DB_DIR=str(cwd.parent / "cache"), HOME=str(cwd),
                OMP_NUM_THREADS="1", **extra_env)
     cwd.mkdir(exist_ok=True)
     proc = subprocess.run([sys.executable, "-c", BOOT, jax, *args], cwd=cwd, env=env,
                           capture_output=True, timeout=600)
-    report = [ln for ln in proc.stderr.decode().splitlines() if ln.startswith("JAX_MODULES=")]
-    assert report == ["JAX_MODULES="], proc.stderr.decode()[-3000:]
+    report = [ln for ln in proc.stderr.decode().splitlines() if ln.startswith("FOREIGN_MODULES=")]
+    assert report == ["FOREIGN_MODULES="], proc.stderr.decode()[-3000:]
     return proc
 
 
@@ -189,11 +195,14 @@ def test_db_commands_through_port_root(workdir, argv, marker, capsysbinary, monk
 
 
 def test_type_keyword_database(workdir, port_host, monkeypatch):
-    """An installed database, by keyword: its pickle loads without jax."""
+    """An installed database, by keyword: a pickle written by the JAX package's
+    ``DatabaseManager`` (its gene index built and cached inside) loads in the port
+    with ``kaptive_tpu`` and jax blocked."""
     from kaptive_tpu.db import Database, DatabaseManager
 
     monkeypatch.setenv("KAPTIVE_DB_DIR", str(workdir / "cache"))
     db = Database.from_genbank(workdir / "TestDB.gbk")
+    assert db.gene_index.device_table is not None  # JAX arrays inside the pickled cache
     DatabaseManager.save(db)
     assert DatabaseManager.installed() == [db.metadata.keyword]
     proc = run_port(["type", db.metadata.keyword, GENOMES[1], "-o", "kw.tsv", "--device", "cpu"],
@@ -223,7 +232,7 @@ def test_screen_only_equals_jax(workdir):
     from kaptive_tpu.db import Database
     from kaptive_tpu.serotyping import Serotyper
 
-    # jax importable here: the port must still not load it.
+    # jax and the JAX package importable here: the port must still load neither.
     proc = run_port(["type", "../TestDB.gbk", *GENOMES, "--screen-only", "-o", "screen.tsv",
                      "--device", "cpu"], workdir / "screen", jax="allow")
     assert proc.returncode == 0, proc.stderr.decode()[-3000:]
@@ -260,8 +269,11 @@ def test_help_speaks_of_the_port(workdir):
         assert word not in text, word
 
 
-@pytest.mark.skipif(__import__("torch").cuda.is_available(), reason="checks the refusal on a machine without a card")
 def test_device_cuda_without_a_card_fails(workdir):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a card")
     proc = run_port(["type", "../TestDB.gbk", GENOMES[0], "-o", "never.tsv"], workdir / "no_card")
     assert proc.returncode == 1
     assert b"no CUDA device" in proc.stderr

@@ -18,7 +18,10 @@ import pytest
 import torch
 
 from scan_panels import PANELS, random_stream
-from swg_panels import AA, CIGAR_PANELS, NT, blosum_matrix, cigar_panel, nt_matrix, random_swg_batch
+from swg_panels import (
+    AA, CIGAR_PANELS, GAP_RUNS, NT, best_cell_panel, blosum_matrix, cigar_panel, gap_run_panel, nt_matrix,
+    random_swg_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -30,9 +33,11 @@ def device():
     from kaptive_tpu_torch.ops import swg_cuda
 
     swg_cuda.build()
+    print(f"swg.cu ptxas: {swg_cuda.LIBRARY.ptxas_report()}")
     return torch.device("cuda", 0)
 
 
+# The fill's warp form takes every multiple of 128 up to 1024; every other width goes to the wide form.
 CASES = [
     # name, alphabet, matrix, gap_open, gap_extend, B, rows_max, w_pad, seeded, tie_heavy
     ("protein-unseeded", AA, blosum_matrix, 11, 1, 13, 384, 640, False, False),
@@ -46,25 +51,32 @@ CASES = [
     ("lanes-per-thread-4", AA, blosum_matrix, 11, 1, 4, 200, 1152, False, False),
     ("lanes-per-thread-8", NT, nt_matrix, 4, 2, 3, 96, 3072, True, False),
     ("idle-threads-4224", AA, blosum_matrix, 11, 1, 2, 96, 4224, False, True),
+    ("warp-128-many-pairs", NT, nt_matrix, 4, 2, 75, 160, 128, True, True),
+    ("warp-256", AA, blosum_matrix, 11, 1, 19, 200, 256, False, False),
+    ("warp-384-repeats", NT, nt_matrix, 4, 2, 9, 130, 384, False, True),
+    ("warp-512-repeats", AA, blosum_matrix, 11, 1, 10, 97, 512, False, True),
+    ("warp-640-repeats", NT, nt_matrix, 4, 2, 9, 130, 640, False, True),
+    ("warp-896", AA, blosum_matrix, 11, 1, 5, 150, 896, False, False),
+    ("warp-1024-repeats", NT, nt_matrix, 4, 2, 6, 100, 1024, True, True),
+    ("wide-200-odd-width", AA, blosum_matrix, 11, 1, 6, 70, 200, True, True),
 ]
+WARP_WIDTHS = tuple(range(128, 1025, 128))
 
 
-@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
-def test_kernel_equals_plain(device, case):
+def _assert_kernels_equal_plain(device, arrays, matrix, go, ge, rows_max, w_pad):
+    """Fill then traceback, kernel vs plain, on one bucket; returns the kernel's (8, B) results."""
     from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_plain
-    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, swg_fill_cuda, swg_traceback_cuda
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form, swg_fill_cuda, swg_traceback_cuda
 
-    name, alphabet, matrix_fn, go, ge, B, rows_max, w_pad, seeded, ties = case
-    rng = np.random.default_rng(sum(map(ord, name)))
-    arrays = random_swg_batch(rng, alphabet, B, rows_max, w_pad, seeded=seeded, tie_heavy=ties)
+    assert fill_form(w_pad) == ("warp" if w_pad in WARP_WIDTHS else "wide")
     q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
-    mat = as_kernel_matrix(torch.from_numpy(matrix_fn()), device)
+    mat = as_kernel_matrix(torch.from_numpy(matrix), device)
     kw = dict(gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
 
     tb_k, *best_k = swg_fill_cuda(q, ql, t, tl, off, kl, mat, **kw)
     tb_p, *best_p = fill_band_plain(q, ql, t, tl, off, kl, mat, **kw)
-    for got, want in zip(best_k, best_p):
-        assert torch.equal(got, want)
+    for name, got, want in zip(("best", "best_i", "best_j"), best_k, best_p):
+        assert torch.equal(got, want), name
     rows = torch.arange(rows_max, device=device)[None, :, None] < ql.to(torch.int64)[:, None, None]
     assert torch.equal(torch.where(rows, tb_k, 0), torch.where(rows, tb_p, 0))
 
@@ -74,10 +86,57 @@ def test_kernel_equals_plain(device, case):
     torch.cuda.synchronize()
     for f, got, want in zip(res_p._fields, res_k.unbind(0), res_p):
         assert torch.equal(got, want), f
+    return res_k
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_kernel_equals_plain(device, case):
+    name, alphabet, matrix_fn, go, ge, B, rows_max, w_pad, seeded, ties = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    arrays = random_swg_batch(rng, alphabet, B, rows_max, w_pad, seeded=seeded, tie_heavy=ties)
+    _assert_kernels_equal_plain(device, arrays, matrix_fn(), go, ge, rows_max, w_pad)
+
+
+@pytest.mark.parametrize("w_pad", [128, 256, 512, 640, 1024, 1152, 200])
+def test_best_cell_rule_on_ties(device, w_pad):
+    """Equal maxima in two rows and in one row, the best in the last row, a stated query
+    length past the bucket's rows: both forms of the fill keep the first row's lowest lane."""
+    arrays, expected = best_cell_panel(64, w_pad)
+    res = _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 64, w_pad)
+    assert list(zip(res[5].tolist(), res[7].tolist())) == expected
+    assert res[0].tolist() == [24, 24, 24, 80, 128, 128, 0]
+
+
+@pytest.mark.parametrize("w_pad", [256, 768, 1152])
+def test_long_gap_runs(device, w_pad):
+    """Walks with one vertical or horizontal run of 31 to 70 steps (across the warp's
+    32-cell stretch) and walks that end at the matrix edge, after both forms of the fill."""
+    arrays = gap_run_panel(np.random.default_rng(41), 320, w_pad)
+    res = _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 320, w_pad)
+    assert res[3].tolist()[: 2 * len(GAP_RUNS)] == [n for n in GAP_RUNS for _ in range(2)]
+    assert res[4].tolist()[-3:] == [0, 0, 0] and res[6].tolist()[-3:] == [0, 0, 5]
+
+
+def test_traceback_walks_planted_cigar_bucket(device):
+    """The CIGAR panels' indel-dense bucket (short D and I runs in turn): the warp walk's
+    counts equal the serial CIGAR walk's on the same bits."""
+    from kaptive_tpu_torch.ops.swg_cuda import swg_fill_cuda, swg_traceback_cigar_cuda, swg_traceback_cuda
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
+    from swg_panels import cigar_bucket
+
+    arrays, matrix, go, ge, rows_max, w_pad = cigar_bucket(np.random.default_rng(5), 64, 512, 128)
+    res = _assert_kernels_equal_plain(device, arrays, matrix, go, ge, rows_max, w_pad)
+    q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
+    tb, *best = swg_fill_cuda(q, ql, t, tl, off, kl, as_kernel_matrix(torch.from_numpy(matrix), device),
+                              gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
+    tr = dict(rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
+    serial, *_ = swg_traceback_cigar_cuda(tb, q, t, *best, off, **tr)
+    assert torch.equal(swg_traceback_cuda(tb, q, t, *best, off, **tr), serial) and torch.equal(res, serial)
+    assert int(res[3].sum()) > 500  # gaps
 
 
 def test_front_door_routes_cuda_to_kernels(device):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.ops.swg import banded_swg
 
@@ -138,7 +197,7 @@ def test_scan_kernel_equals_plain(scan_device, case):
 
 def test_scan_front_door_routes_by_device(scan_device):
     """A CUDA tensor reaches only the kernel, a CPU tensor only the plain version."""
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any, rowcompact_scan
     from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
@@ -162,14 +221,14 @@ def test_device_seeded_serotyper_on_card_equals_host(scan_device, monkeypatch, t
     import io
 
     import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
-    from typing_panel import TRUTH, make_typing_panel
+    from typing_panel import TRUTH, make_port_typing_panel
 
-    from kaptive_tpu.serotyping.io import KaptiveRow
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
     from kaptive_tpu_torch.parallel import stream_type
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    db, genomes = make_typing_panel(tmp_path)
+    db, genomes = make_port_typing_panel(tmp_path)
     serotyper = Serotyper(db, device="cuda")
 
     def rows(mode):
@@ -212,7 +271,7 @@ def test_cigar_kernel_equals_plain(device, kind):
 
 
 def test_cigar_front_door_routes_cuda_to_kernels(device):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.ops.swg import banded_swg_cigars
 
@@ -234,15 +293,15 @@ def test_mapper_cigars_on_card_equal_cpu(scan_device, seed_mode, tmp_path):
     import io
 
     import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
-    from typing_panel import assert_same, make_typing_panel
+    from typing_panel import assert_same, make_port_typing_panel
 
-    from kaptive_tpu.core.genome import GenomeAssembly
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-    from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, map_genes_batch
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.ops.mapper import MapperParams, map_genes_batch
 
-    db, genomes = make_typing_panel(tmp_path)
+    db, genomes = make_port_typing_panel(tmp_path)
     assemblies = [GenomeAssembly.from_stream(io.BytesIO(f), n) for n, f in genomes]
-    gi = GeneIndex.build(db.genes)
+    gi = db.gene_index
     names = tuple(str(i) for i in range(len(db.genes)))
     params = MapperParams(emit_cigars=True)
     reset_metrics()
@@ -256,14 +315,13 @@ def test_mapper_cigars_on_card_equal_cpu(scan_device, seed_mode, tmp_path):
 
 def test_screen_on_card_equals_cpu(scan_device, tmp_path):
     import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
-    from typing_panel import TRUTH, make_typing_panel
+    from typing_panel import TRUTH, make_port_typing_panel
 
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-    from kaptive_tpu_torch.ops.mapper import GeneIndex
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
     from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    db, genomes = make_typing_panel(tmp_path)
+    db, genomes = make_port_typing_panel(tmp_path)
     # A 400-base poly-A run before the KL3 locus: its scan rows hold more than
     # 64 minimizers, so the card re-tallies that genome from the flat plain scan.
     revcomp = dict(genomes)["revcomp"]
@@ -284,7 +342,7 @@ def test_screen_on_card_equals_cpu(scan_device, tmp_path):
     np.testing.assert_allclose(weighted, weighted_cpu, rtol=1e-6)
     assert [db.loci.ids[b] for b in best[:2]] == TRUTH[:2]
     codes = torch.from_numpy(encode_assemblies_to_batch(assemblies))
-    tables = ScreenTables.build(db, GeneIndex.build(db.genes))
+    tables = ScreenTables.build(db, db.gene_index)
     best_card, _, tallies_card = locus_screen_batch(codes.to(scan_device), tables, len(db.genes))
     best_plain, _, tallies_cpu = locus_screen_batch(codes, tables, len(db.genes))
     assert torch.equal(tallies_card.cpu(), tallies_cpu)
@@ -298,12 +356,12 @@ def test_cli_on_card_equals_in_process_rows(scan_device, tmp_path):
     from pathlib import Path
 
     import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
-    from typing_panel import make_typing_panel
+    from typing_panel import make_port_typing_panel
 
-    from kaptive_tpu.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    db, genomes = make_typing_panel(tmp_path)
+    db, genomes = make_port_typing_panel(tmp_path)
     paths = []
     for name, fasta in genomes:
         (path := tmp_path / f"{name}.fasta").write_bytes(fasta)

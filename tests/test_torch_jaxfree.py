@@ -1,15 +1,19 @@
-"""The port never imports jax: a subprocess imports the port, types one small genome
-on the CPU in host- and in device-seeded mode, runs the port's command line
-(``kaptive_tpu_torch.cli.main``) on it and checks that no ``jax*`` module was
-loaded — once with every
-``jax*`` import blocked (a machine without jax) and once with jax importable
-(as on the GPU machine, where jax is installed but must stay unused).  In that
-process the names the JAX package's ``kaptive_tpu.serotyping`` re-exports from
-its jax-free modules (``KaptiveRow``, ``SerotypingResult``, ...) import as the
-port's, and its ``Serotyper`` raises an ImportError that names the cause."""
+"""The port stands alone: it imports nothing of ``kaptive_tpu`` and never ``jax``.
+
+A subprocess imports the port, makes a database with the port's own GenBank
+writer, types one small genome on the CPU in host- and in device-seeded mode,
+runs the port's command line (``type``, ``convert`` and ``db``) on it and
+checks that no ``kaptive_tpu``, ``kaptive_tpu.*`` or ``jax*`` module is in
+``sys.modules`` — once with every such import blocked in the meta-path finder
+(a machine that has neither) and once with all of them importable (as on the
+GPU machine, where jax and the JAX package are installed but must stay
+unused).  A static test reads every source file of the port and
+``chip_smoke.py`` for an import statement that names either.
+"""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -19,31 +23,33 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 
 SCRIPT = r"""
-import importlib.abc, io, json, os, shutil, sys, tempfile
+import contextlib, importlib.abc, io, json, os, shutil, sys, tempfile
 from pathlib import Path
 
+FOREIGN = ("jax", "jaxlib", "kaptive_tpu")
 
-class BlockJax(importlib.abc.MetaPathFinder):
+
+class BlockForeign(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in FOREIGN:
             raise ModuleNotFoundError(f"blocked: {name}", name=name)
         return None
 
 
 if sys.argv[2] == "block":
-    sys.meta_path.insert(0, BlockJax())
+    sys.meta_path.insert(0, BlockForeign())
 sys.path.insert(0, sys.argv[1])
 
 import numpy as np
 import torch
-from synthetic import make_genome_from_locus, make_synthetic_db
+from torch_synthetic import make_genome_from_locus, make_synthetic_db
 
 torch.set_num_threads(1)  # the test runs beside other test processes
 
-import kaptive_tpu_torch.ops.swg_cuda  # noqa: F401  (first; the bindings import without a build)
+import kaptive_tpu_torch.ops.swg_cuda  # noqa: F401  (the bindings import without a build)
 import kaptive_tpu_torch.ops.scan_cuda  # noqa: F401
-from kaptive_tpu.core.genome import GenomeAssembly
-from kaptive_tpu.db import Database
+from kaptive_tpu_torch.core.genome import GenomeAssembly
+from kaptive_tpu_torch.db import Database
 from kaptive_tpu_torch.parallel import stream_type
 from kaptive_tpu_torch.serotyping import KaptiveRow, Serotyper
 
@@ -60,14 +66,7 @@ os.environ["KAPTIVE_SEED_MODE"] = "device"
 device_rows = [bytes(KaptiveRow.from_result(r)) for r in
                [serotyper(GenomeAssembly.from_stream(io.BytesIO(fasta), "g")),
                 *stream_type(serotyper, [io.BytesIO(fasta)], batch_size=1)]]
-try:
-    from kaptive_tpu.serotyping import Serotyper as JaxSerotyper  # noqa: F401
-    skipped_init = None
-except ImportError as err:
-    skipped_init = str(err)
-from kaptive_tpu.serotyping import KaptiveRow as BareRow, SerotypingResult as BareResult
-from kaptive_tpu_torch.serotyping import SerotypingResult
-reexports = BareRow is KaptiveRow and BareResult is SerotypingResult
+del os.environ["KAPTIVE_SEED_MODE"]
 
 from kaptive_tpu_torch.cli import main
 
@@ -79,12 +78,18 @@ cli_rows = (tmp / "out.tsv").read_bytes().splitlines()[1:]
 sys.argv = ["kaptive-tpu-torch", "convert", str(tmp / "out.jsonl"), "-t", str(tmp / "conv.tsv")]
 main()
 converted = (tmp / "conv.tsv").read_bytes().splitlines()[1:] == cli_rows
+sys.argv = ["kaptive-tpu-torch", "db", "metadata", str(gbk)]
+shown = io.TextIOWrapper(io.BytesIO(), encoding="utf-8")
+with contextlib.redirect_stdout(shown):
+    main()
+shown.flush()
+db_metadata = b"Testus syntheticus" in shown.buffer.getvalue()
 shutil.rmtree(tmp)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 print(json.dumps({"locus": result.best_locus_name, "streamed": streamed[0].best_locus_name,
                   "row_bytes": len(row), "device_rows_equal": device_rows == [row, bytes(KaptiveRow.from_result(streamed[0]))],
-                  "skipped_init": skipped_init, "reexports": reexports,
-                  "cli_rows_equal": cli_rows == row.splitlines(), "converted": converted, "jax_modules": loaded}))
+                  "cli_rows_equal": cli_rows == row.splitlines(), "converted": converted,
+                  "db_metadata": db_metadata, "foreign_modules": loaded}))
 """
 
 
@@ -97,12 +102,19 @@ def test_port_types_without_jax(jax_import):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["jax_modules"] == []
+    assert out["foreign_modules"] == []
     assert out["locus"] == "KL2" and out["streamed"] == "KL2"
     assert out["row_bytes"] > 0
     assert out["device_rows_equal"]
-    # The JAX package's own entry points say why they are missing.
-    assert "kaptive_tpu_torch loaded 'kaptive_tpu.serotyping' as a bare package" in out["skipped_init"]
-    # ... and the writers' row classes are there, so the CLI's writers work.
-    assert out["reexports"]
-    assert out["cli_rows_equal"] and out["converted"]
+    assert out["cli_rows_equal"] and out["converted"] and out["db_metadata"]
+
+
+_FOREIGN_IMPORT = re.compile(r"^\s*(from|import) +(kaptive_tpu|jax|jaxlib)(\.|\s|$)", re.M)
+
+
+def test_no_source_file_imports_the_jax_package():
+    sources = [*sorted((ROOT / "kaptive_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
+    assert len(sources) > 40
+    offenders = {str(p.relative_to(ROOT)): _FOREIGN_IMPORT.findall(p.read_text()) for p in sources}
+    assert {name: hits for name, hits in offenders.items() if hits} == {}
+    assert not (ROOT / "kaptive_tpu_torch" / "_reuse.py").exists()

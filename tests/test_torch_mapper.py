@@ -1,8 +1,8 @@
 """The port's mapper (host- and device-seeded) and protein aligner vs the JAX package's.
 
-The port's GeneIndex is built over the JAX GeneIndex's arrays (the DB gene
-table is the "weights" both compute on) and, independently, from the DB's
-genes.  Mapping runs on the CPU (plain PyTorch scan and DP) against the JAX
+Each package compiles its own database from the same GenBank file and parses
+its own assemblies from the same FASTA bytes (``torch_panel``); no object
+crosses between them.  Mapping runs on the CPU (plain PyTorch scan and DP) against the JAX
 package's ``map_genes_batch(..., seed_mode=...)``; the device mode's match
 and chain stages are held to ``_match_rows_batch`` and ``_chain_batch`` on
 their whole output buffers, and each host fallback of device mode to host
@@ -15,10 +15,8 @@ import numpy as np
 import pytest
 import torch
 from swg_panels import AA
-from typing_panel import assert_same, make_typing_panel
-
-from kaptive_tpu.core.genome import GenomeAssembly
-from kaptive_tpu.core.seq import Sequences
+from torch_panel import make_typing_panels
+from typing_panel import assert_same
 
 # One intra-op thread: the plain DP issues many tiny ops, and idle OpenMP
 # workers spinning in several test processes at once starve the JAX side.
@@ -27,17 +25,15 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def panel(tmp_path_factory):
-    db, genomes = make_typing_panel(tmp_path_factory.mktemp("torch_mapper"))
-    assemblies = [GenomeAssembly.from_stream(io.BytesIO(f), n) for n, f in genomes]
-    return db, assemblies
+    return make_typing_panels(tmp_path_factory.mktemp("torch_mapper"))
 
 
 def test_gene_index_equals_jax(panel):
     from kaptive_tpu_torch.ops.mapper import GeneIndex
 
-    db, _ = panel
-    ref = db.gene_index
-    for gi in (GeneIndex.from_reference(ref), GeneIndex.build(db.genes)):
+    ref = panel.jax_db.gene_index
+    assert isinstance(panel.db.gene_index, GeneIndex)
+    for gi in (panel.db.gene_index, GeneIndex.build(panel.db.genes)):
         assert_same(gi.minimizers, ref.minimizers)
         for name in ("codes", "starts", "lengths", "host_buckets", "host_bloom"):
             np.testing.assert_array_equal(getattr(gi, name), getattr(ref, name), err_msg=name)
@@ -48,32 +44,29 @@ def test_host_seed_chains_equal_jax(panel):
     from kaptive_tpu.ops.mapper import MapperParams as JaxParams
     from kaptive_tpu.ops.mapper import host_seed_chains as jax_chains
 
-    from kaptive_tpu_torch.ops.mapper import GeneIndex, MapperParams, host_seed_chains
+    from kaptive_tpu_torch.ops.mapper import MapperParams, host_seed_chains
     from kaptive_tpu_torch.ops.minimizer import ContigIndex
 
-    db, assemblies = panel
-    gi = GeneIndex.from_reference(db.gene_index)
-    for ga in assemblies:
-        ci = ContigIndex.build(ga.contigs)
-        np.testing.assert_array_equal(ci.codes, ga.get_minimizer_index().codes)
+    gi = panel.db.gene_index
+    for ga, jax_ga in zip(panel.assemblies, panel.jax_assemblies, strict=True):
+        ci = ga.get_minimizer_index()
+        assert isinstance(ci, ContigIndex)
+        np.testing.assert_array_equal(ci.codes, jax_ga.get_minimizer_index().codes)
         got = host_seed_chains(gi, ci, MapperParams())
-        want = jax_chains(db.gene_index, ga.get_minimizer_index(), JaxParams())
+        want = jax_chains(panel.jax_db.gene_index, jax_ga.get_minimizer_index(), JaxParams())
         assert set(got) == set(want)
         for key in want:
             np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_numpy_seeding_equals_native(panel):
-    """Without a C++ compiler the port seeds with numpy: same contig stream, same chains."""
-    from kaptive_tpu_torch.ops.mapper import (
-        GeneIndex, MapperParams, chain_anchors, find_anchors, host_seed_chains,
-    )
+    """The numpy encode, concat and anchor search give the native library's contig stream and chains."""
+    from kaptive_tpu_torch.ops.mapper import MapperParams, chain_anchors, find_anchors, host_seed_chains
     from kaptive_tpu_torch.ops.minimizer import ContigIndex, concat_with_sentinels, encode_dna
 
-    db, assemblies = panel
-    gi = GeneIndex.from_reference(db.gene_index)
+    gi = panel.db.gene_index
     params = MapperParams()
-    for ga in assemblies:
+    for ga in panel.assemblies:
         ci = ContigIndex.build(ga.contigs)
         c = ga.contigs
         flat, _ = concat_with_sentinels(encode_dna(c.seqs), c.offsets, c.lengths, gi.k)
@@ -88,12 +81,11 @@ def test_numpy_seeding_equals_native(panel):
 def test_map_genes_batch_equals_jax_host_mode(panel):
     from kaptive_tpu.ops.mapper import map_genes_batch as jax_map
 
-    from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
+    from kaptive_tpu_torch.ops.mapper import map_genes_batch
 
-    db, assemblies = panel
-    names = tuple(str(i) for i in range(len(db.genes)))
-    want = jax_map(db.gene_index, assemblies, names, seed_mode="host")
-    got = map_genes_batch(GeneIndex.from_reference(db.gene_index), assemblies, names, device="cpu")
+    names = panel.gene_names
+    want = jax_map(panel.jax_db.gene_index, panel.jax_assemblies, names, seed_mode="host")
+    got = map_genes_batch(panel.db.gene_index, panel.assemblies, names, device="cpu")
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert len(w) > 0
@@ -103,9 +95,8 @@ def test_map_genes_batch_equals_jax_host_mode(panel):
 def test_device_tables_equal_jax(panel):
     from kaptive_tpu_torch.ops.mapper import GeneIndex
 
-    db, _ = panel
-    ref = db.gene_index
-    for gi in (GeneIndex.from_reference(ref), GeneIndex.build(db.genes)):
+    ref = panel.jax_db.gene_index
+    for gi in (panel.db.gene_index, GeneIndex.build(panel.db.genes)):
         for got, want in zip(gi.device_table("cpu"), ref.device_table):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         bs, rl, iters = gi.device_lookup("cpu")
@@ -129,11 +120,10 @@ def test_match_and_chain_stages_equal_jax(panel):
     from kaptive_tpu_torch.ops.minimizer import ContigIndex
     from kaptive_tpu_torch.ops.scan import rowcompact_scan
 
-    db, assemblies = panel
-    ref = db.gene_index
-    gi = tm.GeneIndex.from_reference(ref)
+    ref = panel.jax_db.gene_index
+    gi = panel.db.gene_index
     params = tm.MapperParams()
-    indexes = [ContigIndex.build(ga.contigs) for ga in assemblies]
+    indexes = [ContigIndex.build(ga.contigs) for ga in panel.assemblies]
     L = max(len(ci.codes) for ci in indexes)
     padded = np.stack([pad_codes_for_scan_any(np.pad(ci.codes, (0, L - len(ci.codes)), constant_values=4))
                        for ci in indexes])
@@ -175,19 +165,14 @@ def test_match_and_chain_stages_equal_jax(panel):
 def jax_device_alignments(panel):
     from kaptive_tpu.ops.mapper import map_genes_batch as jax_map
 
-    db, assemblies = panel
-    names = tuple(str(i) for i in range(len(db.genes)))
-    return jax_map(db.gene_index, assemblies, names, seed_mode="device")
+    return jax_map(panel.jax_db.gene_index, panel.jax_assemblies, panel.gene_names, seed_mode="device")
 
 
 def test_map_genes_batch_device_mode_equals_jax_and_host(panel, jax_device_alignments):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.ops.mapper import map_genes_batch
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
-    from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
-
-    db, assemblies = panel
-    names = tuple(str(i) for i in range(len(db.genes)))
-    gi = GeneIndex.from_reference(db.gene_index)
+    assemblies, names, gi = panel.assemblies, panel.gene_names, panel.db.gene_index
     reset_metrics()
     got = map_genes_batch(gi, assemblies, names, seed_mode="device", device="cpu")
     counts = snapshot()
@@ -219,20 +204,19 @@ FALLBACKS = {
 @pytest.mark.parametrize("cause", list(FALLBACKS))
 def test_device_mode_fallbacks_keep_host_rows(panel, monkeypatch, cause):
     """Each overflow cause is counted and the genome's alignments equal host mode's."""
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
     from kaptive_tpu_torch.ops import mapper as tm
     from kaptive_tpu_torch.ops.minimizer import EXC_CAP
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
-    db, assemblies = panel
+    assemblies = panel.assemblies
     counter, caps, insert = FALLBACKS[cause]
     genomes = [GenomeAssembly.from_stream(io.BytesIO(_with_insert(
         b">c1\n" + assemblies[0].contigs.seqs.tobytes() + b"\n", 2000, insert)), "g0"), assemblies[1]]
     assert cause != "dense_upload" or len(insert) > EXC_CAP
     for name, value in caps.items():
         monkeypatch.setattr(tm, name, value)
-    names = tuple(str(i) for i in range(len(db.genes)))
-    gi = tm.GeneIndex.from_reference(db.gene_index)
+    names, gi = panel.gene_names, panel.db.gene_index
     reset_metrics()
     got = tm.map_genes_batch(gi, genomes, names, seed_mode="device", device="cpu")
     counts = snapshot()
@@ -251,7 +235,7 @@ def test_resolve_seed_mode(monkeypatch):
     from kaptive_tpu_torch.ops.mapper import resolve_seed_mode
 
     monkeypatch.delenv("KAPTIVE_SEED_MODE", raising=False)
-    assert resolve_seed_mode() == "host"  # the native library builds here
+    assert resolve_seed_mode() == "host"  # auto: the port always has its native library
     assert resolve_seed_mode("device") == "device"
     monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
     assert resolve_seed_mode() == "device"
@@ -264,9 +248,11 @@ def test_resolve_seed_mode(monkeypatch):
 @pytest.mark.parametrize("seeded", [False, True])
 def test_pairwise_aligner_equals_jax(seeded):
     from kaptive_tpu.core.pairwise import PairwiseAligner as JaxAligner
+    from kaptive_tpu.core.seq import Sequences as JaxSequences
     from kaptive_tpu.ops.swg import SwgLattice as JaxLattice
 
     from kaptive_tpu_torch.core.pairwise import PairwiseAligner
+    from kaptive_tpu_torch.core.seq import Sequences
     from kaptive_tpu_torch.ops.swg import SwgLattice
 
     rng = np.random.default_rng(31 + seeded)
@@ -283,6 +269,7 @@ def test_pairwise_aligner_equals_jax(seeded):
         qs.append(a.tobytes())
         ts.append(b.tobytes())
     queries, targets = Sequences.from_bytes(qs), Sequences.from_bytes(ts)
+    jax_queries, jax_targets = JaxSequences.from_bytes(qs), JaxSequences.from_bytes(ts)
     seeds = None
     if seeded:
         seeds = type("Seeds", (), {"offsets": rng.integers(-6, 6, len(qs)).astype(np.int32)})()
@@ -292,6 +279,6 @@ def test_pairwise_aligner_equals_jax(seeded):
             lattice=SwgLattice.for_max_len(**lattice) if lattice else None, device="cpu"
         )(queries, targets, seeds)
         want = JaxAligner(lattice=JaxLattice.for_max_len(**lattice) if lattice else None)(
-            queries, targets, seeds
+            jax_queries, jax_targets, seeds
         )
         assert_same(got, want)

@@ -73,7 +73,7 @@ def test_rowcompact_plain_batch_equals_jax():
 
 
 def test_front_door_counts_plain_on_cpu():
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     rng = np.random.default_rng(2)
     reset_metrics()

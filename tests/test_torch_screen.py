@@ -11,14 +11,13 @@ float32 ``weighted`` scores to ``rtol=1e-6``, because the port's float32
 matmul may sum in another order than XLA's CPU dot.
 """
 
-import io
+
 
 import numpy as np
 import pytest
 import torch
 from scan_panels import multi_contig, poly_a, random_stream
-
-from kaptive_tpu.core.genome import GenomeAssembly
+from torch_panel import both_assemblies
 
 torch.set_num_threads(1)
 
@@ -30,22 +29,24 @@ BUCKET = 1 << 16
 def panel(tmp_path_factory):
     from synthetic import make_genome_from_locus, make_synthetic_db, random_dna
 
-    from kaptive_tpu.db import Database
+    from kaptive_tpu.db import Database as JaxDatabase
+
+    from kaptive_tpu_torch.db import Database
 
     rng = np.random.default_rng(31)
     gbk, truth = make_synthetic_db(tmp_path_factory.mktemp("screen_db"), rng, n_loci=6, genes_per_locus=5)
-    db = Database.from_genbank(gbk)
     assemblies = [
-        GenomeAssembly.from_stream(io.BytesIO(make_genome_from_locus(rng, truth, name, flank=1500)), f"g{i}")
+        both_assemblies(make_genome_from_locus(rng, truth, name, flank=1500), f"g{i}")
         for i, name in enumerate(TRUE_LOCI)
     ]
     locus = truth["loci"]["KL5"]["seq"]
     head = random_dna(rng, 2000)
     fill = head + locus + random_dna(rng, BUCKET - len(head) - len(locus))
     poly = random_dna(rng, 1500) + b"A" * 400 + truth["loci"]["KL3"]["seq"] + random_dna(rng, 1500)
-    extra = [GenomeAssembly.from_stream(io.BytesIO(b">c1\n%s\n" % seq), name)
-             for name, seq in (("fills_bucket", fill), ("poly_a", poly))]
-    return db, assemblies, extra
+    extra = [both_assemblies(b">c1\n%s\n" % seq, name) for name, seq in (("fills_bucket", fill), ("poly_a", poly))]
+    port = (Database.from_genbank(gbk), [p for p, _ in assemblies], [p for p, _ in extra])
+    jax_side = (JaxDatabase.from_genbank(gbk), [j for _, j in assemblies], [j for _, j in extra])
+    return port, jax_side
 
 
 def _jax_screen(codes, tables, n_genes):
@@ -64,12 +65,11 @@ def _jax_screen(codes, tables, n_genes):
 def test_screen_tables_equal_jax(panel):
     from kaptive_tpu.parallel.screen import ScreenTables as JaxTables
 
-    from kaptive_tpu_torch.ops.mapper import GeneIndex
     from kaptive_tpu_torch.parallel.screen import ScreenTables
 
-    db, _, _ = panel
-    got = ScreenTables.build(db, GeneIndex.build(db.genes))
-    want = JaxTables.from_database(db)
+    (db, _, _), (jax_db, _, _) = panel
+    got = ScreenTables.build(db, db.gene_index)
+    want = JaxTables.from_database(jax_db)
     for name in ("table_hashes", "table_genes", "gene_locus_onehot", "expected_per_locus", "gene_minimizer_counts"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.dtype == w.dtype, name
@@ -78,14 +78,12 @@ def test_screen_tables_equal_jax(panel):
 
 @pytest.mark.parametrize("batch", ["panel", "fills-bucket", "overflow"])
 def test_locus_screen_batch_equals_jax(panel, batch):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
-
-    from kaptive_tpu_torch.ops.mapper import GeneIndex
     from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
-    db, assemblies, (fill, poly) = panel
+    db, assemblies, (fill, poly) = panel[0]
     genomes = {"panel": assemblies, "fills-bucket": [fill, assemblies[0]], "overflow": [assemblies[2], poly]}[batch]
-    tables = ScreenTables.build(db, GeneIndex.build(db.genes))
+    tables = ScreenTables.build(db, db.gene_index)
     codes = encode_assemblies_to_batch(genomes)
     assert codes.shape[1] == BUCKET
     if batch == "fills-bucket":
@@ -110,12 +108,13 @@ def test_serotyper_screen_equals_jax(panel):
 
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    db, assemblies, extra = panel
+    (db, assemblies, extra), (jax_db, jax_assemblies, jax_extra) = panel
     port = Serotyper(db, device="cpu")
-    ref = JaxSerotyper(db)
-    for genomes in (assemblies, [*extra, assemblies[5]]):
+    ref = JaxSerotyper(jax_db)
+    for genomes, jax_genomes in ((assemblies, jax_assemblies),
+                                 ([*extra, assemblies[5]], [*jax_extra, jax_assemblies[5]])):
         got_asm, got_best, got_weighted = port.screen(genomes)
-        want_asm, want_best, want_weighted = ref.screen(genomes)
+        want_asm, want_best, want_weighted = ref.screen(jax_genomes)
         assert [a.id for a in got_asm] == [a.id for a in want_asm]
         assert got_best.dtype == want_best.dtype and got_weighted.dtype == want_weighted.dtype
         np.testing.assert_array_equal(got_best, want_best)

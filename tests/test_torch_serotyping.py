@@ -1,6 +1,8 @@
 """The port's Serotyper and stream_type vs the JAX Serotyper, host- and device-seeded.
 
-Both packages type the same assemblies against the same database, in the
+Both packages type the same FASTA files; the port's database is the JAX
+package's carried across by its pickle (``loads_reference``), and a JAX
+database object handed to the port's Serotyper is refused.  Both run in the
 seeding mode ``KAPTIVE_SEED_MODE`` names; the port runs on the CPU (the plain
 PyTorch scan and DP).  Tolerance: exact —
 ``SerotypingResult.to_dict()`` agrees field by field (NaN equals NaN) and the
@@ -11,9 +13,12 @@ import io
 
 import pytest
 import torch
+from torch_panel import carried_database
 from typing_panel import TRUTH, assert_same, make_typing_panel
 
-from kaptive_tpu.serotyping.io import KaptiveRow
+from kaptive_tpu.serotyping.io import KaptiveRow as JaxRow
+
+from kaptive_tpu_torch.serotyping.io import KaptiveRow
 
 # One intra-op thread: the plain DP issues many tiny ops, and idle OpenMP
 # workers spinning in several test processes at once starve the JAX side.
@@ -29,7 +34,7 @@ def panel(tmp_path_factory):
         path = tmp / f"{name}.fasta"
         path.write_bytes(fasta)
         paths.append(path)
-    return db, paths
+    return db, paths, carried_database(db)
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +43,7 @@ def jax_results(panel):
     from kaptive_tpu.parallel.pipeline import stream_type
     from kaptive_tpu.serotyping import Serotyper
 
-    db, paths = panel
+    db, paths, _ = panel
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("KAPTIVE_SEED_MODE", "host")
         serotyper = Serotyper(db)
@@ -53,7 +58,7 @@ def jax_device_results(panel):
     from kaptive_tpu.parallel.pipeline import stream_type
     from kaptive_tpu.serotyping import Serotyper
 
-    db, paths = panel
+    db, paths, _ = panel
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("KAPTIVE_SEED_MODE", "device")
         serotyper = Serotyper(db)
@@ -66,7 +71,7 @@ def jax_device_results(panel):
 def port_serotyper(panel):
     from kaptive_tpu_torch.serotyping import Serotyper
 
-    return Serotyper(panel[0], device="cpu")
+    return Serotyper(panel[2], device="cpu")
 
 
 def _assert_results_equal(got, want):
@@ -74,7 +79,7 @@ def _assert_results_equal(got, want):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert_same(g.to_dict(), w.to_dict(), f"result[{w.genome}]")
-        assert bytes(KaptiveRow.from_result(g)) == bytes(KaptiveRow.from_result(w))
+        assert bytes(KaptiveRow.from_result(g)) == bytes(JaxRow.from_result(w))
 
 
 def test_batch_equals_jax(panel, jax_results, port_serotyper):
@@ -82,7 +87,7 @@ def test_batch_equals_jax(panel, jax_results, port_serotyper):
 
 
 def test_stream_type_equals_jax(panel, jax_results, port_serotyper):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.parallel.pipeline import stream_type
 
@@ -99,11 +104,10 @@ def test_stream_type_equals_jax(panel, jax_results, port_serotyper):
 
 def test_single_genome_call_and_stream_handles(panel, port_serotyper):
     """``Serotyper(genome)`` and a stream of in-memory handles type correctly."""
-    from kaptive_tpu.core.genome import GenomeAssembly
-
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
     from kaptive_tpu_torch.parallel.pipeline import stream_type
 
-    db, paths = panel
+    paths = panel[1]
     one = port_serotyper(GenomeAssembly.from_file(paths[1]))
     assert one.best_locus_name == TRUTH[1]
     handles = [io.BytesIO(p.read_bytes()) for p in paths]
@@ -118,22 +122,30 @@ def test_serotyper_defaults_to_cuda(panel):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
-        Serotyper(panel[0])
+        Serotyper(panel[2])
 
 
-def _rows(results):
-    return [bytes(KaptiveRow.from_result(r)) for r in results]
+def test_serotyper_refuses_a_jax_database(panel):
+    """Two classes share the name ``Database``: the other package's fails loudly, at construction."""
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    with pytest.raises(TypeError, match="kaptive_tpu_torch.db.Database"):
+        Serotyper(panel[0], device="cpu")
+
+
+def _rows(results, row=KaptiveRow):
+    return [bytes(row.from_result(r)) for r in results]
 
 
 def test_device_mode_batch_equals_jax_and_host(panel, jax_results, jax_device_results, port_serotyper, monkeypatch):
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
     reset_metrics()
     got = port_serotyper.batch(list(panel[1]))
     counts = snapshot()
     _assert_results_equal(got, jax_device_results[0])
-    assert _rows(got) == _rows(jax_results[0])  # host-seeded rows, byte for byte
+    assert _rows(got) == _rows(jax_results[0], JaxRow)  # host-seeded rows, byte for byte
     assert counts.get("map.device_chained") == len(got)
     assert counts.get("scan.plain.rowcompact") == 1
     assert not any(key.startswith(("map.host_seed", "map.host_fallback")) for key in counts)
@@ -141,7 +153,7 @@ def test_device_mode_batch_equals_jax_and_host(panel, jax_results, jax_device_re
 
 def test_device_mode_stream_type_equals_jax(panel, jax_results, jax_device_results, port_serotyper, monkeypatch):
     """The ingest pool pre-uploads instead of pre-seeding: no chains are left on the indexes."""
-    from kaptive_tpu.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     from kaptive_tpu_torch.parallel.pipeline import stream_type
 
@@ -158,7 +170,7 @@ def test_device_mode_stream_type_equals_jax(panel, jax_results, jax_device_resul
     got = list(stream_type(port_serotyper, list(panel[1]), batch_size=2))
     counts = snapshot()
     _assert_results_equal(got, jax_device_results[1])
-    assert _rows(got) == _rows(jax_results[1])
+    assert _rows(got) == _rows(jax_results[1], JaxRow)
     assert len(seen) == len(got)
     for ci in seen:
         assert "host_chains" not in ci._cache

@@ -8,7 +8,7 @@ the DP is integer arithmetic, so every SwgResult field must be equal.
 import numpy as np
 import pytest
 import torch
-from swg_panels import AA, NT, blosum_matrix, nt_matrix, random_swg_batch
+from swg_panels import AA, GAP_RUNS, NT, best_cell_panel, blosum_matrix, gap_run_panel, nt_matrix, random_swg_batch
 
 from kaptive_tpu.ops import swg as jax_swg
 
@@ -59,6 +59,33 @@ def test_all_equal_scores():
     got, want = _run_both(arrays, np.full((256, 256), 1, np.int32), 4, 2, 128, 128)
     for field in want._fields:
         np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)))
+
+
+@pytest.mark.parametrize("w_pad", [128, 256])
+def test_best_cell_rule_on_ties(w_pad):
+    """Equal maxima in two rows and in one row, the best in the last row, a stated
+    query length past the bucket's rows: the fill keeps the first row and its
+    lowest lane, as ``banded_swg_lax`` does."""
+    arrays, expected = best_cell_panel(64, w_pad)
+    tensors = [torch.from_numpy(a) for a in arrays]
+    _, best, best_i, best_j = port_swg.fill_band_plain(
+        *tensors, torch.from_numpy(nt_matrix()), gap_open=4, gap_extend=2, rows_max=64, w_pad=w_pad)
+    assert list(zip(best_i.tolist(), best_j.tolist())) == expected
+    assert best.tolist() == [24, 24, 24, 80, 128, 128, 0]
+    got, want = _run_both(arrays, nt_matrix(), 4, 2, 64, w_pad)
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field)
+    assert got.q_ends.tolist() == [i for i, _ in expected] and got.t_ends.tolist() == [j for _, j in expected]
+
+
+def test_long_gap_runs_equal_lax():
+    """Walks with one vertical or horizontal run of 31 to 70 steps, and walks that end at the matrix edge."""
+    arrays = gap_run_panel(np.random.default_rng(41))
+    got, want = _run_both(arrays, nt_matrix(), 4, 2, 320, 256)
+    for field in want._fields:
+        np.testing.assert_array_equal(getattr(got, field).numpy(), np.asarray(getattr(want, field)), err_msg=field)
+    assert got.gaps.tolist()[: 2 * len(GAP_RUNS)] == [n for n in GAP_RUNS for _ in range(2)]
+    assert got.q_starts.tolist()[-3:] == [0, 0, 0] and got.t_starts.tolist()[-3:] == [0, 0, 5]
 
 
 def test_plain_equals_pallas_interpret():

@@ -13,18 +13,12 @@ from synthetic import make_genome_from_locus, make_synthetic_db, random_dna, rev
 TRUTH = ["KL1", "KL2", "KL3", "KL4", "KL1"]
 
 
-def make_typing_panel(tmp_path):
-    """Return (Database, [(name, fasta_bytes), ...]) built from seed 5."""
-    from kaptive_tpu.db import Database
-
-    rng = np.random.default_rng(5)
-    gbk, truth = make_synthetic_db(tmp_path, rng, n_loci=4)
-    db = Database.from_genbank(gbk)
+def _typing_genomes(rng, truth):
     loc3 = truth["loci"]["KL3"]["seq"]
     loc4 = truth["loci"]["KL4"]["seq"]
     loc1 = truth["loci"]["KL1"]["seq"]
     half = len(loc4) // 2
-    genomes = [
+    return [
         ("clean", make_genome_from_locus(rng, truth, "KL1")),
         ("diverged", make_genome_from_locus(rng, truth, "KL2", sub_rate=0.01)),
         ("revcomp", b">c1\n" + random_dna(rng, 2500) + revcomp(loc3) + random_dna(rng, 2500) + b"\n"),
@@ -33,7 +27,27 @@ def make_typing_panel(tmp_path):
         ("n_heavy", b">c1\n" + random_dna(rng, 3000) + b"N" * 500 + loc1[: len(loc1) // 2]
          + b"NNNN" + loc1[len(loc1) // 2 :] + random_dna(rng, 3000) + b"\n"),
     ]
-    return db, genomes
+
+
+def make_typing_panel(tmp_path):
+    """Return (the JAX package's Database, [(name, fasta_bytes), ...]) built from seed 5."""
+    from kaptive_tpu.db import Database
+
+    rng = np.random.default_rng(5)
+    gbk, truth = make_synthetic_db(tmp_path, rng, n_loci=4)
+    return Database.from_genbank(gbk), _typing_genomes(rng, truth)
+
+
+def make_port_typing_panel(tmp_path):
+    """The same panel with the port's Database, written and compiled by the port
+    alone (for processes that must not load the JAX package)."""
+    from torch_synthetic import make_synthetic_db as make_port_db
+
+    from kaptive_tpu_torch.db import Database
+
+    rng = np.random.default_rng(5)
+    gbk, truth = make_port_db(tmp_path, rng, n_loci=4)
+    return Database.from_genbank(gbk), _typing_genomes(rng, truth)
 
 
 def assert_same(got, want, path="value"):
