@@ -63,7 +63,8 @@ module of either was loaded).  Steps:
    every output, the whole ``ops`` buffer included, must be equal; both are
    timed with CUDA events.  So is a planted bucket of the same geometry
    (``swg_panels.cigar_bucket``: indel copies and one pair of more than 256
-   runs), which must hold I and D runs and at least one overflowed pair.
+   runs), which must hold I and D runs and at least one overflowed pair; its
+   time is the kernel entry's ``planted_ms``.
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
@@ -78,6 +79,9 @@ module of either was loaded).  Steps:
 12. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
     (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
     lattice batch of 384 pairs fills the card.
+13. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
+    kernel == plain at each, CUDA-event time and bound: latency against
+    throughput of the scan, and the time of a 32-genome batch in one launch.
 
 Any failure raises (non-zero exit).  The last lines are the kernels' JSON
 record, the card line, and ``{"ok": true, "device": {...}}``.
@@ -117,6 +121,8 @@ INT32_OPS_PER_S = 67e12 / 4  # a quarter of the float32 rate: half the lanes, no
 FILL_OPS_PER_CELL = 50  # integer operations of the fill's two passes for one band cell
 WALK_OPS_PER_STEP = 10  # integer operations of one traceback step
 SCAN_OPS_PER_POSITION = 35  # rolling k-mer, hash and sliding-window minimum for one position
+SCAN_GENOME_STEPS = (1, 4, 32)  # genomes of 45,056 rows scanned in one launch by --measure
+SCAN_ROWS = 45056  # scan rows of one bucket-padded 5.3 Mb assembly
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # bench.py and the tests' workload builders
 
 
@@ -206,27 +212,40 @@ class _ScanRecorder:
         return self.inner(codes, k, w)
 
 
+def _share(times: dict) -> str:
+    """The bound as a share of the kernel's time, for the report lines."""
+    return f"{100 * times['bound_ms'] / times['ms']:.1f}% of the bound"
+
+
 def _check_scan(codes, k: int, w: int) -> dict:
-    """Scan kernel vs plain version on one recorded batch; returns times and the largest difference."""
+    """Scan kernel vs plain version on one batch; returns times and the largest difference.
+    The plain version, which works in int64, takes the batch four genomes at a time."""
     import torch
 
     from kaptive_tpu_torch.ops.scan import rowcompact_scan_plain
     from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
 
     got = rowcompact_scan_cuda(codes, k, w)
-    want = rowcompact_scan_plain(codes, k, w)
-    torch.cuda.synchronize()
-    max_err = max(int((g.long() - p.long()).abs().max()) for g, p in zip(got, want))
-    if max_err != 0 or any(g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
+    max_err = 0
+    chunks = range(0, codes.shape[0], 4)
+    for lo in chunks:
+        want = rowcompact_scan_plain(codes[lo:lo + 4], k, w)
+        torch.cuda.synchronize()
+        if any(g[lo:lo + 4].shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
+            raise AssertionError("scan batch: kernel and plain outputs differ in shape or dtype")
+        max_err = max(max_err, *(int((g[lo:lo + 4].long() - p.long()).abs().max()) for g, p in zip(got, want)))
+        del want
+    if max_err != 0:
         raise AssertionError(f"scan batch: kernel and plain version differ (max |diff| {max_err})")
     times = {"ms": _timed(lambda: rowcompact_scan_cuda(codes, k, w), 20),
-             "plain_ms": _timed(lambda: rowcompact_scan_plain(codes, k, w), 2)}
+             "plain_ms": _timed(lambda: [rowcompact_scan_plain(codes[lo:lo + 4], k, w) for lo in chunks], 2)}
     B, r_pad, _ = codes.shape
     n_bytes = codes.numel() * codes.element_size() + sum(g.numel() * g.element_size() for g in got)
     times.update(_bound(n_bytes, codes.numel() * SCAN_OPS_PER_POSITION))
     print(f"# scan batch (B, rows) = ({B}, {r_pad - 16}), {int(got[2].sum())} minimizers, max row count "
           f"{int(got[2].max())}: kernel == plain on hashes, aux, counts; kernel {times['ms']:.4f} ms, "
-          f"plain {times['plain_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']}", flush=True)
+          f"plain {times['plain_ms']:.4f} ms; bound {times['bound_ms']:.4f} ms by {times['bound_by']}: the kernel "
+          f"runs at {_share(times)}", flush=True)
     return {"max_abs_err": max_err, "shape": (B, r_pad - 16), **times}
 
 
@@ -306,8 +325,9 @@ def _check_cigar_bucket(args, kw, label: str) -> dict:
     runs = {op: int((kinds == code).sum()) for op, code in (("M", 0), ("I", 1), ("D", 2))}
     print(f"# {label} CIGAR bucket (B, rows_max, w_pad) = {shape}, {int((q_lens > 0).sum())} live pairs, "
           f"{int(n_ops.sum())} runs ({runs}), {int(overflow.sum())} overflowed: kernel == plain on the 8 result "
-          f"rows and the whole ops buffer; kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms",
-          flush=True)
+          f"rows and the whole ops buffer; kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms; bound "
+          f"{times['bound_ms']:.5f} ms by {times['bound_by']} (below a launch's own few microseconds): the kernel "
+          f"runs at {_share(times)}", flush=True)
     return {"max_abs_err": max_err, "shape": shape, "runs": runs, "overflowed": int(overflow.sum()), **times}
 
 
@@ -508,6 +528,7 @@ def cigar_phase(serotyper, db, assemblies) -> tuple[dict, int]:
     if planted["overflowed"] < 1 or min(planted["runs"].values()) == 0:
         raise AssertionError(f"the planted CIGAR bucket lacks an overflow or an op kind: {planted}")
     check["max_abs_err"] = max(check["max_abs_err"], planted["max_abs_err"])
+    check["planted_ms"] = planted["ms"]
     return check, launches
 
 
@@ -586,16 +607,19 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 def measure(card: str) -> None:
     """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets (see the module docstring, steps 10 and 11)."""
+    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 10 to 13)."""
     import statistics
 
     import numpy as np
     import torch
+    from scan_panels import random_stream
     from swg_panels import AA, NT, nt_matrix
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from kaptive_tpu_torch.core.pairwise import blosum62_matrix
+    from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W
+    from kaptive_tpu_torch.ops.scan import add_halo
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form, swg_fill_cuda, swg_traceback_cuda
     from kaptive_tpu_torch.serotyping import Serotyper
     from kaptive_tpu_torch.utils.profiling import phase_report, reset_phases
@@ -666,6 +690,14 @@ def measure(card: str) -> None:
         print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
               f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
+    # Step 13: the scan at more and more genomes in one launch.
+    streams = torch.from_numpy(np.stack([random_stream(rng, SCAN_ROWS) for _ in range(max(SCAN_GENOME_STEPS))]))
+    for n_genomes in SCAN_GENOME_STEPS:
+        times = _check_scan(add_halo(streams[:n_genomes].cuda()), DEFAULT_K, DEFAULT_W)
+        print(f"#   scan of {n_genomes} genomes in one launch: {times['ms']:.4f} ms, "
+              f"{n_genomes * SCAN_ROWS * 128 / times['ms'] / 1e6:.2f} G positions/s [{card}]", flush=True)
+        torch.cuda.empty_cache()
+
 
 def main() -> int:
     import argparse
@@ -675,7 +707,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--measure", action="store_true",
-                        help="after the smoke, also run the measurements of steps 6 and 7")
+                        help="after the smoke, also run the measurements of steps 10 to 13")
     opts = parser.parse_args()
 
     from bench import GENOME_MB, KINDS
@@ -846,13 +878,15 @@ def main() -> int:
         {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
          "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],
-         "bound_ms": cigar_check["bound_ms"], "bound_by": cigar_check["bound_by"], "library_ms": None},
+         "bound_ms": cigar_check["bound_ms"], "bound_by": cigar_check["bound_by"], "library_ms": None,
+         "planted_ms": cigar_check["planted_ms"]},
     ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
           f"protein bucket {prot['shape']} (B, rows_max, w_pad); wide_form_ms: the fill's wide form on "
           f"{wide['shape']}; launches: host-seeded measured pass (device-seeded pass: fill {dev_swg['fill']}, "
           f"traceback {dev_swg['traceback']}, scan {scan_launches}); scan on the batch {scan_check['shape']} "
-          f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}, planted_ms: the planted bucket of that "
+          f"geometry; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",
           flush=True)

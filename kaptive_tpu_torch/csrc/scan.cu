@@ -12,40 +12,68 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with a plain C interface, loaded with ctypes.
 //
-// Layout.  One block per (genome, tile of TILE_ROWS = 32 rows = 4,096
-// positions); nothing crosses blocks.  The block loads its tile's codes with
-// a halo of PRE = 32 positions before (>= w-1, for the windows that select
-// the tile's first positions) and POST = 64 after (>= k+w-2) into shared
-// memory, then in three passes over shared memory computes
-//   1. each position's canonical hash, strand and k-mer validity (once);
-//   2. each window start's winning offset (strict <, so the leftmost wins),
-//      or -1 where the window is invalid;
-//   3. selection: p is selected iff the window starting at p-d chose offset
-//      d for some d < w, and p's own k-mer is valid.
-// The Pallas kernel instead swept whole (1024+16, 128) VMEM tiles with
-// shift-by-one rolls; on the card each thread reads its neighbours from
-// shared memory directly.
+// What bounds it.  The outputs are 4 + 4 bytes per slot, 512 bytes per
+// 128-position row, against 128 bytes of codes read: for 32 genomes of
+// 45,056 rows that is ~923 MB written and ~185 MB read, ~0.33 ms at the
+// H100's 3.35 TB/s, and a position needs a k-mer, a hash and a window minimum
+// whatever the design: ~35 integer operations, 0.39 ms for the same batch.
+// The two are close.  The issue rate of the SMs bounds this kernel: the
+// w = 10 instance compiles to ~1,200 SASS operations a thread, ~75 a
+// position, and it runs 4 x 45,056 rows in 0.094 ms and 32 x 45,056 rows in
+// 0.72 ms (NVIDIA H100 80GB HBM3, 700 W): 51% and 54% of that bound.  So the
+// design keeps what a position costs to issue down, and makes every output
+// store a whole line.
 //
-// Compaction.  A row is 128 positions = 4 warps.  __ballot_sync and __popc
-// give each selected lane its rank within its warp, and a 4-entry shared
-// prefix joins the warps.  Slots at rank < 64 are written in order, the rest
-// of the row's 64 slots get 0xFFFFFFFF / -1, and counts holds the full count,
-// even above 64 (the caller then seeds that genome on the host).
+// Layout.  One block per (genome, tile of TILE_ROWS = 32 rows = 4,096
+// positions); nothing crosses blocks.  A thread owns a word: 16 consecutive
+// positions.  Five stages, a block barrier between them:
+//   1. Pack.  One 16-byte load of codes a thread, packed to 2 bits a base
+//      (base i of the word at bits 2i, `c & 3` under an invalid base) plus a
+//      16-bit mask of invalid bases (code >= 4).  Words outside the padded
+//      stream are sentinels.
+//   2. Hash.  With its own and the next packed word in two registers, a
+//      thread gets the k bases that start at base j by one funnel shift and a
+//      mask.  In this packing that field IS the reverse-complement's
+//      complement (rev = ~field), and the forward k-mer is the field with its
+//      2-bit groups reversed: __brev of the same shift of the words with each
+//      base's two bits swapped (swapped once a word, not once a position).
+//      No loop over k.  A k-mer is valid when no invalid bit lies among its k
+//      mask bits (an OR over k bits, doubled up once a word) and it starts
+//      inside [0, length-k+1).  One hash a position, stored once as a 32-bit
+//      word (17 words a thread, so a warp's stores and loads never share a
+//      bank); valid and strand bits go to bit masks.
+//   3. Window minimum and selection.  W is a template parameter, so a
+//      thread's 16 window starts take a van Herk / Gil-Werman pass over its
+//      16 + W - 1 hashes with every index known at compile time: suffix
+//      minima of the blocks of W backwards (<=, the leftmost wins), prefix
+//      minima forwards (<), and the window's winner is the suffix part
+//      unless the prefix part is strictly smaller: ~3 comparisons a position
+//      for any W.  A valid window (minimum != 0xFFFFFFFF, start inside
+//      [0, length-k-W+2)) sets its winner's bit in a register mask, which is
+//      OR-ed into the tile's selection mask in shared memory (selection by
+//      scatter: no position reads W offsets).
+//   4. Ranking.  A row is four words of (selected & valid).  The thread that
+//      owns a word counts the row's set bits before it (__popc) and walks
+//      its own set bits (__ffs): the (hash, col | strand << 7) pairs of the
+//      first 64 ranks go to the row's 512 bytes of staging in shared memory.
+//      Work follows the ~3 selected positions of a word, not its 16.
+//   5. Store.  A warp takes four rows; each lane stores two neighbouring
+//      slots of hashes and of aux, 0xFFFFFFFF / -1 past the row's count: a
+//      row leaves as two 256-byte stores.  counts holds the full count, even
+//      above 64 (the caller then seeds that genome on the host).
+// The Pallas kernel instead swept whole (1024+16, 128) VMEM tiles with
+// shift-by-one rolls and compacted with a butterfly network.
 //
 // Boundary guards are those of _scan_tile, with positions counted from the
 // first interior row and length = R * 128: a k-mer is valid when
 // gpos < length-k+1, a window when gpos < length-k-w+2, nothing before 0.
-// Positions outside the padded stream read as the sentinel code.
 //
-// What bounds it.  The outputs are 4 + 4 bytes per slot, 512 bytes per
-// 128-position row, against 128 bytes of codes read: for 32 genomes of
-// 45,056 rows that is ~923 MB written and ~185 MB read, ~0.33 ms at the
-// H100's 3.35 TB/s.  Each position costs ~35 shared-memory loads (k codes,
-// w hashes, w window offsets) and ~100 integer operations, ~1-2 ms for the
-// same batch at the card's issue rates, and the kernel measures 3.4 ms
-// there (NVIDIA H100 80GB HBM3, 700 W): instruction throughput bounds this
-// first version, not bytes.  A rolling k-mer and a sliding-window minimum
-// would cut the per-position work.
+// In flight.  288 threads a block: the tile's 256 words, 2 words (32
+// positions, >= w-1) before it for the windows that select its first
+// positions, and 2 + 1 after it for the last windows' reach and the last
+// k-mers'.  31-56 registers a thread over the 32 instances (48 at w = 10) and 37 KB of shared
+// memory: 4 blocks (36 warps) an SM, set by registers; forcing 5 or more made
+// it slower.  The grid is (R / 32, B) blocks: 1,408 a 5.8 Mb genome.
 //
 // Arithmetic is native uint32: the murmur multiplies wrap mod 2^32 as the
 // JAX package's uint32 ops do.
@@ -57,19 +85,26 @@ namespace {
 
 constexpr int ROW = 128;
 constexpr int SLOTS = 64;
+constexpr int WORD = 16;                // positions a thread owns: one 16-byte load of codes
 constexpr int TILE_ROWS = 32;
-constexpr int TILE = TILE_ROWS * ROW;  // positions per block
-constexpr int PRE = 32;                // halo before the tile (>= w-1)
-constexpr int POST = 64;               // halo after the tile (>= k+w-2)
-constexpr int N_CODE = PRE + TILE + POST;
-constexpr int N_HASH = PRE + TILE + 32;  // hashes read by windows starting in [-PRE, TILE)
-constexpr int N_WIN = PRE + TILE;        // window starts read by the tile's selection
-constexpr int THREADS = 512;             // 4 rows per compaction pass
-constexpr int ROWS_PER_PASS = THREADS / ROW;
-constexpr int MAX_K = 16;                // 2k bits must fit in 32
-constexpr int MAX_W = PRE;
+constexpr int TILE = TILE_ROWS * ROW;   // positions per block
+constexpr int HALO = 32;                // positions before the tile whose windows can select in it (>= w-1)
+constexpr int START_WORDS = (HALO + TILE) / WORD;  // words whose positions start a window the tile reads
+constexpr int HASH_WORDS = START_WORDS + 2;        // + the 31 positions the last window reaches over
+constexpr int CODE_WORDS = HASH_WORDS + 1;         // + the k-1 bases the last k-mer reaches over
+constexpr int MASK_WORDS = HASH_WORDS / 2;         // 32-bit mask words over the hashed positions
+constexpr int HASH_STRIDE = WORD + 1;              // hash words a thread: odd, so conflict-free
+constexpr int THREADS = 288;
+constexpr int WARPS = THREADS / 32;
+constexpr int WARP_ROWS = 4;            // rows a warp stores
+constexpr int MAX_K = 16;               // 2k bits must fit in 32
+constexpr int MAX_W = HALO;
 constexpr uint32_t UMAX = 0xFFFFFFFFu;
-constexpr uint8_t SENTINEL = 4;
+constexpr uint32_t SENTINEL_WORD = 0x04040404u;
+
+static_assert(THREADS >= CODE_WORDS && THREADS % 32 == 0, "one word a thread in every stage");
+static_assert(HASH_WORDS % 2 == 0 && HALO % 32 == 0, "mask words line up with rows");
+static_assert(TILE_ROWS / WARP_ROWS <= WARPS && TILE_ROWS % WARP_ROWS == 0, "every row has a warp");
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
     x ^= x >> 16;
@@ -80,105 +115,205 @@ __device__ __forceinline__ uint32_t mix32(uint32_t x) {
     return x;
 }
 
+// Four code bytes -> 8 bits, base i at bits 2i (`c & 3` of each byte).
+__device__ __forceinline__ uint32_t pack4(uint32_t x) {
+    uint32_t t = x & 0x03030303u;
+    t = (t | (t >> 6)) & 0x000F000Fu;
+    return (t | (t >> 12)) & 0xFFu;
+}
+
+// Four code bytes -> 4 bits, bit i set where byte i is an invalid base (>= 4).
+__device__ __forceinline__ uint32_t invalid4(uint32_t x) {
+    const uint32_t y = __vcmpgtu4(x, 0x03030303u) & 0x01010101u;
+    return ((y * 0x01020408u) >> 24) & 0xFu;
+}
+
+// The two bits of every base swapped, so that __brev puts them back in order.
+__device__ __forceinline__ uint32_t swap_pairs(uint32_t x) {
+    return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// The low n bits set, for n in [0, 32].
+__device__ __forceinline__ uint32_t low_bits(int n) { return n >= 32 ? UMAX : (1u << n) - 1u; }
+
+// How many of a word's 16 positions, which start at stream position g0, lie below `end`.
+__device__ __forceinline__ int below(long long end, long long g0) {
+    const long long n = end - g0;
+    return n <= 0 ? 0 : (n >= WORD ? WORD : (int)n);
+}
+
+template <int W>
 __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
     const uint8_t* __restrict__ codes,  // (B, R + 2*halo_rows, 128)
-    int R, int halo_rows, int k, int w,
+    int R, int halo_rows, int k,
     uint32_t* __restrict__ hashes,      // out (B, R, 64)
     int32_t* __restrict__ aux,          // out (B, R, 64)
     int32_t* __restrict__ counts) {     // out (B, R)
-    __shared__ uint8_t s_code[N_CODE];
-    __shared__ uint32_t s_hash[N_HASH];
-    __shared__ uint8_t s_flag[N_HASH];  // bit 0: forward strand canonical, bit 1: k-mer valid
-    __shared__ int8_t s_delta[N_WIN];   // winning offset of the window starting here, or -1
-    __shared__ int s_warp[THREADS / 32];
+    static_assert(W >= 1 && W <= MAX_W, "the halo covers w - 1 positions");
+    __shared__ uint32_t s_word[CODE_WORDS];               // 16 bases a word, 2 bits each
+    __shared__ uint16_t s_inv[CODE_WORDS];                // their invalid bits
+    __shared__ uint32_t s_hash[HASH_WORDS * HASH_STRIDE];
+    __shared__ __align__(4) uint16_t s_valid[HASH_WORDS];   // k-mer valid, bit j of word wd
+    __shared__ __align__(4) uint16_t s_strand[HASH_WORDS];  // forward strand canonical
+    __shared__ uint32_t s_sel[MASK_WORDS];                // selected, one bit a position
+    __shared__ __align__(16) uint2 s_stage[TILE_ROWS][SLOTS];  // each row's (hash, aux) slots
+    __shared__ int s_total[TILE_ROWS];                     // each row's full count
 
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
-    const long long length = (long long)R * ROW;
-    const long long t0 = (long long)blockIdx.x * TILE;  // first stream position of the tile
-    const long long padded_len = (long long)(R + 2 * halo_rows) * ROW;
-    const uint8_t* g = codes + (long long)b * padded_len;
-    const long long local0 = t0 - PRE;                  // stream position of shared index 0
-    const long long base = (long long)halo_rows * ROW + local0;
-
-    for (int i = tid; i < N_CODE; i += THREADS) {
-        const long long p = base + i;
-        s_code[i] = (p >= 0 && p < padded_len) ? g[p] : SENTINEL;
-    }
-    __syncthreads();
-
-    // 1. Canonical k-mer hash, strand and validity of every position the
-    //    windows read.
-    const long long kmer_end = length - k + 1;
-    for (int i = tid; i < N_HASH; i += THREADS) {
-        uint32_t fwd = 0, rev = 0;
-        bool bad = false;
-        for (int j = 0; j < k; ++j) {
-            const uint32_t c = s_code[i + j];
-            bad |= c >= SENTINEL;
-            fwd = (fwd << 2) | (c & 3u);
-            rev |= (3u - (c & 3u)) << (2 * j);
-        }
-        const long long gpos = local0 + i;
-        const bool valid = !bad && gpos >= 0 && gpos < kmer_end;
-        s_hash[i] = valid ? mix32(min(fwd, rev)) : UMAX;
-        s_flag[i] = (uint8_t)((fwd <= rev ? 1 : 0) | (valid ? 2 : 0));
-    }
-    __syncthreads();
-
-    // 2. Winning offset of each window start (strict <: leftmost on ties).
-    const long long window_end = length - k - w + 2;
-    for (int i = tid; i < N_WIN; i += THREADS) {
-        uint32_t best = s_hash[i];
-        int off = 0;
-        for (int j = 1; j < w; ++j) {
-            const uint32_t h = s_hash[i + j];
-            if (h < best) {
-                best = h;
-                off = j;
-            }
-        }
-        const long long gpos = local0 + i;
-        const bool ok = best != UMAX && gpos >= 0 && gpos < window_end;
-        s_delta[i] = (int8_t)(ok ? off : -1);
-    }
-    __syncthreads();
-
-    // 3. Selection and per-row compaction, ROWS_PER_PASS rows at a time.
     const int lane = tid & 31;
     const int warp = tid >> 5;
-    const int row_warp0 = warp & ~3;  // first of the 4 warps that hold this row
-    const int col = tid & (ROW - 1);
-    for (int pass = 0; pass < TILE_ROWS / ROWS_PER_PASS; ++pass) {
-        const int rr = pass * ROWS_PER_PASS + tid / ROW;
-        const int i = PRE + rr * ROW + col;
-        bool sel = false;
-        for (int d = 0; d < w; ++d) sel |= s_delta[i - d] == d;
-        sel &= (s_flag[i] & 2) != 0;
-        const unsigned mask = __ballot_sync(0xffffffffu, sel);
-        const int within = __popc(mask & ((1u << lane) - 1u));
-        if (lane == 0) s_warp[warp] = __popc(mask);
-        __syncthreads();
-        int before = 0;
-        for (int q = row_warp0; q < warp; ++q) before += s_warp[q];
-        const int total = s_warp[row_warp0] + s_warp[row_warp0 + 1] + s_warp[row_warp0 + 2]
-                          + s_warp[row_warp0 + 3];
-        const long long grow = (long long)blockIdx.x * TILE_ROWS + rr;
-        if (grow < R) {
-            const size_t out_row = ((size_t)b * R + grow) * SLOTS;
-            const int rank = before + within;
-            if (sel && rank < SLOTS) {
-                hashes[out_row + rank] = s_hash[i];
-                aux[out_row + rank] = col | ((s_flag[i] & 1) << 7);
-            }
-            if (col < SLOTS && col >= total) {
-                hashes[out_row + col] = UMAX;
-                aux[out_row + col] = -1;
-            }
-            if (col == 0) counts[(size_t)b * R + grow] = total;
-        }
-        __syncthreads();  // s_warp is rewritten by the next pass
+    const long long length = (long long)R * ROW;
+    const long long padded_len = (long long)(R + 2 * halo_rows) * ROW;
+    const long long first = (long long)blockIdx.x * TILE - HALO;  // stream position of the block's word 0
+    const uint8_t* g = codes + (long long)b * padded_len;
+    const long long g0 = first + (long long)tid * WORD;           // stream position of this thread's word
+
+    // 1. Pack.
+    if (tid < CODE_WORDS) {
+        const long long p = (long long)halo_rows * ROW + g0;  // index into the padded stream
+        uint4 v = make_uint4(SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD);
+        if (p >= 0 && p + WORD <= padded_len) v = *reinterpret_cast<const uint4*>(g + p);
+        s_word[tid] = pack4(v.x) | (pack4(v.y) << 8) | (pack4(v.z) << 16) | (pack4(v.w) << 24);
+        s_inv[tid] = (uint16_t)(invalid4(v.x) | (invalid4(v.y) << 4) | (invalid4(v.z) << 8)
+                                | (invalid4(v.w) << 12));
     }
+    if (tid < MASK_WORDS) s_sel[tid] = 0;
+    __syncthreads();
+
+    // 2. Hash, strand and validity of the word's 16 k-mer starts.
+    if (tid < HASH_WORDS) {
+        const uint32_t w0 = s_word[tid], w1 = s_word[tid + 1];
+        const uint32_t x0 = swap_pairs(w0), x1 = swap_pairs(w1);
+        const uint32_t kmask = k >= 16 ? UMAX : (1u << (2 * k)) - 1u;
+        const int fwd_shift = 32 - 2 * k;
+        // Bit j of `bad`: an invalid base among the k that start at base j (an OR over k mask bits,
+        // doubled up).  Starts inside [0, length-k+1): nothing before 0, no k-mer over the stream's end.
+        uint32_t bad = (uint32_t)s_inv[tid] | ((uint32_t)s_inv[tid + 1] << 16);
+        for (int cover = 1; cover < k;) {
+            const int step = min(cover, k - cover);
+            bad |= bad >> step;
+            cover += step;
+        }
+        const uint32_t inside = low_bits(below(length - k + 1, g0)) & ~low_bits(below(0, g0));
+        const uint32_t valid_bits = ~bad & inside;
+        uint32_t strand_bits = 0;
+        uint32_t* out = s_hash + tid * HASH_STRIDE;
+#pragma unroll
+        for (int j = 0; j < WORD; ++j) {
+            // Bases j .. j+k-1 at bits 2i of the funnel-shifted words: that field is the reverse
+            // complement's complement, (3 - c) << 2i = ~field; the forward k-mer, c << 2(k-1-i), is
+            // the field with its 2-bit groups in reverse order: __brev of the pair-swapped words.
+            const uint32_t rev = ~__funnelshift_r(w0, w1, 2 * j) & kmask;
+            const uint32_t fwd = __brev(__funnelshift_r(x0, x1, 2 * j)) >> fwd_shift;
+            out[j] = (valid_bits >> j) & 1u ? mix32(min(fwd, rev)) : UMAX;
+            strand_bits |= (fwd <= rev ? 1u : 0u) << j;
+        }
+        s_valid[tid] = (uint16_t)valid_bits;
+        s_strand[tid] = (uint16_t)strand_bits;
+    }
+    __syncthreads();
+
+    // 3. The winner of each of the word's 16 windows, marked in the tile's mask.
+    if (tid < START_WORDS) {
+        const uint32_t* h = s_hash + tid * HASH_STRIDE;  // hash i of the run at h[i + i / 16]
+        // Window starts inside [0, length-k-W+2).
+        const uint32_t starts = low_bits(below(length - k - W + 2, g0)) & ~low_bits(below(0, g0));
+        constexpr int LAST = (WORD - 1) / W * W + W - 1;  // end of the block of W that holds start 15
+        uint32_t suffix_h[WORD];
+        int suffix_p[WORD];
+        uint32_t cur_h = 0;
+        int cur_p = 0;
+#pragma unroll
+        for (int i = LAST; i >= 0; --i) {  // suffix minima inside blocks of W: <=, the leftmost wins
+            const uint32_t x = h[i + (i >> 4)];
+            if (i % W == W - 1 || x <= cur_h) {
+                cur_h = x;
+                cur_p = i;
+            }
+            if (i < WORD) {
+                suffix_h[i] = cur_h;
+                suffix_p[i] = cur_p;
+            }
+        }
+        uint32_t marks_lo = 0;           // bit i: position i of the run is some window's winner
+        unsigned long long marks_hi = 0;  // the same, for the windows that reach past position 31
+#pragma unroll
+        for (int i = 0; i < WORD + W - 1; ++i) {  // prefix minima inside blocks of W: strict <
+            const uint32_t x = h[i + (i >> 4)];
+            if (i % W == 0 || x < cur_h) {
+                cur_h = x;
+                cur_p = i;
+            }
+            if (i >= W - 1) {  // the window that starts at j ends here
+                const int j = i - (W - 1);
+                const bool right = cur_h < suffix_h[j];  // the left part wins ties
+                const uint32_t best = right ? cur_h : suffix_h[j];
+                const int win = right ? cur_p : suffix_p[j];
+                if (best != UMAX && (starts & (1u << j))) {
+                    if (i < 32) marks_lo |= 1u << win;
+                    else marks_hi |= 1ull << win;
+                }
+            }
+        }
+        const unsigned long long marks = (marks_hi | marks_lo) << ((tid & 1) * WORD);
+        const uint32_t m0 = (uint32_t)marks, m1 = (uint32_t)(marks >> 32);
+        if (m0) atomicOr(&s_sel[tid >> 1], m0);
+        if (m1) atomicOr(&s_sel[(tid >> 1) + 1], m1);
+    }
+    __syncthreads();
+
+    // 4. Ranking: a thread of the tile counts the row's selected positions before its word,
+    //    then stages the (hash, aux) pair of each of its own.
+    const uint32_t* valid32 = reinterpret_cast<const uint32_t*>(s_valid);
+    if (tid >= HALO / WORD && tid < START_WORDS) {
+        const int r = (tid - HALO / WORD) / (ROW / WORD);         // the word's row in the tile
+        const int col0 = (tid - HALO / WORD) % (ROW / WORD) * WORD;  // its first column
+        const int mw = (HALO + r * ROW) / 32;                      // the row's first mask word
+        const int mi = tid >> 1;                                   // the word's own mask word
+        const uint32_t both = s_sel[mi] & valid32[mi];
+        uint32_t mine = tid & 1 ? both >> WORD : both & 0xFFFFu;
+        int rank = tid & 1 ? __popc(both & 0xFFFFu) : 0;
+#pragma unroll
+        for (int q = 0; q < ROW / 32 - 1; ++q)
+            if (mw + q < mi) rank += __popc(s_sel[mw + q] & valid32[mw + q]);
+        const uint32_t strand = s_strand[tid];
+        const uint32_t* h = s_hash + tid * HASH_STRIDE;
+        if (col0 == ROW - WORD) s_total[r] = rank + __popc(mine);  // the row's full count
+        while (mine && rank < SLOTS) {
+            const int j = __ffs(mine) - 1;
+            mine &= mine - 1;
+            s_stage[r][rank++] = make_uint2(h[j], (uint32_t)(col0 + j) | (((strand >> j) & 1u) << 7));
+        }
+    }
+    __syncthreads();
+
+    // 5. Store: a warp takes four rows.
+    if (warp < TILE_ROWS / WARP_ROWS) {
+#pragma unroll
+        for (int a = 0; a < WARP_ROWS; ++a) {
+            const int r = warp * WARP_ROWS + a;
+            const long long grow = (long long)blockIdx.x * TILE_ROWS + r;
+            if (grow < R) {
+                // Slots 2 lane and 2 lane + 1; 0xFFFFFFFF / -1 past the row's count.
+                const int total = s_total[r];
+                const uint4 v = *reinterpret_cast<const uint4*>(&s_stage[r][2 * lane]);  // (h, a, h, a)
+                const bool live0 = 2 * lane < total, live1 = 2 * lane + 1 < total;
+                const size_t out_row = ((size_t)b * R + grow) * SLOTS + 2 * lane;
+                *reinterpret_cast<uint2*>(hashes + out_row) = make_uint2(live0 ? v.x : UMAX, live1 ? v.z : UMAX);
+                *reinterpret_cast<int2*>(aux + out_row) = make_int2(live0 ? (int)v.y : -1, live1 ? (int)v.w : -1);
+                if (lane == 0) counts[(size_t)b * R + grow] = total;
+            }
+        }
+    }
+}
+
+template <int W>
+cudaError_t launch(const uint8_t* codes, int B, int R, int halo_rows, int k, uint32_t* hashes,
+                   int32_t* aux, int32_t* counts, cudaStream_t stream) {
+    const dim3 grid((unsigned)((R + TILE_ROWS - 1) / TILE_ROWS), (unsigned)B);
+    rowcompact_scan_kernel<W><<<grid, THREADS, 0, stream>>>(codes, R, halo_rows, k, hashes, aux, counts);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -192,12 +327,21 @@ int kts_rowcompact_max_w() { return MAX_W; }
 int kts_rowcompact_scan(const void* codes, int B, int R, int halo_rows, int k, int w,
                         void* hashes, void* aux, void* counts, void* stream) {
     if (B <= 0 || R <= 0) return 0;
-    const dim3 grid((unsigned)((R + TILE_ROWS - 1) / TILE_ROWS), (unsigned)B);
-    rowcompact_scan_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-        static_cast<const uint8_t*>(codes), R, halo_rows, k, w,
-        static_cast<uint32_t*>(hashes), static_cast<int32_t*>(aux),
-        static_cast<int32_t*>(counts));
-    return (int)cudaGetLastError();
+    if (k < 1 || k > MAX_K || w < 1 || w > MAX_W) return (int)cudaErrorInvalidValue;
+#define KTS_SCAN(W)                                                                             \
+    case W:                                                                                     \
+        return (int)launch<W>(static_cast<const uint8_t*>(codes), B, R, halo_rows, k,           \
+                              static_cast<uint32_t*>(hashes), static_cast<int32_t*>(aux),       \
+                              static_cast<int32_t*>(counts), static_cast<cudaStream_t>(stream));
+    switch (w) {
+        KTS_SCAN(1) KTS_SCAN(2) KTS_SCAN(3) KTS_SCAN(4) KTS_SCAN(5) KTS_SCAN(6) KTS_SCAN(7) KTS_SCAN(8)
+        KTS_SCAN(9) KTS_SCAN(10) KTS_SCAN(11) KTS_SCAN(12) KTS_SCAN(13) KTS_SCAN(14) KTS_SCAN(15)
+        KTS_SCAN(16) KTS_SCAN(17) KTS_SCAN(18) KTS_SCAN(19) KTS_SCAN(20) KTS_SCAN(21) KTS_SCAN(22)
+        KTS_SCAN(23) KTS_SCAN(24) KTS_SCAN(25) KTS_SCAN(26) KTS_SCAN(27) KTS_SCAN(28) KTS_SCAN(29)
+        KTS_SCAN(30) KTS_SCAN(31) KTS_SCAN(32)
+    }
+#undef KTS_SCAN
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -60,8 +60,14 @@
 // cell leaves the run, matches are a __popc of the q == t ballot below that
 // lane, and the walk jumps the whole run.  A transition re-reads the same cell
 // in the new state.  The clamps of the row, the band lane and the target
-// index are those of the serial walk.  The CIGAR traceback keeps the serial
-// walk, one thread per pair.
+// index are those of a walk taken one step at a time.  There is one walk in
+// this file (walk_pair): the count-only kernel and the CIGAR kernel are its
+// two instances, so they cannot drift apart.  The CIGAR instance adds a run
+// recorder that is the same in every lane: a stretch lengthens the open run
+// or closes it, closed runs are staged in shared memory, and the warp writes
+// the pair's 1 KB row of `ops` once, reversed and zero-filled, as whole
+// 128-byte lines.  Its bound (a few hundred KB moved) is below a launch's own
+// few microseconds; what it costs above the count-only walk is that row.
 //
 // Scores stay in int32: NEG_INF = -1e9 plus the unmasked drift of the D
 // carry over a few thousand rows stays far inside the int32 range.
@@ -495,20 +501,34 @@ __global__ void __launch_bounds__(MAX_THREADS) swg_fill_kernel(
 
 // One warp per pair replays the traceback state machine (0 = in M, 1 = in D,
 // 2 = in I) over the packed bits, from the best cell back to a
-// local-alignment start, a run of up to 32 steps at a time: lane l reads the
-// cell the serial walk would reach after l more steps in the current state.
-// i, j and the state are the same in every lane (they change only by ballots
-// and broadcasts).
-__global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
+// local-alignment start, a stretch of up to 32 steps at a time: lane l reads
+// the cell the walk would reach after l more steps in the current state.
+// i, j, the state and the run recorder are the same in every lane (they
+// change only by ballots and broadcasts).
+//
+// With CIGAR set the walk also records BAM runs (M=0 on the diagonal, I=1 in
+// the vertical D state, D=2 in the horizontal I state; a transition emits
+// none, and the step that closes a gap belongs to the gap's run).  A stretch
+// of n steps adds n to the open run when the op is the same, else closes it
+// and opens one, so an M run longer than 32 comes out as one run.  Closed
+// runs go, end to start, into the warp's MAX_CIGAR_OPS words of shared
+// memory (`runs`); a run past that capacity overwrites the last slot, as the
+// JAX package's buffer does, and sets the pair's overflow flag.  The warp then
+// writes the pair's whole row of `ops` once: reversed on the way out (slot s
+// takes run n-1-s), zeros past n, eight coalesced 128-byte stores.  Without
+// CIGAR the recorder compiles away.
+template <bool CIGAR>
+__device__ __forceinline__ void walk_pair(
     const uint8_t* __restrict__ tb, const uint8_t* __restrict__ q,
     const uint8_t* __restrict__ t, const int32_t* __restrict__ best,
     const int32_t* __restrict__ best_i, const int32_t* __restrict__ best_j,
     const int32_t* __restrict__ offsets, int n_pairs, int rows_max, int w_pad,
-    int t_cols, int t_pad,
-    int32_t* __restrict__ out) {  // (8, B): score, matches, mismatches, gaps, q/t starts+ends
-    const int lane = threadIdx.x & 31;
-    const int b = blockIdx.x * TRACEBACK_WARPS + (threadIdx.x >> 5);
-    if (b >= n_pairs) return;
+    int t_cols, int t_pad, int b, int lane,
+    int32_t* __restrict__ out,        // (8, B): score, matches, mismatches, gaps, q/t starts+ends
+    int32_t* runs,                    // CIGAR: the warp's MAX_CIGAR_OPS words of shared memory
+    int32_t* __restrict__ ops,        // CIGAR: (B, MAX_CIGAR_OPS) BAM runs, len << 4 | op
+    int32_t* __restrict__ n_ops_out,  // CIGAR: (B,) runs kept, min(runs, MAX_CIGAR_OPS)
+    uint8_t* __restrict__ overflow) { // CIGAR: (B,) more than MAX_CIGAR_OPS runs
     const int k_pad = (w_pad - 3) / 2;
     const uint8_t* tbb = tb + (size_t)b * rows_max * w_pad;
     const uint8_t* qb = q + (size_t)b * rows_max;
@@ -517,6 +537,21 @@ __global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
     const int end_i = best_i[b], end_j = best_j[b];
     int i = end_i, j = end_j;
     int state = 0, matches = 0, mismatches = 0, gaps = 0;
+    int cur_op = -1, run = 0, n_runs = 0;  // the open run; runs closed so far
+    // n steps of `op`: lengthen the open run, or close it and open one.
+    auto record = [&](int op, int n) {
+        if (!CIGAR || n == 0) return;
+        if (op == cur_op) {
+            run += n;
+            return;
+        }
+        if (cur_op >= 0) {
+            if (lane == 0) runs[min(n_runs, MAX_CIGAR_OPS - 1)] = (run << 4) | cur_op;
+            ++n_runs;
+        }
+        cur_op = op;
+        run = n;
+    };
     while (i > 0 && j > 0) {
         const int dm0 = j - (i - off) + k_pad + 1;  // the band lane of (i, j)
         if (state == 0) {
@@ -535,6 +570,7 @@ __global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
             mismatches += n - m;
             i -= n;
             j -= n;
+            record(0, n);
             if (n < 32) {  // lane n's cell ends the run, unless the walk left the matrix there
                 const int how = __shfl_sync(FULL_MASK, valid ? tb_m : -1, n);
                 if (how == 3) break;
@@ -555,6 +591,7 @@ __global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
             }
             gaps += n;
             i -= n;
+            record(1, n);
         } else {
             // Row run: lane l looks at (i, j - l).
             const int jl = j - lane;
@@ -570,6 +607,7 @@ __global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
             }
             gaps += n;
             j -= n;
+            record(2, n);
         }
     }
     if (lane == 0) {
@@ -582,96 +620,45 @@ __global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
         out[6 * n_pairs + b] = j;
         out[7 * n_pairs + b] = end_j;
     }
+    if (CIGAR) {
+        record(-1, 1);  // close the final run
+        const int n = min(n_runs, MAX_CIGAR_OPS);
+        __syncwarp();   // lane 0's runs are visible to the warp
+        int32_t* row = ops + (size_t)b * MAX_CIGAR_OPS;
+#pragma unroll
+        for (int s = lane; s < MAX_CIGAR_OPS; s += 32) row[s] = s < n ? runs[n - 1 - s] : 0;
+        if (lane == 0) {
+            n_ops_out[b] = n;
+            overflow[b] = n_runs > MAX_CIGAR_OPS ? 1 : 0;
+        }
+    }
 }
 
-// The serial form of swg_traceback_kernel's walk (one thread per pair, one
-// step at a time), also recording BAM CIGAR runs (M=0 on the
-// diagonal, I=1 in the vertical D state, D=2 in the horizontal I state; a
-// transition step emits none).  The walk goes end to start, so each pair's
-// runs are written in that order into its own row of `ops` in device memory
-// and the valid prefix is reversed in place at the end; the rest of the row
-// is zeroed.  A run past `MAX_CIGAR_OPS` overwrites the last slot, as the JAX
-// package's buffer does, and sets the pair's overflow flag.  Like the plain
-// traceback this is a serial walk per pair: a thread's rows of `ops` are
-// 1 KB apart, so its writes do not coalesce, but there is one write per run,
-// not per step, and the walk's dependent loads of the traceback bits bound it.
-__global__ void swg_traceback_cigar_kernel(
+__global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_kernel(
     const uint8_t* __restrict__ tb, const uint8_t* __restrict__ q,
     const uint8_t* __restrict__ t, const int32_t* __restrict__ best,
     const int32_t* __restrict__ best_i, const int32_t* __restrict__ best_j,
     const int32_t* __restrict__ offsets, int n_pairs, int rows_max, int w_pad,
-    int t_cols, int t_pad,
-    int32_t* __restrict__ out,        // (8, B) as swg_traceback_kernel's
-    int32_t* __restrict__ ops,        // (B, MAX_CIGAR_OPS) BAM runs, len << 4 | op
-    int32_t* __restrict__ n_ops_out,  // (B,) runs kept, min(runs, MAX_CIGAR_OPS)
-    uint8_t* __restrict__ overflow) { // (B,) more than MAX_CIGAR_OPS runs
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
+    int t_cols, int t_pad, int32_t* __restrict__ out) {
+    const int b = blockIdx.x * TRACEBACK_WARPS + (threadIdx.x >> 5);
     if (b >= n_pairs) return;
-    const int k_pad = (w_pad - 3) / 2;
-    const uint8_t* tbb = tb + (size_t)b * rows_max * w_pad;
-    const uint8_t* qb = q + (size_t)b * rows_max;
-    const uint8_t* tt = t + (size_t)b * t_cols;
-    int32_t* ob = ops + (size_t)b * MAX_CIGAR_OPS;
-    const int off = offsets[b];
-    int i = best_i[b], j = best_j[b];
-    int state = 0, matches = 0, mismatches = 0, gaps = 0;
-    int cur_op = -1, run = 0, ptr = 0;  // the open run; runs emitted so far
-    while (i > 0 && j > 0) {
-        const int r = min(max(i - 1, 0), rows_max - 1);
-        const int dm = min(max(j - (i - off) + k_pad + 1, 0), w_pad - 1);
-        const int cell = tbb[(size_t)r * w_pad + dm];
-        int step_op = -1;
-        if (state == 0) {
-            const int tb_m = cell & 3;
-            if (tb_m == 3) break;
-            if (tb_m == 0) {
-                const int tc = tt[min(max(j - 1 + t_pad, 0), t_cols - 1)];
-                if (qb[r] == tc) ++matches; else ++mismatches;
-                --i;
-                --j;
-                step_op = 0;
-            } else {
-                state = tb_m;  // 1: into D, 2: into I (no move on the transition)
-            }
-        } else if (state == 1) {
-            ++gaps;
-            --i;
-            step_op = 1;
-            if (!((cell >> 2) & 1)) state = 0;
-        } else {
-            ++gaps;
-            --j;
-            step_op = 2;
-            if (!((cell >> 3) & 1)) state = 0;
-        }
-        if (step_op >= 0) {
-            if (step_op != cur_op) {
-                if (cur_op >= 0) ob[min(ptr++, MAX_CIGAR_OPS - 1)] = (run << 4) | cur_op;
-                run = 1;
-                cur_op = step_op;
-            } else {
-                ++run;
-            }
-        }
-    }
-    if (cur_op >= 0) ob[min(ptr++, MAX_CIGAR_OPS - 1)] = (run << 4) | cur_op;  // the final run
-    const int n = min(ptr, MAX_CIGAR_OPS);
-    for (int lo = 0, hi = n - 1; lo < hi; ++lo, --hi) {
-        const int32_t x = ob[lo];
-        ob[lo] = ob[hi];
-        ob[hi] = x;
-    }
-    for (int k = n; k < MAX_CIGAR_OPS; ++k) ob[k] = 0;
-    out[0 * n_pairs + b] = best[b];
-    out[1 * n_pairs + b] = matches;
-    out[2 * n_pairs + b] = mismatches;
-    out[3 * n_pairs + b] = gaps;
-    out[4 * n_pairs + b] = i;
-    out[5 * n_pairs + b] = best_i[b];
-    out[6 * n_pairs + b] = j;
-    out[7 * n_pairs + b] = best_j[b];
-    n_ops_out[b] = n;
-    overflow[b] = ptr > MAX_CIGAR_OPS ? 1 : 0;
+    walk_pair<false>(tb, q, t, best, best_i, best_j, offsets, n_pairs, rows_max, w_pad, t_cols, t_pad,
+                     b, threadIdx.x & 31, out, nullptr, nullptr, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(TRACEBACK_WARPS * 32) swg_traceback_cigar_kernel(
+    const uint8_t* __restrict__ tb, const uint8_t* __restrict__ q,
+    const uint8_t* __restrict__ t, const int32_t* __restrict__ best,
+    const int32_t* __restrict__ best_i, const int32_t* __restrict__ best_j,
+    const int32_t* __restrict__ offsets, int n_pairs, int rows_max, int w_pad,
+    int t_cols, int t_pad, int32_t* __restrict__ out, int32_t* __restrict__ ops,
+    int32_t* __restrict__ n_ops, uint8_t* __restrict__ overflow) {
+    __shared__ int32_t runs[TRACEBACK_WARPS][MAX_CIGAR_OPS];
+    const int warp = threadIdx.x >> 5;
+    const int b = blockIdx.x * TRACEBACK_WARPS + warp;
+    if (b >= n_pairs) return;
+    walk_pair<true>(tb, q, t, best, best_i, best_j, offsets, n_pairs, rows_max, w_pad, t_cols, t_pad,
+                    b, threadIdx.x & 31, out, runs[warp], ops, n_ops, overflow);
 }
 
 template <int LPT>
@@ -793,9 +780,8 @@ int kts_swg_traceback_cigar(const void* tb, const void* q, const void* t, const 
                             void* out, void* ops, void* n_ops, void* overflow,
                             void* stream) {
     if (n_pairs == 0) return (int)cudaSuccess;
-    const int threads = 128;
-    swg_traceback_cigar_kernel<<<(n_pairs + threads - 1) / threads, threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+    swg_traceback_cigar_kernel<<<(n_pairs + TRACEBACK_WARPS - 1) / TRACEBACK_WARPS,
+                                 TRACEBACK_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t*>(tb), static_cast<const uint8_t*>(q),
         static_cast<const uint8_t*>(t), static_cast<const int32_t*>(best),
         static_cast<const int32_t*>(best_i), static_cast<const int32_t*>(best_j),

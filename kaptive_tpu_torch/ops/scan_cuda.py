@@ -4,6 +4,15 @@ Replaces ``kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel``.  The library
 is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`) and loaded with
 ctypes; nothing is compiled at import.
 
+One block scans a 32-row tile of one genome; a thread owns 16 consecutive
+positions, whose k-mers come from two packed 2-bit words by a funnel shift
+and whose window minima come from one prefix/suffix pass with the window
+width known at compile time (the library holds one instance of the kernel per
+``w`` in ``1 .. kts_rowcompact_max_w()``; ``k`` is a run-time argument).
+Selected positions are marked in a bit mask of the tile, ranked inside their
+row by the threads that own them, and each row is stored as whole lines.  The
+design notes are at the head of the source.
+
 The wrapper checks device, dtype, shape and contiguity, allocates the outputs
 with ``torch.empty``, launches on the current stream, raises if the launch
 returns a CUDA error, and counts each launch as ``scan.cuda.rowcompact`` in
@@ -52,6 +61,8 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
         raise ValueError(f"expected (B, R + {2 * HALO_ROWS}, {ROW}) codes, got {tuple(codes_padded.shape)}")
     B, r_pad = codes_padded.shape[:2]
     check_tensor("codes_padded", codes_padded, torch.uint8, (B, r_pad, ROW), device)
+    if codes_padded.data_ptr() % 16:
+        raise ValueError("codes_padded: expected a 16-byte aligned tensor (the kernel loads 16 codes at once)")
     if not 1 <= k <= lib.kts_rowcompact_max_k() or not 1 <= w <= lib.kts_rowcompact_max_w():
         raise ValueError(f"k={k}, w={w} outside the scan kernel's range "
                          f"(k <= {lib.kts_rowcompact_max_k()}, w <= {lib.kts_rowcompact_max_w()})")

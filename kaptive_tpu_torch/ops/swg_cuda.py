@@ -12,7 +12,11 @@ The fill has two forms and picks one from ``w_pad`` alone (:func:`fill_form`):
 the warp form (one warp per pair, the band in registers) for the widths the
 lattices produce, a multiple of 128 up to 1024, and the wide form (one block
 per pair, the band in shared memory) for every other width up to
-``kts_swg_max_w_pad()``.  The traceback walks each pair with one warp.
+``kts_swg_max_w_pad()``.  Both tracebacks are instances of one walk: one warp
+per pair reads up to 32 cells of the current diagonal, column or row at once.
+The CIGAR instance also records the runs, staged in shared memory, and the
+warp writes each pair's row of ``ops`` once, reversed into alignment order and
+zero-filled.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises

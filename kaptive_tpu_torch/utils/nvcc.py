@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -77,8 +78,17 @@ class CudaLibrary:
         return self._lib
 
     def ptxas_report(self) -> str:
-        r"""The ``registers`` lines of the last build's ``-Xptxas -v`` report."""
-        return " | ".join(ln.strip() for ln in self.log.read_text().splitlines() if "registers" in ln)
+        r"""The last build's ``-Xptxas -v`` report, one entry per kernel: its name (with its
+        template argument), registers, shared memory and, where there are any, spilled bytes."""
+        out, name, spill = [], "?", ""
+        for ln in self.log.read_text().splitlines():
+            if m := re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)(?:IL[ib](\d+)E)?", ln):
+                name = m[1] + (f"<{m[2]}>" if m[2] else "")
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                spill = f", spills {m[1]}/{m[2]} B" if int(m[1]) or int(m[2]) else ""
+            elif m := re.search(r"Used (\d+ registers)(?:.*?(\d+ bytes smem))?", ln):
+                out.append(f"{name}: {m[1]}" + (f", {m[2]}" if m[2] else "") + spill)
+        return " | ".join(out)
 
 
 def check_tensor(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple, device: torch.device) -> None:

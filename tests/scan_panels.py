@@ -4,6 +4,13 @@ Each panel is a flat (rows * 128,) uint8 code stream made with numpy from a
 seed: random bases with sprinkled sentinels and a sentinel tail, contig
 boundaries as k-1 sentinel runs, a row count that is a multiple of neither
 32 nor 1024, and a 400-base poly-A run whose rows overflow 64 slots.
+
+``EDGE_PANELS`` are the streams a tiled kernel can get wrong: fewer rows than
+any tile, nothing but sentinels, and sentinels, a period-2 repeat (ties two
+apart) and a poly-A run each laid across a row edge, a 16-base word edge and
+every multiple of 4,096 positions (the CUDA kernel's tile).  ``KW_CASES``
+are (k, w) pairs other than the default (15, 10), down to the smallest pair
+the JAX package's scan takes.
 """
 
 import numpy as np
@@ -40,3 +47,55 @@ PANELS = {
     "poly-a-overflow": poly_a,
 }
 
+
+
+TILE = 4096  # positions per block of the CUDA kernel (csrc/scan.cu)
+
+
+def _plain_stream(rng, rows):
+    """Random bases with a sentinel tail and nothing else planted."""
+    codes = rng.integers(0, 4, rows * ROW).astype(np.uint8)
+    codes[-64:] = 4
+    return codes
+
+
+def _edges(rows):
+    """Positions of a row edge, a 16-base word edge and every multiple of the tile inside the stream."""
+    L = rows * ROW
+    return sorted({ROW, 5 * ROW + 16, *range(TILE, L - ROW, TILE)} & set(range(ROW, L - ROW)))
+
+
+def sentinels_across_edges(rng, rows=72):
+    codes = _plain_stream(rng, rows)
+    for e in _edges(rows):
+        codes[e - 1 : e + 1] = 4  # one sentinel on each side of the edge
+    return codes
+
+
+def period2_across_edges(rng, rows=72):
+    codes = _plain_stream(rng, rows)
+    for e in _edges(rows):
+        codes[e - 40 : e + 40] = np.resize(np.array([0, 1], np.uint8), 80)  # ACAC...: ties two apart
+    return codes
+
+
+def poly_a_across_edges(rng, rows=72):
+    codes = _plain_stream(rng, rows)
+    for e in _edges(rows):
+        codes[e - 100 : e + 100] = 0  # every k-mer ties, every window picks its first position:
+        # the rows on both sides of the edge overflow their 64 slots
+    return codes
+
+
+EDGE_PANELS = {
+    "one-row": lambda rng: _plain_stream(rng, 1),
+    "three-rows": lambda rng: random_stream(rng, 3),
+    "all-sentinel": lambda rng: np.full(40 * ROW, 4, np.uint8),
+    "sentinels-across-edges": sentinels_across_edges,
+    "period-2-across-edges": period2_across_edges,
+    "poly-a-across-edges": poly_a_across_edges,
+}
+
+# (k, w) other than (15, 10); (1, 1) is the smallest pair, and both packages' scans take it
+# (every base is its own window, so every valid position is selected).
+KW_CASES = ((11, 5), (16, 32), (1, 1))

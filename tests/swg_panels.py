@@ -123,8 +123,69 @@ def cigar_bucket(rng, n_pairs: int = 384, rows_max: int = 1024, w_pad: int = 128
     return _padded_bucket(pairs, rows_max, w_pad, 20), nt_matrix(), 4, 2, rows_max, w_pad
 
 
+def _other_base(*neighbours: int) -> bytes:
+    """A base that differs from each of ``neighbours``, so an indel of it has one place to go."""
+    return bytes([next(b for b in NT if b not in neighbours)])
+
+
+def _spaced_indels(rng, n_indels: int, n_swaps: int, seg: int = 6) -> tuple[bytes, bytes]:
+    """A (query, target) pair of ``seg``-base matching segments with one single-base event
+    between neighbours: ``n_indels`` of them a base present on one side only (query and target
+    in turn) and, in the middle of them, ``n_swaps`` a base that differs between the two.  Under
+    :func:`harsh_nt_matrix` a differing base aligns as an insertion beside a deletion, so the
+    alignment holds ``1 + 2 * n_indels + 3 * n_swaps`` runs, an even count when ``n_swaps`` is odd.
+    """
+    segs = [_random_bytes(rng, NT, seg) for _ in range(n_indels + n_swaps + 1)]
+    q, t = bytearray(segs[0]), bytearray(segs[0])
+    swaps = range(n_indels // 2, n_indels // 2 + n_swaps)
+    for e, nxt in enumerate(segs[1:]):
+        x = _other_base(q[-1], nxt[0])
+        if e in swaps:
+            q += x
+            t += _other_base(q[-2], nxt[0], x[0])
+        elif e % 2 == 0:
+            q += x
+        else:
+            t += x
+        q += nxt
+        t += nxt
+    return bytes(q), bytes(t)
+
+
+def harsh_nt_matrix() -> np.ndarray:
+    """DNA scoring whose mismatch (-20) costs more than two one-base gaps (2 x 6)."""
+    m = np.full((256, 256), -20, dtype=np.int32)
+    for b in NT:
+        m[b, b] = 2
+    return m
+
+
+M_RUNS = (31, 32, 33, 64, 65)
+
+
+def m_run_pairs(rng):
+    """For each n in ``M_RUNS`` a pair aligned as ``n M, 1 D, n M, 1 I, 2n M``: diagonal runs
+    that end one cell before, at and one cell after the walk's 32-cell stretch, and runs of two
+    stretches and more that must come out as one run.  Then two pairs whose walk leaves the
+    matrix in the middle of a stretch: the target starts 7 bases in (the walk ends at i = 0,
+    j = 7 after 45 diagonal steps) and the query does (j = 0, i = 7)."""
+    pairs = []
+    for n in M_RUNS:
+        s = [_random_bytes(rng, NT, n) for _ in range(4)]
+        x, y = _other_base(s[1][-1], s[2][0]), _other_base(s[0][-1], s[1][0])
+        pairs.append((s[0] + s[1] + x + s[2] + s[3], s[0] + y + s[1] + s[2] + s[3]))
+    tail, lead = _random_bytes(rng, NT, 45), _random_bytes(rng, NT, 7)
+    return pairs + [(tail, lead + tail), (lead + tail, tail)]
+
+
 def cigar_panel(rng, kind: str):
     """A CIGAR-mode bucket: ``(arrays, matrix, gap_open, gap_extend, rows_max, w_pad)``.
+
+    ``m-runs``: :func:`m_run_pairs`; ``gap-runs``: :func:`gap_run_panel` (one gap of 31 to 70
+    steps a pair, walks ending at the matrix edge); ``runs-255-256-257``: three pairs of
+    exactly 255, 256 and 257 runs (:func:`_spaced_indels` under :func:`harsh_nt_matrix`):
+    the last slot filled without overflow, and one run past it, which overwrites slot 255 and
+    sets the flag.
 
     ``nt-indels``: mutated DNA copies with substitutions, insertions and
     deletions; ``protein``: BLOSUM62 pairs; ``overflow``: one pair whose
@@ -135,6 +196,13 @@ def cigar_panel(rng, kind: str):
     """
     if kind == "protein":
         return random_swg_batch(rng, AA, 10, 128, 128, seeded=False), blosum_matrix(), 11, 1, 128, 128
+    if kind == "m-runs":
+        return _padded_bucket(m_run_pairs(rng), 320, 128, 20), nt_matrix(), 4, 2, 320, 128
+    if kind == "gap-runs":
+        return gap_run_panel(rng, 320, 256), nt_matrix(), 4, 2, 320, 256
+    if kind == "runs-255-256-257":
+        pairs = [_spaced_indels(rng, 127, 0), _spaced_indels(rng, 126, 1), _spaced_indels(rng, 128, 0)]
+        return _padded_bucket(pairs, 1024, 128, 20), harsh_nt_matrix(), 4, 2, 1024, 128
     pairs = []
     if kind == "nt-indels":
         for _ in range(12):
@@ -154,7 +222,7 @@ def cigar_panel(rng, kind: str):
     raise ValueError(kind)
 
 
-CIGAR_PANELS = ("nt-indels", "protein", "overflow", "no-op")
+CIGAR_PANELS = ("nt-indels", "protein", "overflow", "no-op", "m-runs", "gap-runs", "runs-255-256-257")
 
 
 def best_cell_panel(rows_max: int = 64, w_pad: int = 128):

@@ -5,7 +5,9 @@ Three levels, each on seeded numpy panels fed unchanged to both packages:
 - ``banded_swg_cigars`` vs ``banded_swg_lax_cigars``: every SwgResult field,
   the whole ``ops`` buffer (not only the valid prefix), ``n_ops`` and
   ``overflow``, on DNA with indels, BLOSUM62 protein pairs, a pair that
-  emits more than 256 runs and pairs whose walk emits none;
+  emits more than 256 runs, pairs whose walk emits none, diagonal runs of 31
+  to 65 steps between single indels, single gaps of 31 to 70 steps, walks that
+  leave the matrix, and pairs of exactly 255, 256 and 257 runs;
 - ``batched_swg_align_cigars`` vs the JAX one on ragged pairs, which the two
   packages bucket differently (the port by ``plan_swg_buckets``, the JAX
   package by power-of-two sizes), so equality holds per pair whatever its
@@ -20,7 +22,7 @@ Tolerance: exact (integer DP and run-length records).
 import numpy as np
 import pytest
 import torch
-from swg_panels import CIGAR_PANELS, cigar_panel, nt_matrix
+from swg_panels import CIGAR_PANELS, GAP_RUNS, M_RUNS, cigar_panel, nt_matrix
 from torch_panel import both_assemblies
 from typing_panel import assert_same
 
@@ -64,6 +66,18 @@ def test_banded_swg_cigars_equals_lax(kind):
     if kind == "nt-indels":
         kinds = got_ops.numpy() & 0xF
         assert (kinds[got_ops.numpy() != 0] == 1).any() and (kinds[got_ops.numpy() != 0] == 2).any()
+    M, I, D = 0, 1, 2
+    if kind == "m-runs":  # a diagonal run of two stretches and more is one run
+        for b, n in enumerate(M_RUNS):
+            assert got_ops[b, :5].tolist() == [n << 4 | M, 1 << 4 | D, n << 4 | M, 1 << 4 | I, 2 * n << 4 | M]
+        assert got_ops[5:, 0].tolist() == [45 << 4 | M] * 2 and got_n[5:].tolist() == [1, 1]
+        assert (got_res.q_starts[5:].tolist(), got_res.t_starts[5:].tolist()) == ([0, 7], [7, 0])
+    if kind == "gap-runs":  # the step that closes a gap belongs to the gap's run
+        want = [[120 << 4 | M, n << 4 | op, 120 << 4 | M] for n in GAP_RUNS for op in (I, D)]
+        assert got_ops[: len(want), :3].tolist() == want and got_n[: len(want)].tolist() == [3] * len(want)
+    if kind == "runs-255-256-257":  # one run past the last slot overwrites it
+        assert got_n.tolist() == [255, 256, 256] and got_over.tolist() == [False, False, True]
+        assert (got_ops[:2] != 0).sum(1).tolist() == [255, 256] and int(got_ops[0, 255]) == 0
 
 
 def test_traceback_cigar_plain_matches_traceback_plain():

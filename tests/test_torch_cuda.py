@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from scan_panels import PANELS, random_stream
+from scan_panels import EDGE_PANELS, KW_CASES, PANELS, random_stream
 from swg_panels import (
     AA, CIGAR_PANELS, GAP_RUNS, NT, best_cell_panel, blosum_matrix, cigar_panel, gap_run_panel, nt_matrix,
     random_swg_batch,
@@ -118,8 +118,8 @@ def test_long_gap_runs(device, w_pad):
 
 
 def test_traceback_walks_planted_cigar_bucket(device):
-    """The CIGAR panels' indel-dense bucket (short D and I runs in turn): the warp walk's
-    counts equal the serial CIGAR walk's on the same bits."""
+    """The CIGAR panels' indel-dense bucket (short D and I runs in turn): the count-only
+    kernel's counts equal the CIGAR kernel's on the same bits."""
     from kaptive_tpu_torch.ops.swg_cuda import swg_fill_cuda, swg_traceback_cigar_cuda, swg_traceback_cuda
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
     from swg_panels import cigar_bucket
@@ -130,8 +130,8 @@ def test_traceback_walks_planted_cigar_bucket(device):
     tb, *best = swg_fill_cuda(q, ql, t, tl, off, kl, as_kernel_matrix(torch.from_numpy(matrix), device),
                               gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
     tr = dict(rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
-    serial, *_ = swg_traceback_cigar_cuda(tb, q, t, *best, off, **tr)
-    assert torch.equal(swg_traceback_cuda(tb, q, t, *best, off, **tr), serial) and torch.equal(res, serial)
+    recorded, *_ = swg_traceback_cigar_cuda(tb, q, t, *best, off, **tr)
+    assert torch.equal(swg_traceback_cuda(tb, q, t, *best, off, **tr), recorded) and torch.equal(res, recorded)
     assert int(res[3].sum()) > 500  # gaps
 
 
@@ -173,26 +173,59 @@ def scan_device():
     return torch.device("cuda", 0)
 
 
-SCAN_CASES = [(name, B) for name in PANELS for B in (1, 3)] + [("bench-rows-45056", 1), ("bench-rows-45056", 3)]
+SCAN_PANELS = {**PANELS, **EDGE_PANELS, "bench-rows-45056": lambda r: random_stream(r, 45056)}
+SCAN_CASES = ([(name, B, 15, 10) for name in PANELS for B in (1, 3)]
+              + [("bench-rows-45056", 1, 15, 10), ("bench-rows-45056", 3, 15, 10)]
+              + [(name, B, 15, 10) for name in EDGE_PANELS for B in (1, 2)]
+              + [(name, 2, k, w) for k, w in KW_CASES
+                 for name in ("odd-rows-1000", "period-2-across-edges", "poly-a-across-edges", "three-rows")])
 
 
-@pytest.mark.parametrize("case", SCAN_CASES, ids=[f"{n}-B{b}" for n, b in SCAN_CASES])
-def test_scan_kernel_equals_plain(scan_device, case):
-    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any, rowcompact_scan_plain
+def _assert_scan_kernel_equals_plain(device, codes, k, w):
+    from kaptive_tpu_torch.ops.scan import rowcompact_scan_plain
     from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
 
-    name, B = case
-    rng = np.random.default_rng(sum(map(ord, name)) + B)
-    make = PANELS.get(name, lambda r: random_stream(r, 45056))
-    codes = torch.from_numpy(np.stack([pad_codes_for_scan_any(make(rng)) for _ in range(B)])).to(scan_device)
-    got = rowcompact_scan_cuda(codes, 15, 10)
-    want = rowcompact_scan_plain(codes, 15, 10)
+    got = rowcompact_scan_cuda(codes, k, w)
+    want = rowcompact_scan_plain(codes, k, w)
     torch.cuda.synchronize()
-    for field, g, w in zip(("hashes", "aux", "counts"), got, want):
-        assert g.dtype == w.dtype and g.shape == w.shape, field
-        assert torch.equal(g, w), field
-    if name == "poly-a-overflow":
+    for field, g, x in zip(("hashes", "aux", "counts"), got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape, field
+        assert torch.equal(g, x), (field, k, w)
+    return got
+
+
+@pytest.mark.parametrize("case", SCAN_CASES, ids=[f"{n}-B{b}-k{k}-w{w}" for n, b, k, w in SCAN_CASES])
+def test_scan_kernel_equals_plain(scan_device, case):
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
+
+    name, B, k, w = case
+    rng = np.random.default_rng(sum(map(ord, name)) + B)
+    codes = torch.from_numpy(np.stack([pad_codes_for_scan_any(SCAN_PANELS[name](rng)) for _ in range(B)]))
+    got = _assert_scan_kernel_equals_plain(scan_device, codes.to(scan_device), k, w)
+    if name in ("poly-a-overflow", "poly-a-across-edges"):
         assert int(got[2].max()) > 64
+    if name == "all-sentinel":
+        assert int(got[2].sum()) == 0
+
+
+def test_scan_kernel_equals_plain_at_every_window_width(scan_device):
+    """Every instance of the kernel (w = 1 .. 32), at the largest and at a small k, on ties
+    and sentinels laid across the tile, row and word edges."""
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
+    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
+
+    rng = np.random.default_rng(77)
+    codes = torch.from_numpy(np.stack([
+        pad_codes_for_scan_any(EDGE_PANELS[name](rng))
+        for name in ("sentinels-across-edges", "period-2-across-edges", "poly-a-across-edges")
+    ])).to(scan_device)
+    for w in range(1, 33):
+        for k in (16, 15, 5, 1):
+            _assert_scan_kernel_equals_plain(scan_device, codes, k, w)
+    with pytest.raises(ValueError, match="outside"):
+        rowcompact_scan_cuda(codes, 15, 33)
+    with pytest.raises(ValueError, match="outside"):
+        rowcompact_scan_cuda(codes, 17, 10)
 
 
 def test_scan_front_door_routes_by_device(scan_device):

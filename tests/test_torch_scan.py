@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from scan_panels import PANELS, random_stream
+from scan_panels import EDGE_PANELS, KW_CASES, PANELS, random_stream
 
 from kaptive_tpu.ops import scan_pallas as SP
 from kaptive_tpu.ops.minimizer import DEFAULT_K, DEFAULT_W, minimizer_scan_host
@@ -31,16 +31,26 @@ def _decode_rows(h, a):
     return got
 
 
-def _port_scan(padded):
+def _port_scan(padded, k=DEFAULT_K, w=DEFAULT_W):
     from kaptive_tpu_torch.ops.scan import rowcompact_scan
 
-    h, a, c = rowcompact_scan(torch.from_numpy(padded), DEFAULT_K, DEFAULT_W)
+    h, a, c = rowcompact_scan(torch.from_numpy(padded), k, w)
     return h.numpy().view(np.uint32), a.numpy(), c.numpy()
 
 
-def _jax_scan(padded):
-    outs = SP.rowcompact_scan_xla(jnp.asarray(padded), DEFAULT_K, DEFAULT_W)
+def _jax_scan(padded, k=DEFAULT_K, w=DEFAULT_W):
+    outs = SP.rowcompact_scan_xla(jnp.asarray(padded), k, w)
     return tuple(np.asarray(x) for x in outs)
+
+
+def _assert_scans_equal(codes, k=DEFAULT_K, w=DEFAULT_W):
+    """Port == JAX package on all three outputs of one stream; returns the port's."""
+    padded = SP.pad_codes_for_scan_any(codes)[None]
+    got, want = _port_scan(padded, k, w), _jax_scan(padded, k, w)
+    for name, g, x in zip(("hashes", "aux", "counts"), got, want):
+        assert g.dtype == x.dtype and g.shape == x.shape, name
+        np.testing.assert_array_equal(g, x, err_msg=name)
+    return got
 
 
 @pytest.mark.parametrize("panel", list(PANELS))
@@ -61,6 +71,33 @@ def test_rowcompact_plain_equals_jax(panel):
     else:
         assert int(c.max()) <= SP.SLOTS
         assert _decode_rows(h[0], a[0]) == _host_set(codes)
+
+
+@pytest.mark.parametrize("panel", list(EDGE_PANELS))
+def test_rowcompact_plain_equals_jax_on_edge_panels(panel):
+    """Streams shorter than a tile, all sentinels, and sentinels, ties two apart and a
+    poly-A run across a row edge, a word edge and every multiple of 4,096 positions."""
+    codes = EDGE_PANELS[panel](np.random.default_rng(sum(map(ord, panel))))
+    h, a, c = _assert_scans_equal(codes)
+    if panel == "all-sentinel":
+        assert int(c.sum()) == 0 and (h == 0xFFFFFFFF).all() and (a == -1).all()
+    elif panel == "poly-a-across-edges":
+        assert int(c.max()) > SP.SLOTS  # the planted rows overflow their 64 slots
+    else:
+        assert 0 < int(c.max()) <= SP.SLOTS
+        assert _decode_rows(h[0], a[0]) == _host_set(codes)
+
+
+@pytest.mark.parametrize("k,w", KW_CASES, ids=[f"k{k}-w{w}" for k, w in KW_CASES])
+@pytest.mark.parametrize("panel", ["random-40", "period-2-across-edges"])
+def test_rowcompact_plain_equals_jax_other_k_w(panel, k, w):
+    """(k, w) other than (15, 10), down to the smallest pair the scans take."""
+    rng = np.random.default_rng(100 * k + w)
+    codes = random_stream(rng, 40) if panel == "random-40" else EDGE_PANELS[panel](rng)
+    h, a, c = _assert_scans_equal(codes, k, w)
+    assert int(c.sum()) > 0
+    if (k, w) == (1, 1) and panel == "random-40":  # every valid base is selected
+        assert int(c.sum()) == int((codes < 4).sum())
 
 
 def test_rowcompact_plain_batch_equals_jax():
