@@ -12,7 +12,7 @@ module of either was loaded).  Steps:
 1. Print the card's ``name, power.limit`` (``nvidia-smi``), refuse to run
    without CUDA, and build what the port builds, all from
    ``kaptive_tpu_torch/csrc/`` into ``build/kaptive_tpu_torch/``: the Hopper
-   kernels (``swg.cu`` and ``scan.cu``, one nvcc each) and the native host
+   kernels (``swg.cu``, ``scan.cu`` and ``viterbi.cu``, one nvcc each) and the native host
    library (``hostio.cpp``, g++), started together, printing build seconds.
 2. Build bench.py's workload: a 140-locus x 18-gene synthetic database and
    eight 5.3 Mb assemblies, two per composition class (clean, diverged,
@@ -66,20 +66,34 @@ module of either was loaded).  Steps:
    runs), which must hold I and D runs and at least one overflowed pair; its
    time is the kernel entry's ``planted_ms``.
 
+10. The BGC toolkit: an ``ArchitecturalTrainer`` (K = 25, D = 1024) learns
+    from the database's 140 loci; the clean and the draft assembly are
+    annotated on ``cuda`` with ``align=True`` and predicted, with the counts
+    set to 0 just before and read just after: the gene and architectural
+    Viterbi kernels and the SWG kernels must have launched, no plain form, and
+    at least half the planted locus's genes must be among each assembly's top
+    hits.  The gene kernel is held to its plain form (on the CPU) on
+    ``BGC_WINDOWS`` windows of 2-16 kb of each assembly, both strands, and
+    timed there and on the clean assembly's two full strands; the
+    architectural kernel is held to its plain form on every emission matrix
+    of the main path and timed on the largest.  Annotate + predict of a
+    window of at most 60 kb around the planted locus on the card must equal
+    the CPU path: BED bytes, alignments, predictions (scores to rtol 1e-5).
+
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-10. bench.py's full 32 assemblies, host- and then device-seeded, typed in
+11. bench.py's full 32 assemblies, host- and then device-seeded, typed in
     stream batches of 32 and of 8, three timed passes each after a priming
     pass (every pass and the median printed), and for each mode one more
     batch-32 pass under ``torch.profiler`` for the card's busy share and its
     time per kernel.
-11. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+12. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
     ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
     times, and band cells per second of the fill.
-12. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
+13. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
     (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
     lattice batch of 384 pairs fills the card.
-13. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
+14. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
     kernel == plain at each, CUDA-event time and bound: latency against
     throughput of the scan, and the time of a 32-genome batch in one launch.
 
@@ -91,7 +105,11 @@ this run's data needs: the larger of the bytes moved (inputs read once,
 outputs written once) over 3.35 TB/s and the integer operations over the
 card's int32 rate, taken as a quarter of its 67 TFLOP/s float32 rate (half
 the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
-PyTorch call computes any of the four functions, so ``library_ms`` is null.
+PyTorch call computes any of the six functions, so ``library_ms`` is null.
+The two Viterbi kernels are float32 work: their operations are counted
+against the 67 TFLOP/s float32 rate, and the gene kernel also prints the
+floor its serial chain of steps sets (``chain_floor_ms``, reckoned at
+``GENE_CHAIN_CYCLES`` cycles a step at the card's boost clock).
 """
 
 from __future__ import annotations
@@ -123,6 +141,14 @@ WALK_OPS_PER_STEP = 10  # integer operations of one traceback step
 SCAN_OPS_PER_POSITION = 35  # rolling k-mer, hash and sliding-window minimum for one position
 SCAN_GENOME_STEPS = (1, 4, 32)  # genomes of 45,056 rows scanned in one launch by --measure
 SCAN_ROWS = 45056  # scan rows of one bucket-padded 5.3 Mb assembly
+FLOAT32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
+GENE_OPS_PER_STEP = 43  # float32 operations of a gene-HMM step: 12 adds, 10 picks, the codon add, 7 clamps, 6 maxima, 7 subtracts
+GENE_BYTES_PER_STEP = 21  # 12 bytes in, a 4-byte backpointer word written and read back, a state byte out
+GENE_CHAIN_CYCLES = 40  # ~10 dependent float32 operations of ~4 cycles on a step's critical path
+BGC_WINDOWS = 32  # windows cut from each of the two annotated assemblies for the gene kernel's check
+BGC_WINDOW_SPAN = (2000, 16000)  # their lengths, bases
+BGC_CPU_CONTIG = 60000  # the longest contig the BGC phase's CPU check decodes
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # bench.py and the tests' workload builders
 
 
@@ -170,46 +196,21 @@ def _timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-class _BucketRecorder:
-    """Wraps the aligner's ``banded_swg`` to keep the largest bucket per gap model."""
+class _CallRecorder:
+    """Wraps a kernel front door to keep the arguments of every call."""
 
     def __init__(self, inner):
         self.inner = inner
-        self.buckets: dict[int, tuple] = {}
+        self.calls = []
 
     def __call__(self, *args, **kw):
-        size = kw["rows_max"] * kw["w_pad"] * int(args[0].shape[0])
-        kept = self.buckets.get(kw["gap_open"])
-        if kept is None or size > kept[0]:
-            self.buckets[kw["gap_open"]] = (size, args, dict(kw))
+        self.calls.append((args, kw))
         return self.inner(*args, **kw)
 
-
-class _CigarRecorder:
-    """Wraps the DP's ``banded_swg_cigars`` (both seeding modes) to keep the largest bucket."""
-
-    def __init__(self, inner):
-        self.inner = inner
-        self.largest = None
-
-    def __call__(self, *args, **kw):
-        size = kw["rows_max"] * kw["w_pad"] * int(args[0].shape[0])
-        if self.largest is None or size > self.largest[0]:
-            self.largest = (size, args, dict(kw))
-        return self.inner(*args, **kw)
-
-
-class _ScanRecorder:
-    """Wraps the mapper's ``rowcompact_scan`` to keep the largest scan batch."""
-
-    def __init__(self, inner):
-        self.inner = inner
-        self.largest = None
-
-    def __call__(self, codes, k, w):
-        if self.largest is None or codes.numel() > self.largest[0].numel():
-            self.largest = (codes, k, w)
-        return self.inner(codes, k, w)
+    def largest_bucket(self, gap_open: int | None = None):
+        """``(args, kw)`` of the largest DP bucket recorded (of ``gap_open`` when given), or None."""
+        calls = [c for c in self.calls if gap_open is None or c[1]["gap_open"] == gap_open]
+        return max(calls, key=lambda c: c[1]["rows_max"] * c[1]["w_pad"] * int(c[0][0].shape[0]), default=None)
 
 
 def _share(times: dict) -> str:
@@ -481,7 +482,7 @@ def cigar_phase(serotyper, db, assemblies) -> tuple[dict, int]:
     count_only = serotyper.mapper_params
     with_cigars = dataclasses.replace(count_only, emit_cigars=True)
     stats = [f.name for f in dataclasses.fields(Alignments) if f.name != "cigars"]
-    recorder = _CigarRecorder(pairwise.banded_swg_cigars)
+    recorder = _CallRecorder(pairwise.banded_swg_cigars)
     launches = 0
     for mode in ("host", "device"):
         plain = map_genes_batch(serotyper.gene_index, genomes, names, count_only, seed_mode=mode, device="cuda")
@@ -517,9 +518,9 @@ def cigar_phase(serotyper, db, assemblies) -> tuple[dict, int]:
         print(f"# CIGAR mode, {mode}-seeded: {n_hits} hits, statistics == count-only mode, {n_runs} runs, "
               f"every CIGAR sums to its spans ({n_empty} empty: overflowed); traceback_cigar launches "
               f"{counts['swg.cuda.traceback_cigar']}, plain 0", flush=True)
-    if recorder.largest is None:
+    if not recorder.calls:
         raise AssertionError("no CIGAR bucket was recorded")
-    _, args, kw = recorder.largest
+    args, kw = recorder.largest_bucket()
     check = _check_cigar_bucket(args, kw, "largest recorded")
     # The mapper's buckets hold few gaps and no pair past 256 runs: a planted
     # bucket of the same geometry holds the I/D naming and the overflow slot
@@ -543,6 +544,212 @@ def _planted_cigar_bucket() -> dict:
     args = (*(torch.from_numpy(a).cuda() for a in arrays), torch.from_numpy(matrix))
     kw = {"gap_open": go, "gap_extend": ge, "rows_max": rows_max, "w_pad": w_pad, "t_pad": w_pad + 2}
     return _check_cigar_bucket(args, kw, "planted")
+
+
+def _gene_bound(offsets) -> dict:
+    """The gene decode's bound over the chains that ``offsets`` bounds, and the floor its serial chain sets."""
+    lengths = (offsets[1:] - offsets[:-1]).cpu()
+    steps = int(lengths.sum())
+    by_bytes, by_ops = steps * GENE_BYTES_PER_STEP / HBM_BYTES_PER_S * 1e3, steps * GENE_OPS_PER_STEP / FLOAT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "chain_floor_ms": int(lengths.max()) * GENE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3, "steps": steps}
+
+
+def _arch_bound(emissions, offsets) -> dict:
+    """The architectural decode's bound: emissions, transitions and paths moved once, a byte of
+    backpointer a row and state written and read; an add and a compare a row, state and predecessor."""
+    rows, S = emissions.shape
+    n_bytes = rows * S * 4 + S * S * 4 + rows * 4 + 4 * (len(offsets) - 1) + 2 * rows * S
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, 2 * rows * S * S / FLOAT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _cpu_seconds(fn):
+    """``fn()`` on one CPU thread (the plain forms issue many tiny ops); returns ``(result, seconds)``."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _gene_windows(rng, annotator, fastas) -> tuple:
+    """``BGC_WINDOWS`` windows of each assembly, both strands, as the gene decode's flat inputs on the CPU."""
+    import numpy as np
+    import torch
+
+    from kaptive_tpu_torch.bgc.genefinder import _both_strands, _strand_inputs
+
+    strands = []
+    for fasta in fastas:
+        contigs = [b"".join(rec.split(b"\n")[1:]) for rec in fasta.split(b">")[1:]]
+        for _ in range(BGC_WINDOWS):
+            seq = contigs[rng.integers(len(contigs))]
+            n = int(rng.integers(*BGC_WINDOW_SPAN))
+            lo = int(rng.integers(0, len(seq) - n))
+            strands += [_strand_inputs(codes, annotator._hmm_params) for codes in _both_strands(seq[lo:lo + n])]
+    flat = [torch.from_numpy(np.concatenate([getattr(s, f) for s in strands])) for f in ("codemit", "entry_b", "exit_b")]
+    offsets = torch.from_numpy(np.cumsum([0] + [len(s.codemit) for s in strands]).astype(np.int64))
+    return (*flat, offsets)
+
+
+def _planted_hits(annotation, locus: str) -> int:
+    """Distinct genes of ``locus`` among the annotation's top hits."""
+    return len({str(n) for n in annotation.top_hit_names[annotation.hits_mask] if str(n).startswith(f"{locus}_")})
+
+
+def _same_predictions(got, want, what: str) -> None:
+    """BGCPredictions equal: names and members exactly, scores within rtol 1e-5 (the emissions'
+    matrix product and sums run in another order on the card than on the CPU)."""
+    import numpy as np
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} predicted loci against {len(want)}")
+    for name in ("contig_names", "offsets", "lengths", "member_orfs", "member_states"):
+        if not np.array_equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"{what}: BGCPredictions.{name} differs")
+    if not np.array_equal(got.member_proteins.seqs, want.member_proteins.seqs):
+        raise AssertionError(f"{what}: BGCPredictions.member_proteins differs")
+    if not np.allclose(got.scores, want.scores, rtol=1e-5, atol=0):
+        raise AssertionError(f"{what}: BGCPredictions.scores differ beyond rtol 1e-5: {got.scores} {want.scores}")
+
+
+def bgc_phase(card: str, db, assemblies) -> dict:
+    """Step 10: the BGC toolkit on the card; returns the two Viterbi kernels' checks and launches."""
+    import numpy as np
+    import torch
+    from bench import GENOME_MB
+
+    from kaptive_tpu_torch.bgc import Annotator, ArchitecturalPredictor, ArchitecturalTrainer
+    from kaptive_tpu_torch.bgc import genefinder
+    from kaptive_tpu_torch.bgc import kernels as bgc_kernels
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain, gene_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda, gene_viterbi_cuda
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    picked = [next(a for a in assemblies if a[2] == kind) for kind in ("clean", "draft")]
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    loci = [db.get_locus_data(name) for name in db.loci.ids if name.startswith("KL")]
+    model = ArchitecturalTrainer().train(loci)
+    train_s = time.perf_counter() - t0
+    print(f"# BGC: trained K = {model.centroids.shape[0]}, D = {model.centroids.shape[1]} on {len(loci)} loci "
+          f"x {len(loci[0].proteins)} genes in {train_s:.2f} s", flush=True)
+    annotator = Annotator(db, align=True, device="cuda")
+    predictor = ArchitecturalPredictor(model, device="cuda")
+
+    # The main path: annotate and predict both assemblies, with the counts set to 0 just before.
+    genes_rec, arch_rec = _CallRecorder(genefinder.gene_viterbi), _CallRecorder(bgc_kernels.arch_viterbi)
+    genefinder.gene_viterbi, bgc_kernels.arch_viterbi = genes_rec, arch_rec
+    results, walls = [], []
+    reset_metrics()
+    try:
+        for name, locus, kind, fasta in picked:
+            genome = GenomeAssembly.from_stream(_named_stream(name, fasta), name)
+            t0 = time.perf_counter()
+            annotation = annotator(genome)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            predicted = predictor.predict(annotation)
+            torch.cuda.synchronize()
+            walls.append((t1 - t0, time.perf_counter() - t1))
+            results.append((annotation, predicted))
+    finally:
+        genefinder.gene_viterbi, bgc_kernels.arch_viterbi = genes_rec.inner, arch_rec.inner
+    counts = snapshot()
+    kernels = ("viterbi.cuda.gene", "viterbi.cuda.arch", "swg.cuda.fill", "swg.cuda.traceback")
+    if min(counts.get(k, 0) for k in kernels) == 0 or any(".plain." in k for k in counts):
+        raise AssertionError(f"the BGC phase did not run on the kernels alone: {counts}")
+    for (name, locus, kind, fasta), (annotation, predicted), (ann_s, pred_s) in zip(picked, results, walls):
+        found = _planted_hits(annotation, locus)
+        wanted = len(db.get_locus_data(locus).proteins)
+        aligned = len(annotation.alignments) if annotation.alignments is not None else 0
+        print(f"# BGC, {kind} {name} ({GENOME_MB} Mb, {len(annotation.contig_names)} contigs): {len(annotation.genes)} "
+              f"genes, {int(annotation.hits_mask.sum())} with a top hit, {found}/{wanted} genes of the planted "
+              f"{locus} among them, {aligned} aligned on the card; annotate {ann_s:.2f} s, predict {pred_s:.2f} s: "
+              f"{len(predicted)} predicted loci, {int(predicted.lengths.sum())} member ORFs [{card}]", flush=True)
+        if 2 * found < wanted:
+            raise AssertionError(f"{name}: only {found} of the planted {locus}'s {wanted} genes among the top hits")
+    print(f"# BGC launches in the main path: {dict((k, counts.get(k, 0)) for k in kernels)}, plain versions 0",
+          flush=True)
+
+    # Kernel 1 against its plain form on the CPU: windows of both assemblies, both strands.
+    windows = _gene_windows(np.random.default_rng(SEED), annotator, [a[3] for a in picked])
+    hmm = dict(indel=annotator._hmm_params.indel, ins_extend=annotator._hmm_params.ins_extend)
+    on_card = [w.cuda() for w in windows]
+    got = gene_viterbi_cuda(*on_card, **hmm).cpu()
+    want, plain_s = _cpu_seconds(lambda: gene_viterbi_plain(*windows, **hmm))
+    gene_err = int((got.int() - want.int()).abs().max())
+    if gene_err:
+        raise AssertionError(f"gene Viterbi kernel and plain form differ on the windows (max |diff| {gene_err})")
+    gene = {"max_abs_err": gene_err, "ms": _timed(lambda: gene_viterbi_cuda(*on_card, **hmm), 5),
+            "plain_ms": plain_s * 1e3, **_gene_bound(windows[3])}
+    args, kw = genes_rec.calls[0]
+    gene["full_ms"] = _timed(lambda: gene_viterbi_cuda(*args, **kw), 3)
+    full = _gene_bound(args[3])
+    gene.update(full_bound_ms=full["bound_ms"], full_chain_floor_ms=full["chain_floor_ms"], full_steps=full["steps"])
+    n_chains = len(windows[3]) - 1
+    print(f"# gene Viterbi: {n_chains} strands of {BGC_WINDOW_SPAN[0]}-{BGC_WINDOW_SPAN[1]} b windows "
+          f"({gene['steps']} padded steps): kernel == plain (states, max |diff| 0); kernel {gene['ms']:.4f} ms, plain "
+          f"(CPU, one thread) {gene['plain_ms']:.1f} ms; bound {gene['bound_ms']:.5f} ms by {gene['bound_by']}, "
+          f"serial chain {gene['chain_floor_ms']:.3f} ms. Full size, the clean assembly's "
+          f"{len(args[3]) - 1} strands, {full['steps']} steps in one launch: {gene['full_ms']:.3f} ms; bound "
+          f"{full['bound_ms']:.4f} ms by {full['bound_by']}, serial chain {full['chain_floor_ms']:.3f} ms "
+          f"(reckoned: {GENE_CHAIN_CYCLES} cycles a step at {SM_CLOCK_HZ / 1e9:.2f} GHz) [{card}]", flush=True)
+
+    # Kernel 2 against its plain form on every contig's emission matrix of the main path.
+    arch_err, arch_rows = 0, 0
+    for args, _ in arch_rec.calls:
+        paths, scores = arch_viterbi_cuda(*args)
+        (want_p, want_s), arch_plain_s = _cpu_seconds(lambda a=args: arch_viterbi_plain(*(x.cpu() for x in a)))
+        if not (torch.equal(paths.cpu(), want_p) and torch.equal(scores.cpu(), want_s)):
+            raise AssertionError("architectural Viterbi kernel and plain form differ")
+        arch_rows += int(args[0].shape[0])
+    args = max((a for a, _ in arch_rec.calls), key=lambda a: a[0].shape[0])
+    _, arch_plain_s = _cpu_seconds(lambda: arch_viterbi_plain(*(x.cpu() for x in args)))
+    arch = {"max_abs_err": arch_err, "ms": _timed(lambda: arch_viterbi_cuda(*args), 20),
+            "plain_ms": arch_plain_s * 1e3, **_arch_bound(args[0], args[2])}
+    print(f"# architectural Viterbi: {len(arch_rec.calls)} launches, {arch_rows} emission rows of "
+          f"{args[0].shape[1]} states: kernel == plain (paths and scores exact); the largest, {args[0].shape[0]} rows "
+          f"in {len(args[2]) - 1} contigs: kernel {arch['ms']:.4f} ms, plain (CPU, one thread) {arch['plain_ms']:.1f} "
+          f"ms; bound {arch['bound_ms']:.5f} ms by {arch['bound_by']} [{card}]", flush=True)
+
+    # One whole annotate + predict on the card held to the CPU path, on a window around the planted locus.
+    name, locus, _, fasta = picked[0]
+    seq = b"".join(fasta.split(b"\n")[1:])
+    flank = int(GENOME_MB * 1e6 / 2)
+    pad = min(10_000, (BGC_CPU_CONTIG - (len(seq) - 2 * flank)) // 2)
+    span = seq[flank - pad: len(seq) - flank + pad]
+    window = b">c1\n%s\n" % span
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dev in ("cuda", "cpu"):
+            def run(dev=dev):
+                annotation = Annotator(db, align=True, device=dev)(GenomeAssembly.from_stream(io.BytesIO(window), "w"))
+                return annotation, ArchitecturalPredictor(model, device=dev).predict(annotation)
+            (annotation, predicted), seconds = _cpu_seconds(run) if dev == "cpu" else (run(), 0.0)
+            annotation.write_bed(Path(tmp) / f"{dev}.bed", hits_only=False)
+            out[dev] = (annotation, predicted, (Path(tmp) / f"{dev}.bed").read_bytes(), seconds)
+    (a_gpu, p_gpu, bed_gpu, _), (a_cpu, p_cpu, bed_cpu, cpu_s) = out["cuda"], out["cpu"]
+    if bed_gpu != bed_cpu:
+        raise AssertionError("BGC window: the card's BED bytes differ from the CPU's")
+    if not np.array_equal(a_gpu.alignments.scores, a_cpu.alignments.scores):
+        raise AssertionError("BGC window: alignment scores differ between the card and the CPU")
+    _same_predictions(p_gpu, p_cpu, "BGC window")
+    print(f"# BGC window of {len(span)} b around the planted {locus}: Annotator + predict on the card == CPU "
+          f"(BED bytes of {len(a_gpu.genes)} genes, {len(a_gpu.alignments)} alignments, {len(p_gpu)} predicted loci; "
+          f"scores rtol 1e-5); CPU path {cpu_s:.1f} s", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"# BGC phase: {wall:.1f} s wall (training {train_s:.1f} s, annotate "
+          f"{' + '.join(f'{a:.2f}' for a, _ in walls)} s, predict {' + '.join(f'{p:.2f}' for _, p in walls)} s) "
+          f"[{card}]", flush=True)
+    return {"gene": gene, "arch": arch, "launches": counts, "wall_s": wall}
 
 
 def build_workload(n_assemblies: int, seed: int = SEED):
@@ -607,7 +814,7 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 def measure(card: str) -> None:
     """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 10 to 13)."""
+    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 11 to 14)."""
     import statistics
 
     import numpy as np
@@ -672,7 +879,7 @@ def measure(card: str) -> None:
         print(f"#   fill: {cells / times['fill_ms'] / 1e6:.2f} G band-cells/s "
               f"(band cells = sum of q_len x w_pad) [{card}]", flush=True)
 
-    # Step 12: one shape, more and more live pairs (the rest of the bucket is empty pairs).
+    # Step 13: one shape, more and more live pairs (the rest of the bucket is empty pairs).
     rows_max, w_pad = 1024, 128
     matrix = as_kernel_matrix(nt_matrix(), torch.device("cuda"))
     fill_kw = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad)
@@ -690,7 +897,7 @@ def measure(card: str) -> None:
         print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
               f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
-    # Step 13: the scan at more and more genomes in one launch.
+    # Step 14: the scan at more and more genomes in one launch.
     streams = torch.from_numpy(np.stack([random_stream(rng, SCAN_ROWS) for _ in range(max(SCAN_GENOME_STEPS))]))
     for n_genomes in SCAN_GENOME_STEPS:
         times = _check_scan(add_halo(streams[:n_genomes].cuda()), DEFAULT_K, DEFAULT_W)
@@ -707,7 +914,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--measure", action="store_true",
-                        help="after the smoke, also run the measurements of steps 10 to 13")
+                        help="after the smoke, also run the measurements of steps 11 to 14")
     opts = parser.parse_args()
 
     from bench import GENOME_MB, KINDS
@@ -716,7 +923,7 @@ def main() -> int:
     from kaptive_tpu_torch.core import pairwise
     from kaptive_tpu_torch.core.pairwise import blosum62_matrix
     from kaptive_tpu_torch.native import hostio
-    from kaptive_tpu_torch.ops import mapper, scan_cuda, swg_cuda
+    from kaptive_tpu_torch.ops import mapper, scan_cuda, swg_cuda, viterbi_cuda
     from kaptive_tpu_torch.serotyping import Serotyper
     from kaptive_tpu_torch.serotyping.io import KaptiveRow
     from kaptive_tpu_torch.utils.device import card_info, require_cuda
@@ -731,13 +938,13 @@ def main() -> int:
     print(f"# card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:  # one compiler per source, all started together
-        for build in [pool.submit(fn) for fn in (swg_cuda.build, scan_cuda.build, hostio.load)]:
+    with ThreadPoolExecutor(max_workers=4) as pool:  # one compiler per source, all started together
+        for build in [pool.submit(fn) for fn in (swg_cuda.build, scan_cuda.build, viterbi_cuda.build, hostio.load)]:
             build.result()
     build_s = time.perf_counter() - t0
-    print(f"# builds of csrc/swg.cu, csrc/scan.cu (nvcc) and csrc/hostio.cpp (g++), in parallel, into "
-          f"{swg_cuda.LIBRARY.library.parent.relative_to(ROOT)}/: {build_s:.1f} s", flush=True)
-    for m in (swg_cuda, scan_cuda):
+    print(f"# builds of csrc/swg.cu, csrc/scan.cu, csrc/viterbi.cu (nvcc) and csrc/hostio.cpp (g++), in parallel, "
+          f"into {swg_cuda.LIBRARY.library.parent.relative_to(ROOT)}/: {build_s:.1f} s", flush=True)
+    for m in (swg_cuda, scan_cuda, viterbi_cuda):
         print(f"# ptxas {m.LIBRARY.source.name}: {m.LIBRARY.ptxas_report()}", flush=True)
 
     t0 = time.perf_counter()
@@ -749,7 +956,7 @@ def main() -> int:
     _, prime_s = type_all(serotyper, assemblies, BATCH_SIZE)
     print(f"# priming pass: {N_ASSEMBLIES}/{N_ASSEMBLIES} correct in {prime_s:.2f} s", flush=True)
 
-    recorder = _BucketRecorder(pairwise.banded_swg)
+    recorder = _CallRecorder(pairwise.banded_swg)
     pairwise.banded_swg = recorder
     reset_phases()
     reset_metrics()
@@ -789,9 +996,10 @@ def main() -> int:
 
     checks = {}
     for gap_open, label in ((4, "extension"), (11, "protein")):
-        if gap_open not in recorder.buckets:
+        largest = recorder.largest_bucket(gap_open)
+        if largest is None:
             raise AssertionError(f"no {label} bucket was recorded in the measured pass")
-        _, args, kw = recorder.buckets[gap_open]
+        args, kw = largest
         checks[label] = _check_bucket(label, args, kw, "warp")
     # The wide form of the fill (bands a warp cannot hold): synthetic protein pairs.
     B, rows_max, w_pad = WIDE_FORM_BUCKET
@@ -806,7 +1014,7 @@ def main() -> int:
     os.environ["KAPTIVE_SEED_MODE"] = "device"
     _, prime_s = type_all(serotyper, assemblies, BATCH_SIZE)
     print(f"# device-seeded priming pass: {N_ASSEMBLIES}/{N_ASSEMBLIES} correct in {prime_s:.2f} s", flush=True)
-    scans = _ScanRecorder(mapper.rowcompact_scan)
+    scans = _CallRecorder(mapper.rowcompact_scan)
     mapper.rowcompact_scan = scans
     reset_phases()
     reset_metrics()
@@ -837,13 +1045,14 @@ def main() -> int:
           flush=True)
     phase_report(stream=sys.stdout)
     sys.stdout.flush()
-    if scans.largest is None:
+    if not scans.calls:
         raise AssertionError("no scan batch was recorded in the device-seeded pass")
-    scan_check = _check_scan(*scans.largest)
+    scan_check = _check_scan(*max((args for args, _ in scans.calls), key=lambda args: args[0].numel()))
 
     cli_walls = cli_phase(card, sources, assemblies, results)
     screen_rate = screen_phase(card, db, assemblies)
     cigar_check, cigar_launches = cigar_phase(serotyper, db, assemblies)
+    bgc = bgc_phase(card, db, assemblies)
 
     if opts.measure:
         measure(card)
@@ -880,13 +1089,25 @@ def main() -> int:
          "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],
          "bound_ms": cigar_check["bound_ms"], "bound_by": cigar_check["bound_by"], "library_ms": None,
          "planted_ms": cigar_check["planted_ms"]},
+        {"name": "gene_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
+         "replaces": "kaptive_tpu/bgc/genefinder.py:133", "launches": bgc["launches"]["viterbi.cuda.gene"],
+         "max_abs_err": bgc["gene"]["max_abs_err"], "ms": bgc["gene"]["ms"], "plain_ms": bgc["gene"]["plain_ms"],
+         "bound_ms": bgc["gene"]["bound_ms"], "bound_by": bgc["gene"]["bound_by"], "library_ms": None,
+         "chain_floor_ms": bgc["gene"]["chain_floor_ms"], "full_ms": bgc["gene"]["full_ms"],
+         "full_bound_ms": bgc["gene"]["full_bound_ms"], "full_chain_floor_ms": bgc["gene"]["full_chain_floor_ms"]},
+        {"name": "arch_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
+         "replaces": "kaptive_tpu/bgc/kernels.py:82", "launches": bgc["launches"]["viterbi.cuda.arch"],
+         "max_abs_err": bgc["arch"]["max_abs_err"], "ms": bgc["arch"]["ms"], "plain_ms": bgc["arch"]["plain_ms"],
+         "bound_ms": bgc["arch"]["bound_ms"], "bound_by": bgc["arch"]["bound_by"], "library_ms": None},
     ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
           f"protein bucket {prot['shape']} (B, rows_max, w_pad); wide_form_ms: the fill's wide form on "
           f"{wide['shape']}; launches: host-seeded measured pass (device-seeded pass: fill {dev_swg['fill']}, "
           f"traceback {dev_swg['traceback']}, scan {scan_launches}); scan on the batch {scan_check['shape']} "
           f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}, planted_ms: the planted bucket of that "
-          f"geometry; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"geometry; gene_viterbi on {BGC_WINDOWS} windows of each annotated assembly, both strands (plain on the "
+          f"CPU), full_ms on the clean assembly's two strands; arch_viterbi on the largest main-path launch (plain on "
+          f"the CPU); launches: BGC phase; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",
           flush=True)

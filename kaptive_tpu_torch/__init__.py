@@ -23,6 +23,11 @@ package so each counterpart is easy to find:
 - :mod:`kaptive_tpu_torch.serotyping` — the ``Serotyper`` twin.
 - :mod:`kaptive_tpu_torch.parallel.pipeline` — ``stream_type``;
   :mod:`kaptive_tpu_torch.parallel.screen` — screen mode's tallies and scores.
+- :mod:`kaptive_tpu_torch.bgc` — the BGC toolkit (annotator, gene HMM,
+  architectural predictor and trainer); :mod:`kaptive_tpu_torch.ops.viterbi`
+  holds its two Viterbi decodes' front doors and plain versions, and
+  :mod:`kaptive_tpu_torch.ops.viterbi_cuda` binds their Hopper kernels in
+  ``csrc/viterbi.cu``.
 
 - :mod:`kaptive_tpu_torch.core`, :mod:`kaptive_tpu_torch.db`,
   :mod:`kaptive_tpu_torch.compare`, the serotyping decision, result and

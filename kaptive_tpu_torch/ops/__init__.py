@@ -1,4 +1,5 @@
-r"""Device compute of the port: the banded SWG kernel family, the row-compact scan and the mapper.
+r"""Device compute of the port: the banded SWG kernel family, the row-compact scan, the mapper
+and the BGC toolkit's Viterbi decodes.
 
 - :mod:`kaptive_tpu_torch.ops.swg` — ``banded_swg`` front door, shape lattice
   and bucket planner, and the plain PyTorch fill + traceback.
@@ -12,4 +13,8 @@ r"""Device compute of the port: the banded SWG kernel family, the row-compact sc
   and upload packing.
 - :mod:`kaptive_tpu_torch.ops.mapper` — host- and device-seeded seeding,
   chaining and the batched extension DP.
+- :mod:`kaptive_tpu_torch.ops.viterbi` — the gene-HMM and architectural
+  Viterbi front doors and plain PyTorch versions;
+  :mod:`kaptive_tpu_torch.ops.viterbi_cuda` binds their Hopper kernels
+  (``csrc/viterbi.cu``).
 """

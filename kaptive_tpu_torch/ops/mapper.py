@@ -1022,41 +1022,94 @@ def collect_extension_dp_device(pending) -> tuple[PairwiseAlignments, Cigars | N
     return collect_buckets(*pending)
 
 
+# Bytes live for each scan slot (a 128-position row holds SLOTS of them) at the
+# peak of one genome's device seeding, the fold's compaction in
+# match_rows_batch: the scan's int32 hashes and aux (8), their int64 forms
+# (16), the rank, slot and selected-value temporaries of compact_lanes (24),
+# its two int64 outputs at half width (8), the bool masks and the broadcast
+# row index (~10).
+_SLOT_BYTES = 66
+# Bytes for each slot of the fixed-capacity candidate and anchor lists: the
+# ~20 int64 columns that matching and the five chain sorts keep at once.
+_ENTRY_BYTES = 160
+
+
+def genome_footprint(L: int) -> int:
+    r"""Device bytes that scan, match and chain need for one genome of padded stream length ``L``."""
+    rows = (L + 2 * PAD_POS) // ROW
+    return rows * (ROW + SLOTS * _SLOT_BYTES) + (CANDIDATE_CAP + ANCHOR_CAP) * _ENTRY_BYTES
+
+
+def seeding_chunk(L: int, n_genomes: int, device: torch.device) -> int:
+    r"""Genomes a device-seeding chunk holds: half the card's free memory over
+    :func:`genome_footprint`, at least 1; the whole batch on the CPU.
+
+    The other half is left for the flattened stream of the batch, the
+    extension DP and the caching allocator's slack.
+    """
+    if device.type != "cuda":
+        return max(n_genomes, 1)
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(n_genomes, free // 2 // genome_footprint(L)))
+
+
 def _map_genes_device_seeded(
     gene_index: GeneIndex, genomes: list, indexes: list,
     gene_names: tuple[str, ...], params: MapperParams, device: torch.device,
+    chunk: int | None = None,
 ) -> list[Alignments]:
-    r"""Device-seeded mapping of a batch: one scan / match / chain pass over
-    every genome, one copy back of counts and chain prefixes, host checks and
-    extension specs, one extension-DP sweep, one copy back of its results.
+    r"""Device-seeded mapping of a batch: unpack, scan, match and chain in
+    chunks of ``chunk`` genomes (:func:`seeding_chunk` when not given), one
+    copy back of counts and chain prefixes, host checks and extension specs,
+    one extension-DP sweep over the whole batch's flattened stream, one copy
+    back of its results.
 
-    A genome whose scan row, fold row, candidate, anchor or chain buffer
-    overflowed is seeded on the host (:func:`find_anchors` + :func:`chain_anchors`),
-    counted under ``map.host_fallback.<cause>`` and ``map.host_chained``; the
-    others under ``map.device_chained``.  Either way its extension problems
-    are gathered from the device stream.
+    Device memory of the seeding stages is bounded by one chunk whatever the
+    batch, as the JAX package's fixed chunks bound it (``SCAN_CHUNK``); the
+    alignments do not depend on the chunk size.  A genome whose scan row,
+    fold row, candidate, anchor or chain buffer overflowed is seeded on the
+    host (:func:`find_anchors` + :func:`chain_anchors`), counted under
+    ``map.host_fallback.<cause>`` and ``map.host_chained``; the others under
+    ``map.device_chained``.  Either way its extension problems are gathered
+    from the device stream.
     """
     n_genomes = len(genomes)
     k, w = gene_index.k, gene_index.w
     L = max(int(ci.codes.shape[0]) for ci in indexes)
-    with phase_timer("map.pack_upload"):
-        padded, starts = _batch_codes(indexes, L, device)
-        flat_codes = padded.reshape(-1)
-    with phase_timer("map.scan_match"):
-        h, a, c = rowcompact_scan(padded, k, w)
-        bucket_starts, run_len, iters = gene_index.device_lookup(device)
-        anchors, match_counts = match_rows_batch(
-            h, a, c, *gene_index.device_table(device), bucket_starts, run_len,
-            gene_index.device_bloom(device),
-            cap_cand=CANDIDATE_CAP, cap_anchors=ANCHOR_CAP, lookup_iters=iters,
-            max_occ=min(params.max_occ, DEVICE_MAX_OCC),
-        )
-        chains_d, counts_d = chain_batch(
-            anchors, match_counts, starts,
-            gene_index.device_gene_lengths(device),
-            k=k, cap_chains=CHAIN_CAP, max_diag_drift=params.max_diag_drift,
-            max_anchor_gap=params.max_anchor_gap, min_anchors=params.min_anchors,
-        )
+    chunk = chunk or seeding_chunk(L, n_genomes, device)
+    bucket_starts, run_len, iters = gene_index.device_lookup(device)
+    padded, chain_parts, count_parts = None, [], []
+    for lo in range(0, n_genomes, chunk):
+        hi = min(lo + chunk, n_genomes)
+        with phase_timer("map.pack_upload"):
+            codes, starts = _batch_codes(indexes[lo:hi], L, device)
+            if hi - lo == n_genomes:
+                padded = codes
+            else:
+                if padded is None:
+                    padded = codes.new_empty((n_genomes, *codes.shape[1:]))
+                padded[lo:hi] = codes
+                del codes
+        with phase_timer("map.scan_match"):
+            h, a, c = rowcompact_scan(padded[lo:hi], k, w)
+            anchors, match_counts = match_rows_batch(
+                h, a, c, *gene_index.device_table(device), bucket_starts, run_len,
+                gene_index.device_bloom(device),
+                cap_cand=CANDIDATE_CAP, cap_anchors=ANCHOR_CAP, lookup_iters=iters,
+                max_occ=min(params.max_occ, DEVICE_MAX_OCC),
+            )
+            del h, a, c
+            chains_d, counts_d = chain_batch(
+                anchors, match_counts, starts,
+                gene_index.device_gene_lengths(device),
+                k=k, cap_chains=CHAIN_CAP, max_diag_drift=params.max_diag_drift,
+                max_anchor_gap=params.max_anchor_gap, min_anchors=params.min_anchors,
+            )
+            del anchors, match_counts
+            chain_parts.append(chains_d)
+            count_parts.append(counts_d)
+    flat_codes = padded.reshape(-1)
+    chains_d, counts_d = torch.cat(chain_parts), torch.cat(count_parts, 1)
     with phase_timer("map.scan_sync"):
         prefix = min(CHAIN_PREFIX, CHAIN_CAP)
         pulled = torch.cat([counts_d.reshape(-1), chains_d[:, :, :prefix].reshape(-1)]).cpu().numpy()
@@ -1153,3 +1206,19 @@ def map_genes_batch(
         return _map_genes_device_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
     return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, device)
 
+
+def map_genes(
+    gene_index: GeneIndex,
+    genome: GenomeAssembly,
+    gene_names: tuple[str, ...],
+    params: MapperParams | None = None,
+    *,
+    seed_mode: str | None = None,
+    device: str | torch.device = "cuda",
+) -> Alignments:
+    r"""Map every DB gene against one assembly's contigs: :func:`map_genes_batch` on
+    a batch of one (the JAX package's ``map_genes``).
+
+    q_names are the DB gene indices as strings and t_names the contig names.
+    """
+    return map_genes_batch(gene_index, [genome], gene_names, params, seed_mode=seed_mode, device=device)[0]

@@ -66,9 +66,9 @@ class Serotyper:
         min_completeness: float = 0.5,
         allow_below_threshold: bool = False,
         mapper_params: MapperParams | None = None,
+        *,
         min_gene_coverage: float = 0.20,
         partial_edge_tolerance: int = 5,
-        *,
         device: str | torch.device = "cuda",
     ) -> None:
         if not isinstance(db, Database):

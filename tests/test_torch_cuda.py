@@ -1,4 +1,5 @@
-"""Hopper kernels (banded SWG, CIGAR traceback, row-compact scan) vs their plain PyTorch versions, on the card.
+"""Hopper kernels (banded SWG, CIGAR traceback, row-compact scan, gene and architectural Viterbi)
+vs their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file imports
 only torch, numpy and the port; ``tests/conftest.py`` imports jax and sets it
@@ -11,6 +12,12 @@ traceback's whole ``ops`` buffers, ``n_ops`` and ``overflow`` too.  The scan's
 ``hashes``, ``aux`` and ``counts`` must be equal.  The screen's ``best`` and
 tallies on the card equal the CPU's exactly, its float32 ``weighted`` scores
 to ``rtol=1e-6``; the CLI on the card writes the in-process rows' bytes.
+The Viterbi kernels' states, paths and scores equal the plain forms' (run on
+the CPU); the BGC toolkit on the card equals its CPU path except for the
+predictions' scores, held to ``rtol=1e-5`` (the emissions' matrix product
+sums in another order).  Device seeding in chunks: its peak memory at stream
+batches 8 and 32 differs by less than one chunk's worth, and a batch of 64
+maps to the same alignments in chunks of 5.
 """
 
 import numpy as np
@@ -413,3 +420,224 @@ def test_cli_on_card_equals_in_process_rows(scan_device, tmp_path):
         )
         assert proc.returncode == 0, proc.stderr.decode()[-3000:]
         assert out.read_bytes() == want, mode
+
+
+# --- BGC: the gene-HMM and architectural Viterbi kernels ---------------------
+
+
+@pytest.fixture(scope="module")
+def viterbi_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kaptive_tpu_torch.ops import viterbi_cuda
+
+    viterbi_cuda.build()
+    print(f"viterbi.cu ptxas: {viterbi_cuda.LIBRARY.ptxas_report()}")
+    return torch.device("cuda", 0)
+
+
+def _gene_kernel_equals_plain(device, chains, params):
+    """Gene decode of ``gene_chains``' output on the card and with the plain form on the CPU: equal states."""
+    from kaptive_tpu_torch.ops.viterbi import gene_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import gene_viterbi_cuda
+
+    strands, *arrays = chains
+    got = gene_viterbi_cuda(*(torch.from_numpy(a).to(device) for a in arrays),
+                            indel=params.indel, ins_extend=params.ins_extend)
+    want = gene_viterbi_plain(*(torch.from_numpy(a) for a in arrays), indel=params.indel,
+                              ins_extend=params.ins_extend)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got.cpu(), want)
+    return want.numpy(), strands
+
+
+@pytest.mark.parametrize("length", [3000, 12000, 60000])
+def test_gene_kernel_equals_plain_at_padded_lengths(viterbi_device, length):
+    """Random contigs padded to 4 Ki, 16 Ki and 64 Ki positions, both strands, uniform emissions
+    (random DNA is all stop-free runs to the uniform model, so the decode is dense with genes)."""
+    from synthetic import random_dna
+    from viterbi_panels import gene_chains
+
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams
+
+    params = GeneHmmParams.uniform()
+    states, strands = _gene_kernel_equals_plain(viterbi_device, gene_chains(
+        [random_dna(np.random.default_rng(length), length)], params), params)
+    assert len(states) == 2 * {3000: 4096, 12000: 16384, 60000: 65536}[length]
+    assert (states != 0).any()
+
+
+def test_gene_kernel_equals_plain_on_a_mixed_batch(viterbi_device):
+    """Every gene-finder panel, the truncation panels padded and unpadded, and odd lengths, in one launch."""
+    from unittest import mock
+
+    from synthetic import random_dna
+    from viterbi_panels import gene_chains, gene_panels, truncation_panels
+
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams
+    from kaptive_tpu_torch.ops import minimizer
+
+    params = GeneHmmParams.uniform(coding_bonus=0.40)
+    rng = np.random.default_rng(7)
+    contigs = [*gene_panels().values(), *truncation_panels().values(), random_dna(rng, 20000)]
+    with mock.patch.object(minimizer, "bucket_length", lambda n, minimum=0: n):
+        odd = gene_chains([*truncation_panels().values(), random_dna(rng, 129), random_dna(rng, 3)], params)
+    padded = gene_chains(contigs, params)
+    strands = padded[0] + odd[0]
+    arrays = [np.concatenate([a, b]) for a, b in zip(padded[1:4], odd[1:4])]
+    offsets = np.concatenate([padded[4], odd[4][1:] + padded[4][-1]])
+    states, _ = _gene_kernel_equals_plain(viterbi_device, (strands, *arrays, offsets), params)
+    assert len({int(b - a) for a, b in zip(offsets[:-1], offsets[1:])}) > 8
+
+
+def test_gene_kernel_ends_in_a_coding_state_in_the_pad_tail(viterbi_device):
+    """A gene cut by the contig end: the best path runs coding through the pad to the last position."""
+    from viterbi_panels import gene_chains, truncation_panels
+
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams
+
+    params = GeneHmmParams.uniform(coding_bonus=0.40)
+    chains = gene_chains([truncation_panels()["cut0"]], params)
+    states, strands = _gene_kernel_equals_plain(viterbi_device, chains, params)
+    fwd = states[: len(chains[1]) // 2]
+    assert fwd[-1] != 0 and (fwd[len(strands[0].codes):] != 0).all()
+
+
+def test_gene_front_door_and_find_genes_on_card(viterbi_device):
+    from viterbi_panels import gene_panels, gene_training_set
+
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams, find_genes_hmm_batch
+    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    params = GeneHmmParams.from_sequences(Sequences.from_bytes(gene_training_set()))
+    contigs = list(gene_panels().values())
+    reset_metrics()
+    got = find_genes_hmm_batch(contigs, params, 50, device="cuda")
+    counts = snapshot()
+    assert counts.get("viterbi.cuda.gene") == 1 and "viterbi.plain.gene" not in counts
+    assert got == find_genes_hmm_batch(contigs, params, 50, device="cpu")
+    assert all(got)
+
+
+@pytest.mark.parametrize("n_states", [3, 8, 28])
+def test_arch_kernel_equals_plain(viterbi_device, n_states):
+    """Ragged contigs of 1 to 2,000 ORF rows in one launch: paths and scores equal."""
+    from viterbi_panels import arch_panel
+
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
+
+    em, trans, offsets = arch_panel(np.random.default_rng(n_states), [1, 2, 17, 300, 2000], n_states)
+    args = [torch.from_numpy(a) for a in (em, trans, offsets)]
+    paths, scores = arch_viterbi_cuda(*(a.to(viterbi_device) for a in args))
+    want_paths, want_scores = arch_viterbi_plain(*args)
+    torch.cuda.synchronize()
+    assert paths.dtype == torch.int32 and torch.equal(paths.cpu(), want_paths)
+    assert torch.equal(scores.cpu(), want_scores)
+    assert int(paths.max()) == n_states - 1 and int(paths.min()) >= 0
+
+
+def test_bgc_annotate_and_predict_on_card_equal_cpu(viterbi_device, tmp_path):
+    """The BGC toolkit on the card (gene decode, aligned hits, emissions, architectural decode)
+    equals its CPU path: Genes, BED bytes, alignments, and predictions (scores to rtol 1e-5:
+    the emissions' matrix product sums in another order on the card)."""
+    import io
+
+    from torch_synthetic import make_synthetic_db, random_dna
+
+    from kaptive_tpu_torch.bgc import Annotator, ArchitecturalPredictor, ArchitecturalTrainer
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.db import Database
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    rng = np.random.default_rng(17)
+    gbk, truth = make_synthetic_db(tmp_path, rng, n_loci=3, genes_per_locus=6)
+    db = Database.from_genbank(gbk)
+    fasta = b">c1\n%s\n>c2\n%s\n" % (random_dna(rng, 3000) + truth["loci"]["KL2"]["seq"] + random_dna(rng, 3000),
+                                     random_dna(rng, 5000))
+    model = ArchitecturalTrainer(num_archetypes=5, feature_dim=256).train(
+        [db.get_locus_data(n) for n in ("KL1", "KL2", "KL3")])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        reset_metrics()
+        annotation = Annotator(db, align=True, device=dev)(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))
+        predicted = ArchitecturalPredictor(model, device=dev).predict(annotation)
+        annotation.write_bed(tmp_path / f"{dev}.bed", hits_only=False)
+        out[dev] = (annotation, predicted, (tmp_path / f"{dev}.bed").read_bytes(), snapshot())
+    (a_cpu, p_cpu, bed_cpu, _), (a_gpu, p_gpu, bed_gpu, counts) = out["cpu"], out["cuda"]
+    assert bed_gpu == bed_cpu and len(a_gpu.genes) > 0
+    np.testing.assert_array_equal(a_gpu.alignments.scores, a_cpu.alignments.scores)
+    assert any("KL2" in str(n) for n in a_gpu.top_hit_names[a_gpu.hits_mask])
+    for name in ("contig_names", "offsets", "lengths", "member_orfs", "member_states"):
+        np.testing.assert_array_equal(getattr(p_gpu, name), getattr(p_cpu, name))
+    np.testing.assert_allclose(p_gpu.scores, p_cpu.scores, rtol=1e-5)
+    for name in ("viterbi.cuda.gene", "viterbi.cuda.arch", "swg.cuda.fill", "swg.cuda.traceback"):
+        assert counts.get(name, 0) > 0, name
+    assert not any(".plain." in name for name in counts)
+
+
+# --- F1: device seeding in chunks of the batch -------------------------------
+
+
+@pytest.fixture(scope="module")
+def seeding_batch(scan_device, tmp_path_factory):
+    """A typing database and 64 assemblies of ~0.5 Mb, each with a planted locus;
+    one assembly is seeded first so that the database's tables are resident."""
+    import io
+
+    from torch_synthetic import make_genome_from_locus, make_synthetic_db
+
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.db import Database
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+
+    rng = np.random.default_rng(64)
+    gbk, truth = make_synthetic_db(tmp_path_factory.mktemp("seeding"), rng, n_loci=4)
+    db = Database.from_genbank(gbk)
+    loci = list(truth["loci"])
+    genomes = [GenomeAssembly.from_stream(io.BytesIO(make_genome_from_locus(rng, truth, loci[i % len(loci)],
+                                                                             flank=250_000)), f"g{i}")
+               for i in range(64)]
+    indexes = [ContigIndex.build(g.contigs) for g in genomes]
+    _seed_peak(db, genomes[:1], indexes[:1], None)
+    return db, genomes, indexes
+
+
+def _seed_peak(db, genomes, indexes, chunk):
+    from kaptive_tpu_torch.ops.mapper import MapperParams, _map_genes_device_seeded
+
+    names = tuple(str(i) for i in range(len(db.genes)))
+    gi = db.gene_index
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = _map_genes_device_seeded(gi, genomes, indexes, names, MapperParams(), torch.device("cuda", 0),
+                                   chunk=chunk)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.parametrize("chunk", [None, 4])
+def test_seeding_peak_memory_does_not_grow_past_one_chunk(seeding_batch, chunk):
+    from kaptive_tpu_torch.ops.mapper import genome_footprint, seeding_chunk
+
+    db, genomes, indexes = seeding_batch
+    L = max(len(ci.codes) for ci in indexes)
+    _, peak8 = _seed_peak(db, genomes[:8], indexes[:8], chunk)
+    _, peak32 = _seed_peak(db, genomes[:32], indexes[:32], chunk)
+    per_chunk = (chunk or seeding_chunk(L, 32, torch.device("cuda", 0))) * genome_footprint(L)
+    print(f"chunk {chunk}: peak {peak8 / 1e6:.1f} MB at batch 8, {peak32 / 1e6:.1f} MB at batch 32, "
+          f"one chunk's worth {per_chunk / 1e6:.1f} MB")
+    assert peak32 - peak8 < per_chunk
+
+
+def test_seeding_batch_of_64_completes_and_chunks_agree(seeding_batch):
+    from typing_panel import assert_same
+
+    db, genomes, indexes = seeding_batch
+    whole, _ = _seed_peak(db, genomes, indexes, None)
+    chunked, _ = _seed_peak(db, genomes, indexes, 5)
+    assert len(whole) == 64 and all(len(a) > 0 for a in whole)
+    for got, want in zip(chunked, whole, strict=True):
+        assert_same(got, want)

@@ -2,8 +2,9 @@
 
 A subprocess imports the port, makes a database with the port's own GenBank
 writer, types one small genome on the CPU in host- and in device-seeded mode,
-runs the port's command line (``type``, ``convert`` and ``db``) on it and
-checks that no ``kaptive_tpu``, ``kaptive_tpu.*`` or ``jax*`` module is in
+runs the port's command line (``type``, ``convert`` and ``db``) on it,
+annotates it with the BGC toolkit (gene HMM, aligned hits), trains an
+architectural model on the database's loci and predicts on it, and checks that no ``kaptive_tpu``, ``kaptive_tpu.*`` or ``jax*`` module is in
 ``sys.modules`` — once with every such import blocked in the meta-path finder
 (a machine that has neither) and once with all of them importable (as on the
 GPU machine, where jax and the JAX package are installed but must stay
@@ -48,6 +49,7 @@ torch.set_num_threads(1)  # the test runs beside other test processes
 
 import kaptive_tpu_torch.ops.swg_cuda  # noqa: F401  (the bindings import without a build)
 import kaptive_tpu_torch.ops.scan_cuda  # noqa: F401
+import kaptive_tpu_torch.ops.viterbi_cuda  # noqa: F401
 from kaptive_tpu_torch.core.genome import GenomeAssembly
 from kaptive_tpu_torch.db import Database
 from kaptive_tpu_torch.parallel import stream_type
@@ -85,11 +87,21 @@ with contextlib.redirect_stdout(shown):
 shown.flush()
 db_metadata = b"Testus syntheticus" in shown.buffer.getvalue()
 shutil.rmtree(tmp)
+
+from kaptive_tpu_torch.bgc import Annotator, ArchitecturalPredictor, ArchitecturalTrainer
+
+annotation = Annotator(db, align=True, device="cpu")(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))
+model = ArchitecturalTrainer(num_archetypes=3, feature_dim=128).train(
+    [db.get_locus_data(name) for name in ("KL1", "KL2", "KL3")])
+predicted = ArchitecturalPredictor(model, device="cpu").predict(annotation)
+bgc_hits = sum("KL2" in str(name) for name in annotation.top_hit_names[annotation.hits_mask])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 print(json.dumps({"locus": result.best_locus_name, "streamed": streamed[0].best_locus_name,
                   "row_bytes": len(row), "device_rows_equal": device_rows == [row, bytes(KaptiveRow.from_result(streamed[0]))],
                   "cli_rows_equal": cli_rows == row.splitlines(), "converted": converted,
-                  "db_metadata": db_metadata, "foreign_modules": loaded}))
+                  "db_metadata": db_metadata, "bgc_genes": len(annotation.genes), "bgc_hits": bgc_hits,
+                  "bgc_aligned": annotation.alignments is not None, "bgc_loci": len(predicted),
+                  "foreign_modules": loaded}))
 """
 
 
@@ -107,6 +119,7 @@ def test_port_types_without_jax(jax_import):
     assert out["row_bytes"] > 0
     assert out["device_rows_equal"]
     assert out["cli_rows_equal"] and out["converted"] and out["db_metadata"]
+    assert out["bgc_genes"] > 0 and out["bgc_hits"] > 0 and out["bgc_aligned"]
 
 
 _FOREIGN_IMPORT = re.compile(r"^\s*(from|import) +(kaptive_tpu|jax|jaxlib)(\.|\s|$)", re.M)
@@ -115,6 +128,8 @@ _FOREIGN_IMPORT = re.compile(r"^\s*(from|import) +(kaptive_tpu|jax|jaxlib)(\.|\s
 def test_no_source_file_imports_the_jax_package():
     sources = [*sorted((ROOT / "kaptive_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(sources) > 40
+    bgc = {p.name for p in sources if p.parent.name == "bgc"}
+    assert bgc == {p.name for p in (ROOT / "kaptive_tpu" / "bgc").glob("*.py")}  # every module of the BGC toolkit
     offenders = {str(p.relative_to(ROOT)): _FOREIGN_IMPORT.findall(p.read_text()) for p in sources}
     assert {name: hits for name, hits in offenders.items() if hits} == {}
     assert not (ROOT / "kaptive_tpu_torch" / "_reuse.py").exists()

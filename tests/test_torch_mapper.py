@@ -186,6 +186,48 @@ def test_map_genes_batch_device_mode_equals_jax_and_host(panel, jax_device_align
         assert_same(g, h)
 
 
+@pytest.mark.parametrize("chunk", [1, 3, 4])
+def test_device_seeding_chunks_give_the_same_alignments(panel, jax_device_alignments, chunk):
+    """Scan, match and chain run in chunks of the batch: any chunk size gives the unchunked alignments."""
+    from kaptive_tpu_torch.ops.mapper import MapperParams, _map_genes_device_seeded
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    assemblies = [*panel.assemblies, panel.assemblies[0]][:4]
+    want = [*jax_device_alignments, jax_device_alignments[0]][:4]
+    indexes = [ContigIndex.build(ga.contigs) for ga in assemblies]
+    reset_metrics()
+    got = _map_genes_device_seeded(panel.db.gene_index, assemblies, indexes, panel.gene_names,
+                                   MapperParams(), torch.device("cpu"), chunk=chunk)
+    counts = snapshot()
+    assert counts.get("scan.plain.rowcompact") == -(-4 // chunk)
+    assert counts.get("map.device_chained") == 4
+    for g, w in zip(got, want, strict=True):
+        assert len(w) > 0
+        assert_same(g, w)
+
+
+def test_seeding_chunk_is_the_whole_batch_on_the_cpu():
+    from kaptive_tpu_torch.ops.mapper import genome_footprint, seeding_chunk
+
+    assert seeding_chunk(1 << 20, 7, torch.device("cpu")) == 7
+    assert genome_footprint(1 << 21) > genome_footprint(1 << 20) > genome_footprint(0) > 0
+
+
+@pytest.mark.parametrize("seed_mode", ["host", "device"])
+def test_map_genes_is_map_genes_batch_on_one_genome(panel, seed_mode):
+    from kaptive_tpu.ops.mapper import map_genes as jax_map_genes
+
+    from kaptive_tpu_torch.ops.mapper import map_genes, map_genes_batch
+
+    ga, jax_ga = panel.assemblies[1], panel.jax_assemblies[1]
+    got = map_genes(panel.db.gene_index, ga, panel.gene_names, seed_mode=seed_mode, device="cpu")
+    want = map_genes_batch(panel.db.gene_index, [ga], panel.gene_names, seed_mode=seed_mode, device="cpu")[0]
+    assert len(got) > 0
+    assert_same(got, want)
+    assert_same(got, jax_map_genes(panel.jax_db.gene_index, jax_ga, panel.gene_names))
+
+
 def _with_insert(fasta: bytes, at: int, insert: bytes) -> bytes:
     header, seq = fasta.split(b"\n", 1)
     return header + b"\n" + seq[:at] + insert + seq[at:]

@@ -133,6 +133,26 @@ def test_serotyper_refuses_a_jax_database(panel):
         Serotyper(panel[0], device="cpu")
 
 
+def test_serotyper_options_after_mapper_params_are_keyword_only(panel):
+    """The JAX ``Serotyper`` has ``scoring_metric`` sixth; the port has no such option, so a
+    positional call in the JAX order raises instead of landing in ``min_gene_coverage``."""
+    import inspect
+
+    from kaptive_tpu.serotyping import Serotyper as JaxSerotyper
+
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    assert list(inspect.signature(JaxSerotyper.__init__).parameters)[5:7] == ["mapper_params", "scoring_metric"]
+    with pytest.raises(TypeError):
+        Serotyper(panel[2], 1, 0.5, False, None, "identity", device="cpu")
+    with pytest.raises(TypeError):
+        Serotyper(panel[2], 1, 0.5, False, None, 0.3, device="cpu")
+    serotyper = Serotyper(panel[2], 2, 0.6, True, None, min_gene_coverage=0.3, partial_edge_tolerance=7,
+                          device="cpu")
+    assert (serotyper.max_other_genes, serotyper.min_completeness, serotyper.allow_below_threshold,
+            serotyper.min_gene_coverage, serotyper.partial_edge_tolerance) == (2, 0.6, True, 0.3, 7)
+
+
 def _rows(results, row=KaptiveRow):
     return [bytes(row.from_result(r)) for r in results]
 
