@@ -72,11 +72,13 @@ module of either was loaded).  Steps:
     set to 0 just before and read just after: the gene and architectural
     Viterbi kernels and the SWG kernels must have launched, no plain form, and
     at least half the planted locus's genes must be among each assembly's top
-    hits.  The gene kernel is held to its plain form (on the CPU) on
-    ``BGC_WINDOWS`` windows of 2-16 kb of each assembly, both strands, and
-    timed there and on the clean assembly's two full strands; the
-    architectural kernel is held to its plain form on every emission matrix
-    of the main path and timed on the largest.  Annotate + predict of a
+    hits.  The gene kernel is held to its plain form (on the CPU, one
+    thread) on both launches of the main path, whole: the clean assembly's
+    two strands of 5,767,168 padded steps and the draft assembly's 48
+    strands; then on ``BGC_WINDOWS`` windows of 2-16 kb of each assembly,
+    both strands.  Each is timed.  The architectural kernel is held to its
+    plain form on every emission matrix of the main path and timed on the
+    largest.  Annotate + predict of a
     window of at most 60 kb around the planted locus on the card must equal
     the CPU path: BED bytes, alignments, predictions (scores to rtol 1e-5).
 
@@ -107,9 +109,10 @@ card's int32 rate, taken as a quarter of its 67 TFLOP/s float32 rate (half
 the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
 PyTorch call computes any of the six functions, so ``library_ms`` is null.
 The two Viterbi kernels are float32 work: their operations are counted
-against the 67 TFLOP/s float32 rate, and the gene kernel also prints the
-floor its serial chain of steps sets (``chain_floor_ms``, reckoned at
-``GENE_CHAIN_CYCLES`` cycles a step at the card's boost clock).
+against the 67 TFLOP/s float32 rate, and their bytes are the function's own
+inputs and outputs (no scratch of the kernel).  A ``#`` line also prints an
+estimate, not a measurement, of the floor the gene decode's serial chain of
+steps sets (``GENE_CHAIN_CYCLES`` cycles a step at the card's boost clock).
 """
 
 from __future__ import annotations
@@ -144,8 +147,8 @@ SCAN_ROWS = 45056  # scan rows of one bucket-padded 5.3 Mb assembly
 FLOAT32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
 GENE_OPS_PER_STEP = 43  # float32 operations of a gene-HMM step: 12 adds, 10 picks, the codon add, 7 clamps, 6 maxima, 7 subtracts
-GENE_BYTES_PER_STEP = 21  # 12 bytes in, a 4-byte backpointer word written and read back, a state byte out
-GENE_CHAIN_CYCLES = 40  # ~10 dependent float32 operations of ~4 cycles on a step's critical path
+GENE_BYTES_PER_STEP = 13  # 12 bytes in (codon emission, entry and exit scores), a state byte out
+GENE_CHAIN_CYCLES = 40  # estimate: ~10 dependent float32 operations of ~4 cycles on a step's critical path
 BGC_WINDOWS = 32  # windows cut from each of the two annotated assemblies for the gene kernel's check
 BGC_WINDOW_SPAN = (2000, 16000)  # their lengths, bases
 BGC_CPU_CONTIG = 60000  # the longest contig the BGC phase's CPU check decodes
@@ -547,19 +550,45 @@ def _planted_cigar_bucket() -> dict:
 
 
 def _gene_bound(offsets) -> dict:
-    """The gene decode's bound over the chains that ``offsets`` bounds, and the floor its serial chain sets."""
-    lengths = (offsets[1:] - offsets[:-1]).cpu()
-    steps = int(lengths.sum())
-    by_bytes, by_ops = steps * GENE_BYTES_PER_STEP / HBM_BYTES_PER_S * 1e3, steps * GENE_OPS_PER_STEP / FLOAT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "chain_floor_ms": int(lengths.max()) * GENE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3, "steps": steps}
+    """The gene decode's bound over the chains that ``offsets`` bounds: the three inputs read
+    and the states written once, the offsets read."""
+    steps = int(offsets[-1])
+    n_bytes = steps * GENE_BYTES_PER_STEP + 8 * len(offsets)
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, steps * GENE_OPS_PER_STEP / FLOAT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def _check_gene_launch(label: str, args, kw, card: str, reps: int) -> dict:
+    """Gene kernel vs its plain form (on the CPU, one thread) on one launch's inputs: the states
+    must be equal.  Prints the shapes compared; returns times, bound and the largest difference."""
+    from kaptive_tpu_torch.ops.viterbi import gene_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import gene_viterbi_cuda
+
+    got = gene_viterbi_cuda(*args, **kw).cpu()
+    on_cpu = [a.cpu() for a in args]
+    want, plain_s = _cpu_seconds(lambda: gene_viterbi_plain(*on_cpu, **kw))
+    err = int((got.int() - want.int()).abs().max()) if got.shape == want.shape and len(got) else 0
+    if got.shape != want.shape or err:
+        raise AssertionError(f"gene Viterbi kernel and plain form differ on {label} (max |diff| {err}, "
+                             f"shapes {tuple(got.shape)} and {tuple(want.shape)})")
+    check = {"max_abs_err": err, "ms": _timed(lambda: gene_viterbi_cuda(*args, **kw), reps),
+             "plain_ms": plain_s * 1e3, **_gene_bound(on_cpu[3])}
+    lengths = on_cpu[3][1:] - on_cpu[3][:-1]
+    print(f"# gene Viterbi, {label}: {len(lengths)} strands of {int(lengths.min())}-{int(lengths.max())} padded "
+          f"steps, {int(lengths.sum())} in all, in one launch: kernel == plain (states, max |diff| 0); kernel "
+          f"{check['ms']:.4f} ms, plain (CPU, one thread) {check['plain_ms']:.1f} ms; bound {check['bound_ms']:.5f} ms "
+          f"by {check['bound_by']} [{card}]", flush=True)
+    print(f"#   estimate, not measured: a serial chain of {GENE_CHAIN_CYCLES} cycles a step at "
+          f"{SM_CLOCK_HZ / 1e9:.2f} GHz would take {int(lengths.max()) * GENE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.3f} "
+          f"ms for the longest strand", flush=True)
+    return check
 
 
 def _arch_bound(emissions, offsets) -> dict:
-    """The architectural decode's bound: emissions, transitions and paths moved once, a byte of
-    backpointer a row and state written and read; an add and a compare a row, state and predecessor."""
+    """The architectural decode's bound: emissions, transitions and offsets read once, paths and
+    scores written once; an add and a compare a row, state and predecessor."""
     rows, S = emissions.shape
-    n_bytes = rows * S * 4 + S * S * 4 + rows * 4 + 4 * (len(offsets) - 1) + 2 * rows * S
+    n_bytes = rows * S * 4 + S * S * 4 + 8 * len(offsets) + rows * 4 + 4 * (len(offsets) - 1)
     by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, 2 * rows * S * S / FLOAT32_OPS_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
@@ -629,8 +658,8 @@ def bgc_phase(card: str, db, assemblies) -> dict:
     from kaptive_tpu_torch.bgc import genefinder
     from kaptive_tpu_torch.bgc import kernels as bgc_kernels
     from kaptive_tpu_torch.core.genome import GenomeAssembly
-    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain, gene_viterbi_plain
-    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda, gene_viterbi_cuda
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     picked = [next(a for a in assemblies if a[2] == kind) for kind in ("clean", "draft")]
@@ -679,46 +708,41 @@ def bgc_phase(card: str, db, assemblies) -> dict:
     print(f"# BGC launches in the main path: {dict((k, counts.get(k, 0)) for k in kernels)}, plain versions 0",
           flush=True)
 
-    # Kernel 1 against its plain form on the CPU: windows of both assemblies, both strands.
+    # Kernel 1 against its plain form on the CPU: both launches of the main path, whole, then
+    # windows of both assemblies, both strands.
+    if len(genes_rec.calls) != len(picked):
+        raise AssertionError(f"{len(genes_rec.calls)} gene decode launches for {len(picked)} assemblies")
+    gene = {kind: _check_gene_launch(f"the {kind} assembly's launch", *call, card, reps=3)
+            for (_, _, kind, _), call in zip(picked, genes_rec.calls)}
     windows = _gene_windows(np.random.default_rng(SEED), annotator, [a[3] for a in picked])
     hmm = dict(indel=annotator._hmm_params.indel, ins_extend=annotator._hmm_params.ins_extend)
-    on_card = [w.cuda() for w in windows]
-    got = gene_viterbi_cuda(*on_card, **hmm).cpu()
-    want, plain_s = _cpu_seconds(lambda: gene_viterbi_plain(*windows, **hmm))
-    gene_err = int((got.int() - want.int()).abs().max())
-    if gene_err:
-        raise AssertionError(f"gene Viterbi kernel and plain form differ on the windows (max |diff| {gene_err})")
-    gene = {"max_abs_err": gene_err, "ms": _timed(lambda: gene_viterbi_cuda(*on_card, **hmm), 5),
-            "plain_ms": plain_s * 1e3, **_gene_bound(windows[3])}
-    args, kw = genes_rec.calls[0]
-    gene["full_ms"] = _timed(lambda: gene_viterbi_cuda(*args, **kw), 3)
-    full = _gene_bound(args[3])
-    gene.update(full_bound_ms=full["bound_ms"], full_chain_floor_ms=full["chain_floor_ms"], full_steps=full["steps"])
-    n_chains = len(windows[3]) - 1
-    print(f"# gene Viterbi: {n_chains} strands of {BGC_WINDOW_SPAN[0]}-{BGC_WINDOW_SPAN[1]} b windows "
-          f"({gene['steps']} padded steps): kernel == plain (states, max |diff| 0); kernel {gene['ms']:.4f} ms, plain "
-          f"(CPU, one thread) {gene['plain_ms']:.1f} ms; bound {gene['bound_ms']:.5f} ms by {gene['bound_by']}, "
-          f"serial chain {gene['chain_floor_ms']:.3f} ms. Full size, the clean assembly's "
-          f"{len(args[3]) - 1} strands, {full['steps']} steps in one launch: {gene['full_ms']:.3f} ms; bound "
-          f"{full['bound_ms']:.4f} ms by {full['bound_by']}, serial chain {full['chain_floor_ms']:.3f} ms "
-          f"(reckoned: {GENE_CHAIN_CYCLES} cycles a step at {SM_CLOCK_HZ / 1e9:.2f} GHz) [{card}]", flush=True)
+    gene["windows"] = _check_gene_launch(f"{BGC_WINDOWS} windows of {BGC_WINDOW_SPAN[0]}-{BGC_WINDOW_SPAN[1]} b "
+                                         "of each assembly, both strands", [w.cuda() for w in windows], hmm,
+                                         card, reps=5)
 
     # Kernel 2 against its plain form on every contig's emission matrix of the main path.
-    arch_err, arch_rows = 0, 0
+    arch_err, arch_rows, arch_plain = 0, 0, []
     for args, _ in arch_rec.calls:
         paths, scores = arch_viterbi_cuda(*args)
-        (want_p, want_s), arch_plain_s = _cpu_seconds(lambda a=args: arch_viterbi_plain(*(x.cpu() for x in a)))
-        if not (torch.equal(paths.cpu(), want_p) and torch.equal(scores.cpu(), want_s)):
-            raise AssertionError("architectural Viterbi kernel and plain form differ")
+        on_cpu = [x.cpu() for x in args]
+        (want_p, want_s), plain_s = _cpu_seconds(lambda: arch_viterbi_plain(*on_cpu))
+        arch_plain.append((args, plain_s))
+        paths, scores = paths.cpu(), scores.cpu()
+        if paths.shape != want_p.shape or scores.shape != want_s.shape:
+            raise AssertionError("architectural Viterbi kernel and plain form differ in shape")
+        score_diff = torch.where(scores == want_s, 0.0, (scores - want_s).abs().nan_to_num(float("inf")))
+        arch_err = max(arch_err, int((paths.long() - want_p.long()).abs().max()), float(score_diff.max()))
         arch_rows += int(args[0].shape[0])
-    args = max((a for a, _ in arch_rec.calls), key=lambda a: a[0].shape[0])
-    _, arch_plain_s = _cpu_seconds(lambda: arch_viterbi_plain(*(x.cpu() for x in args)))
+    if arch_err != 0:
+        raise AssertionError(f"architectural Viterbi kernel and plain form differ (max |diff| {arch_err})")
+    args, plain_s = max(arch_plain, key=lambda t: t[0][0].shape[0])
     arch = {"max_abs_err": arch_err, "ms": _timed(lambda: arch_viterbi_cuda(*args), 20),
-            "plain_ms": arch_plain_s * 1e3, **_arch_bound(args[0], args[2])}
+            "plain_ms": plain_s * 1e3, **_arch_bound(args[0], args[2])}
     print(f"# architectural Viterbi: {len(arch_rec.calls)} launches, {arch_rows} emission rows of "
-          f"{args[0].shape[1]} states: kernel == plain (paths and scores exact); the largest, {args[0].shape[0]} rows "
-          f"in {len(args[2]) - 1} contigs: kernel {arch['ms']:.4f} ms, plain (CPU, one thread) {arch['plain_ms']:.1f} "
-          f"ms; bound {arch['bound_ms']:.5f} ms by {arch['bound_by']} [{card}]", flush=True)
+          f"{args[0].shape[1]} states: kernel == plain (paths and scores, max |diff| {arch_err}); the largest, "
+          f"{args[0].shape[0]} rows in {len(args[2]) - 1} contigs: kernel {arch['ms']:.4f} ms, plain (CPU, one "
+          f"thread) {arch['plain_ms']:.1f} ms; bound {arch['bound_ms']:.5f} ms by {arch['bound_by']} [{card}]",
+          flush=True)
 
     # One whole annotate + predict on the card held to the CPU path, on a window around the planted locus.
     name, locus, _, fasta = picked[0]
@@ -1064,6 +1088,7 @@ def main() -> int:
         print(f"# no {what} module was loaded", flush=True)
 
     ext, prot, wide = checks["extension"], checks["protein"], checks["wide"]
+    gene = bgc["gene"]
     swg_err = max(ext["max_abs_err"], prot["max_abs_err"], wide["max_abs_err"])
     kernels = [
         {"name": "swg_fill", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
@@ -1091,10 +1116,10 @@ def main() -> int:
          "planted_ms": cigar_check["planted_ms"]},
         {"name": "gene_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
          "replaces": "kaptive_tpu/bgc/genefinder.py:133", "launches": bgc["launches"]["viterbi.cuda.gene"],
-         "max_abs_err": bgc["gene"]["max_abs_err"], "ms": bgc["gene"]["ms"], "plain_ms": bgc["gene"]["plain_ms"],
-         "bound_ms": bgc["gene"]["bound_ms"], "bound_by": bgc["gene"]["bound_by"], "library_ms": None,
-         "chain_floor_ms": bgc["gene"]["chain_floor_ms"], "full_ms": bgc["gene"]["full_ms"],
-         "full_bound_ms": bgc["gene"]["full_bound_ms"], "full_chain_floor_ms": bgc["gene"]["full_chain_floor_ms"]},
+         "max_abs_err": max(g["max_abs_err"] for g in gene.values()), "ms": gene["clean"]["ms"],
+         "plain_ms": gene["clean"]["plain_ms"], "bound_ms": gene["clean"]["bound_ms"],
+         "bound_by": gene["clean"]["bound_by"], "library_ms": None, "draft_ms": gene["draft"]["ms"],
+         "draft_plain_ms": gene["draft"]["plain_ms"], "draft_bound_ms": gene["draft"]["bound_ms"]},
         {"name": "arch_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
          "replaces": "kaptive_tpu/bgc/kernels.py:82", "launches": bgc["launches"]["viterbi.cuda.arch"],
          "max_abs_err": bgc["arch"]["max_abs_err"], "ms": bgc["arch"]["ms"], "plain_ms": bgc["arch"]["plain_ms"],
@@ -1105,8 +1130,8 @@ def main() -> int:
           f"{wide['shape']}; launches: host-seeded measured pass (device-seeded pass: fill {dev_swg['fill']}, "
           f"traceback {dev_swg['traceback']}, scan {scan_launches}); scan on the batch {scan_check['shape']} "
           f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}, planted_ms: the planted bucket of that "
-          f"geometry; gene_viterbi on {BGC_WINDOWS} windows of each annotated assembly, both strands (plain on the "
-          f"CPU), full_ms on the clean assembly's two strands; arch_viterbi on the largest main-path launch (plain on "
+          f"geometry; gene_viterbi on the clean assembly's launch (its two strands), draft_ms on the draft "
+          f"assembly's launch (plain on the CPU); arch_viterbi on the largest main-path launch (plain on "
           f"the CPU); launches: BGC phase; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",

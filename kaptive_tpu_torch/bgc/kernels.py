@@ -6,8 +6,8 @@ adjacent ORFs as a prefix sum, the archetype emissions as one float32
 ``(N, D) x (D, K)`` matrix product with TF32 switched off (the JAX package
 leaves this product to XLA, outside any kernel), and the max-plus Viterbi
 with a forced end in POST: the hand-written Hopper kernel
-(:func:`kaptive_tpu_torch.ops.viterbi.arch_viterbi`) for contigs of two ORFs
-or more, the host for the N = 0 and N = 1 cases, as the JAX package does.
+(:func:`kaptive_tpu_torch.ops.viterbi.arch_viterbi`) for every contig with an
+ORF; a contig without one has no rows to decode and is answered on the host.
 """
 
 from __future__ import annotations
@@ -91,20 +91,17 @@ def architectural_viterbi_batch(
     r"""Max-plus Viterbi of each (N, S) emission matrix (numpy or tensors),
     forced to end in POST: ``[(path int32 (N,), max log-probability)]``.
 
-    Matrices of two rows or more are decoded in one launch on ``device``; the
-    empty and one-row cases are answered on the host.
+    Matrices with a row are decoded in one launch on ``device`` (one row is
+    the first transition plus the emission, ending in POST); an empty matrix
+    has no rows to launch on and is answered on the host.
     """
     dev = resolve_device(device)
     trans = np.ascontiguousarray(transitions, dtype=np.float32)
-    S = trans.shape[0]
     out: list = [None] * len(emissions)
     batch = []
     for i, em in enumerate(emissions):
         if em.shape[0] == 0:
             out[i] = (np.zeros(0, dtype=np.int32), float("-inf"))
-        elif em.shape[0] == 1:
-            row = em.cpu().numpy() if isinstance(em, torch.Tensor) else np.asarray(em, dtype=np.float32)
-            out[i] = (np.array([S - 1], dtype=np.int32), float((trans[0] + row[0])[S - 1]))
         else:
             batch.append(i)
     if batch:

@@ -271,8 +271,9 @@ extern "C" {
 int kts_arch_max_states() { return MAX_ARCH_STATES; }
 
 // Gene-HMM Viterbi over `n_chains` chains laid end to end in the `total`
-// positions of the three inputs (chain c is [offsets[c], offsets[c + 1]); a
-// chain outside them is skipped); `back` is scratch of one word a position.
+// positions of the three inputs (chain c is [offsets[c], offsets[c + 1]); the
+// caller checks that the offsets run from 0 to `total` without decreasing, and
+// the kernel skips a chain outside them); `back` is scratch of one word a position.
 // Launches on `stream`; returns the launch's CUDA error.
 int kts_gene_viterbi(const void* codemit, const void* entry_b, const void* exit_b, const void* offsets,
                      int n_chains, long long total, float indel, float ins_extend, void* back, void* states,
@@ -286,8 +287,9 @@ int kts_gene_viterbi(const void* codemit, const void* entry_b, const void* exit_
 }
 
 // Architectural Viterbi over `n_contigs` contigs of S states (contig c owns
-// rows [offsets[c], offsets[c + 1]) of the `rows` emission rows; a contig
-// outside them is skipped); `back` is scratch of one byte a row and state.
+// rows [offsets[c], offsets[c + 1]) of the `rows` emission rows; the caller
+// checks that the offsets run from 0 to `rows` and that no contig is empty, and
+// the kernel skips a contig outside them); `back` is scratch of one byte a row and state.
 // Launches on `stream`; returns the launch's CUDA error.
 int kts_arch_viterbi(const void* emissions, const void* transitions, const void* offsets, int n_contigs,
                      long long rows, int S, void* back, void* paths, void* scores, void* stream) {

@@ -47,10 +47,11 @@ GENE_CANDIDATES = (
 _WIDTH = max(len(c) for c in GENE_CANDIDATES)
 
 
-def _chain_bounds(offsets: torch.Tensor) -> np.ndarray:
+def chain_bounds(offsets: torch.Tensor, total: int) -> np.ndarray:
+    r"""``offsets`` as int64 numpy bounds, checked: 1-D, non-decreasing, from 0 to ``total`` rows."""
     bounds = offsets.cpu().numpy().astype(np.int64)
-    if bounds.ndim != 1 or len(bounds) < 1 or bounds[0] != 0 or (np.diff(bounds) < 0).any():
-        raise ValueError("offsets must be a non-decreasing 1-D tensor that starts at 0")
+    if bounds.ndim != 1 or len(bounds) < 1 or bounds[0] != 0 or (np.diff(bounds) < 0).any() or bounds[-1] != total:
+        raise ValueError(f"offsets must be a non-decreasing 1-D tensor from 0 to the inputs' {total} rows")
     return bounds
 
 
@@ -67,9 +68,9 @@ def gene_viterbi_plain(
     argmax and the backpointers are walked back from it.
     """
     count("viterbi.plain.gene")
-    bounds = _chain_bounds(offsets)
+    total = codemit.shape[0]
+    bounds = chain_bounds(offsets, total)
     lengths = np.diff(bounds)
-    total = int(bounds[-1])
     states = torch.zeros(total, dtype=torch.int8)
     live = np.flatnonzero(lengths > 0)
     if len(live) == 0:
@@ -166,7 +167,7 @@ def arch_viterbi_plain(
     last row's POST entry and the path is walked back from POST.
     """
     count("viterbi.plain.arch")
-    bounds = _chain_bounds(offsets)
+    bounds = chain_bounds(offsets, emissions.shape[0])
     lengths = np.diff(bounds)
     if (lengths < 1).any():
         raise ValueError("arch_viterbi: every contig needs at least one emission row")

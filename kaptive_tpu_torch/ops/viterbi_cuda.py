@@ -14,7 +14,8 @@ word a position), then walks the words back from the end.
 ``arch_viterbi_kernel``: one block per contig, one thread per state, the
 backtrace by one thread.  The design notes are at the head of the source.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
+Each wrapper checks device, dtype, shape and contiguity, reads the chain
+offsets on the host and checks them as the plain forms do, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
 raises if the launch returns a CUDA error, and counts the launch as
 ``viterbi.cuda.gene`` / ``viterbi.cuda.arch`` in
@@ -25,8 +26,10 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
+from kaptive_tpu_torch.ops.viterbi import chain_bounds
 from kaptive_tpu_torch.utils.metrics import count
 from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
@@ -49,13 +52,13 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _check_offsets(offsets: torch.Tensor, device: torch.device) -> int:
-    r"""The number of chains ``offsets`` bounds.  Its values stay on the card: a
-    chain whose bounds fall outside the rows given to the kernel is skipped there."""
+def _chain_lengths(offsets: torch.Tensor, device: torch.device, total: int) -> np.ndarray:
+    r"""The lengths of the chains ``offsets`` bounds, read on the host and checked as the
+    plain forms check them (:func:`chain_bounds`): the kernels trust every bound."""
     if offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError(f"offsets: expected a 1-D tensor of chains + 1 bounds, got {tuple(offsets.shape)}")
     check_tensor("offsets", offsets, torch.int64, (offsets.shape[0],), device)
-    return offsets.shape[0] - 1
+    return np.diff(chain_bounds(offsets, total))
 
 
 def gene_viterbi_cuda(
@@ -70,7 +73,7 @@ def gene_viterbi_cuda(
     total = codemit.shape[0] if codemit.dim() == 1 else -1
     for name, x in (("codemit", codemit), ("entry_b", entry_b), ("exit_b", exit_b)):
         check_tensor(name, x, torch.float32, (total,), device)
-    n_chains = _check_offsets(offsets, device)
+    n_chains = len(_chain_lengths(offsets, device, total))
     states = torch.empty(total, dtype=torch.int8, device=device)
     if n_chains == 0 or total == 0:
         return states
@@ -98,8 +101,11 @@ def arch_viterbi_cuda(
     if emissions.dim() != 2:
         raise ValueError(f"emissions: expected (rows, states), got {tuple(emissions.shape)}")
     rows, S = emissions.shape
-    n_contigs = _check_offsets(offsets, device)
     check_tensor("emissions", emissions, torch.float32, (rows, S), device)
+    lengths = _chain_lengths(offsets, device, rows)
+    if (lengths < 1).any():
+        raise ValueError("arch_viterbi: every contig needs at least one emission row")
+    n_contigs = len(lengths)
     check_tensor("transitions", transitions, torch.float32, (S, S), device)
     if not 1 <= S <= lib.kts_arch_max_states():
         raise ValueError(f"{S} states outside the kernel's range [1, {lib.kts_arch_max_states()}]")

@@ -538,6 +538,28 @@ def test_arch_kernel_equals_plain(viterbi_device, n_states):
     assert int(paths.max()) == n_states - 1 and int(paths.min()) >= 0
 
 
+@pytest.mark.parametrize("bad", ["short", "past_end", "decreasing", "not_from_zero"])
+def test_viterbi_kernels_refuse_bad_offsets(viterbi_device, bad):
+    """Offsets that do not run from 0 to the inputs' rows without decreasing raise, as the
+    plain forms raise, instead of leaving outputs unwritten; so does an empty contig."""
+    from viterbi_panels import arch_panel
+
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda, gene_viterbi_cuda
+
+    offsets = {"short": [0, 40, 90], "past_end": [0, 40, 120], "decreasing": [0, 60, 40, 100],
+               "not_from_zero": [10, 40, 100]}[bad]
+    x = torch.zeros(100, dtype=torch.float32, device=viterbi_device)
+    off = torch.tensor(offsets, dtype=torch.int64, device=viterbi_device)
+    with pytest.raises(ValueError, match="offsets"):
+        gene_viterbi_cuda(x, x, x, off, indel=-8.0, ins_extend=-2.0)
+    em, trans, _ = arch_panel(np.random.default_rng(3), [40, 60], 8)
+    em, trans = torch.from_numpy(em).to(viterbi_device), torch.from_numpy(trans).to(viterbi_device)
+    with pytest.raises(ValueError, match="offsets"):
+        arch_viterbi_cuda(em, trans, off)
+    with pytest.raises(ValueError, match="at least one emission row"):
+        arch_viterbi_cuda(em, trans, torch.tensor([0, 0, 100], dtype=torch.int64, device=viterbi_device))
+
+
 def test_bgc_annotate_and_predict_on_card_equal_cpu(viterbi_device, tmp_path):
     """The BGC toolkit on the card (gene decode, aligned hits, emissions, architectural decode)
     equals its CPU path: Genes, BED bytes, alignments, and predictions (scores to rtol 1e-5:
@@ -618,17 +640,28 @@ def _seed_peak(db, genomes, indexes, chunk):
     return out, torch.cuda.max_memory_allocated() - base
 
 
-@pytest.mark.parametrize("chunk", [None, 4])
+@pytest.mark.parametrize("chunk", ["sized", 4])
 def test_seeding_peak_memory_does_not_grow_past_one_chunk(seeding_batch, chunk):
+    """Peak memory at stream batches 8 and 32 differs by less than one chunk's worth, with
+    chunks forced to 4 genomes or sized by ``seeding_chunk`` from a card that reports room
+    for 6 (an 80 GB card holds the whole batch in one chunk, which would test nothing)."""
+    from unittest import mock
+
     from kaptive_tpu_torch.ops.mapper import genome_footprint, seeding_chunk
 
     db, genomes, indexes = seeding_batch
     L = max(len(ci.codes) for ci in indexes)
-    _, peak8 = _seed_peak(db, genomes[:8], indexes[:8], chunk)
-    _, peak32 = _seed_peak(db, genomes[:32], indexes[:32], chunk)
-    per_chunk = (chunk or seeding_chunk(L, 32, torch.device("cuda", 0))) * genome_footprint(L)
-    print(f"chunk {chunk}: peak {peak8 / 1e6:.1f} MB at batch 8, {peak32 / 1e6:.1f} MB at batch 32, "
-          f"one chunk's worth {per_chunk / 1e6:.1f} MB")
+    device = torch.device("cuda", 0)
+    free, total = torch.cuda.mem_get_info(device)
+    room = 2 * 6 * genome_footprint(L) + genome_footprint(L) // 2
+    with mock.patch.object(torch.cuda, "mem_get_info", lambda *_: (min(free, room), total)):
+        size = seeding_chunk(L, 32, device) if chunk == "sized" else chunk
+        assert size < 8
+        _, peak8 = _seed_peak(db, genomes[:8], indexes[:8], None if chunk == "sized" else chunk)
+        _, peak32 = _seed_peak(db, genomes[:32], indexes[:32], None if chunk == "sized" else chunk)
+    per_chunk = size * genome_footprint(L)
+    print(f"chunk {chunk} ({size} genomes): peak {peak8 / 1e6:.1f} MB at batch 8, {peak32 / 1e6:.1f} MB at "
+          f"batch 32, one chunk's worth {per_chunk / 1e6:.1f} MB")
     assert peak32 - peak8 < per_chunk
 
 

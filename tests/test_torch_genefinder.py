@@ -178,3 +178,17 @@ def test_find_genes_hmm_defaults_to_cuda():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         find_genes_hmm(PANELS["clean+1"])
+
+
+@pytest.mark.parametrize("offsets", [[0, 40, 90], [0, 40, 120], [0, 60, 40, 100], [10, 40, 100]],
+                         ids=["short", "past_end", "decreasing", "not_from_zero"])
+def test_plain_viterbi_forms_refuse_bad_offsets(offsets):
+    """Offsets must run from 0 to the inputs' rows without decreasing, as the kernels' wrappers check."""
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain, gene_viterbi_plain
+
+    x = torch.zeros(100, dtype=torch.float32)
+    off = torch.tensor(offsets, dtype=torch.int64)
+    with pytest.raises(ValueError, match="offsets"):
+        gene_viterbi_plain(x, x, x, off, indel=-8.0, ins_extend=-2.0)
+    with pytest.raises(ValueError, match="offsets"):
+        arch_viterbi_plain(torch.zeros((100, 8)), torch.zeros((8, 8)), off)
