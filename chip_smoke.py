@@ -76,11 +76,13 @@ module of either was loaded).  Steps:
     thread) on both launches of the main path, whole: the clean assembly's
     two strands of 5,767,168 padded steps and the draft assembly's 48
     strands; then on ``BGC_WINDOWS`` windows of 2-16 kb of each assembly,
-    both strands.  Each is timed.  The architectural kernel is held to its
-    plain form on every emission matrix of the main path and timed on the
-    largest.  Annotate + predict of a
-    window of at most 60 kb around the planted locus on the card must equal
-    the CPU path: BED bytes, alignments, predictions (scores to rtol 1e-5).
+    both strands.  Each is timed, and a line gives each launch's chunks,
+    fix-up rounds, re-run chunks and chunks filled from a three-step
+    pattern.  The architectural kernel is held to its plain form on every
+    emission matrix of the main path and timed on the largest.  Annotate +
+    predict of a window of at most 60 kb around the planted locus on the card
+    must equal the CPU path: BED bytes, alignments, predictions (scores to
+    rtol 1e-5).
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
@@ -110,9 +112,9 @@ the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
 PyTorch call computes any of the six functions, so ``library_ms`` is null.
 The two Viterbi kernels are float32 work: their operations are counted
 against the 67 TFLOP/s float32 rate, and their bytes are the function's own
-inputs and outputs (no scratch of the kernel).  A ``#`` line also prints an
-estimate, not a measurement, of the floor the gene decode's serial chain of
-steps sets (``GENE_CHAIN_CYCLES`` cycles a step at the card's boost clock).
+inputs and outputs (no scratch of the kernel).  The gene decode's time is
+that of a whole call (its kernels, the fix-up rounds' waits on the stream
+and the host work between them), queued back to back.
 """
 
 from __future__ import annotations
@@ -145,10 +147,8 @@ SCAN_OPS_PER_POSITION = 35  # rolling k-mer, hash and sliding-window minimum for
 SCAN_GENOME_STEPS = (1, 4, 32)  # genomes of 45,056 rows scanned in one launch by --measure
 SCAN_ROWS = 45056  # scan rows of one bucket-padded 5.3 Mb assembly
 FLOAT32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
-SM_CLOCK_HZ = 1.98e9  # H100 SXM boost clock
 GENE_OPS_PER_STEP = 43  # float32 operations of a gene-HMM step: 12 adds, 10 picks, the codon add, 7 clamps, 6 maxima, 7 subtracts
 GENE_BYTES_PER_STEP = 13  # 12 bytes in (codon emission, entry and exit scores), a state byte out
-GENE_CHAIN_CYCLES = 40  # estimate: ~10 dependent float32 operations of ~4 cycles on a step's critical path
 BGC_WINDOWS = 32  # windows cut from each of the two annotated assemblies for the gene kernel's check
 BGC_WINDOW_SPAN = (2000, 16000)  # their lengths, bases
 BGC_CPU_CONTIG = 60000  # the longest contig the BGC phase's CPU check decodes
@@ -560,11 +560,14 @@ def _gene_bound(offsets) -> dict:
 
 def _check_gene_launch(label: str, args, kw, card: str, reps: int) -> dict:
     """Gene kernel vs its plain form (on the CPU, one thread) on one launch's inputs: the states
-    must be equal.  Prints the shapes compared; returns times, bound and the largest difference."""
+    must be equal.  Prints the shapes compared and what the decode did; returns times, bound,
+    the largest difference and the decode's :class:`GeneDecodeStats`."""
+    from kaptive_tpu_torch.ops import viterbi_cuda
     from kaptive_tpu_torch.ops.viterbi import gene_viterbi_plain
-    from kaptive_tpu_torch.ops.viterbi_cuda import gene_viterbi_cuda
+    from kaptive_tpu_torch.ops.viterbi_cuda import gene_viterbi_cuda, gene_viterbi_cuda_with_stats
 
-    got = gene_viterbi_cuda(*args, **kw).cpu()
+    got, stats = gene_viterbi_cuda_with_stats(*args, **kw)
+    got = got.cpu()
     on_cpu = [a.cpu() for a in args]
     want, plain_s = _cpu_seconds(lambda: gene_viterbi_plain(*on_cpu, **kw))
     err = int((got.int() - want.int()).abs().max()) if got.shape == want.shape and len(got) else 0
@@ -572,15 +575,17 @@ def _check_gene_launch(label: str, args, kw, card: str, reps: int) -> dict:
         raise AssertionError(f"gene Viterbi kernel and plain form differ on {label} (max |diff| {err}, "
                              f"shapes {tuple(got.shape)} and {tuple(want.shape)})")
     check = {"max_abs_err": err, "ms": _timed(lambda: gene_viterbi_cuda(*args, **kw), reps),
-             "plain_ms": plain_s * 1e3, **_gene_bound(on_cpu[3])}
+             "plain_ms": plain_s * 1e3, **_gene_bound(on_cpu[3]), "stats": stats}
     lengths = on_cpu[3][1:] - on_cpu[3][:-1]
     print(f"# gene Viterbi, {label}: {len(lengths)} strands of {int(lengths.min())}-{int(lengths.max())} padded "
           f"steps, {int(lengths.sum())} in all, in one launch: kernel == plain (states, max |diff| 0); kernel "
           f"{check['ms']:.4f} ms, plain (CPU, one thread) {check['plain_ms']:.1f} ms; bound {check['bound_ms']:.5f} ms "
           f"by {check['bound_by']} [{card}]", flush=True)
-    print(f"#   estimate, not measured: a serial chain of {GENE_CHAIN_CYCLES} cycles a step at "
-          f"{SM_CLOCK_HZ / 1e9:.2f} GHz would take {int(lengths.max()) * GENE_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3:.3f} "
-          f"ms for the longest strand", flush=True)
+    lib = viterbi_cuda.build()
+    chunk, warmup = lib.kts_gene_chunk(), lib.kts_gene_warmup()
+    print(f"#   {label}: {stats.chunks} chunks of up to {chunk} positions (warm-up {warmup}), {stats.rounds} "
+          f"fix-up rounds, {stats.reruns} re-run chunks, {stats.filled} chunks filled from a three-step pattern; "
+          f"the longest chain: {warmup + chunk} steps + {stats.rounds} x {chunk} re-run [{card}]", flush=True)
     return check
 
 
@@ -1119,7 +1124,9 @@ def main() -> int:
          "max_abs_err": max(g["max_abs_err"] for g in gene.values()), "ms": gene["clean"]["ms"],
          "plain_ms": gene["clean"]["plain_ms"], "bound_ms": gene["clean"]["bound_ms"],
          "bound_by": gene["clean"]["bound_by"], "library_ms": None, "draft_ms": gene["draft"]["ms"],
-         "draft_plain_ms": gene["draft"]["plain_ms"], "draft_bound_ms": gene["draft"]["bound_ms"]},
+         "draft_plain_ms": gene["draft"]["plain_ms"], "draft_bound_ms": gene["draft"]["bound_ms"],
+         **{f"{key}_{field}": gene[key]["stats"]._asdict()[field]
+            for key in ("clean", "draft", "windows") for field in ("chunks", "rounds", "reruns", "filled")}},
         {"name": "arch_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
          "replaces": "kaptive_tpu/bgc/kernels.py:82", "launches": bgc["launches"]["viterbi.cuda.arch"],
          "max_abs_err": bgc["arch"]["max_abs_err"], "ms": bgc["arch"]["ms"], "plain_ms": bgc["arch"]["plain_ms"],

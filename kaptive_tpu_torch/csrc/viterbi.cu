@@ -1,67 +1,104 @@
 // Viterbi decodes of the BGC toolkit for NVIDIA Hopper (sm_90a).
 //
-// Two kernels, each the counterpart of an XLA program of the JAX package
-// (neither has a Pallas source):
+// Each decode is the counterpart of an XLA program of the JAX package (neither
+// has a Pallas source):
 //
-//   gene_viterbi_kernel  replaces kaptive_tpu/bgc/genefinder.py::_viterbi_states:
-//     the forward lax.scan of the 7-state codon-phase HMM (N, C0, C1, C2, I0,
-//     I1, I2) over every position of a contig strand, and the reverse
-//     lax.scan that walks the backpointers from the best last state.
-//   arch_viterbi_kernel  replaces kaptive_tpu/bgc/kernels.py::architectural_viterbi:
-//     the max-plus decode over a contig's ORF emission rows with a forced
-//     end in POST (the last state).
+//   the gene decode (gene_forward_kernel and the five kernels after it) replaces
+//     kaptive_tpu/bgc/genefinder.py::_viterbi_states: the forward lax.scan of
+//     the 7-state codon-phase HMM (N, C0, C1, C2, I0, I1, I2) over every
+//     position of a contig strand, and the reverse lax.scan that walks the
+//     backpointers from the best last state;
+//   arch_viterbi_kernel replaces kaptive_tpu/bgc/kernels.py::architectural_viterbi:
+//     the max-plus decode over a contig's ORF emission rows with a forced end
+//     in POST (the last state).
 //
 // Both compute what the XLA programs compute, bit for bit: every operation is
 // a float32 add, max or subtract in the JAX package's order, and each pick
-// takes the first candidate among equals (a strict `>` over the candidates in
-// order).  Build without --use_fast_math: nvcc then neither reorders nor
-// contracts float32 adds.  The plain PyTorch forms are
-// kaptive_tpu_torch/ops/viterbi.py::gene_viterbi_plain and ::arch_viterbi_plain.
+// takes the first candidate among equals.  Build without --use_fast_math: nvcc
+// then neither reorders nor contracts float32 adds.  The plain PyTorch forms
+// are kaptive_tpu_torch/ops/viterbi.py::gene_viterbi_plain and
+// ::arch_viterbi_plain; tests/test_torch_viterbi_chunked.py holds numpy models
+// of both algorithms to them and to the JAX package.
 //
 // Built by kaptive_tpu_torch/ops/viterbi_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // into a library with a plain C interface, loaded with ctypes.
 //
 // What bounds the gene decode.  A step reads 12 bytes (codon emission, entry
-// and exit scores), writes a 4-byte backpointer word that the reverse pass
-// reads again, and writes one state byte: ~21 bytes a step, ~0.07 ms for the
-// two 5.77 M-step strands of a 5.3 Mb contig at 3.35 TB/s.  But step i needs
-// the seven scores of step i-1: a candidate add, up to three compare-selects,
-// the codon add, the clamp, a three-level max and the subtract, ~10
-// dependent float32 operations of ~4 cycles, so ~40 cycles a step and ~0.1 s
-// for one 5.77 M-step chain at the card's clock.  That chain, not memory, is
-// the floor for a decode that must equal the reference exactly (a parallel
-// max-plus scan would reassociate nothing, but it would do 7x more work per
-// step and tie-break on other paths' values).  The design keeps the chain
-// short and everything else off it:
-//   * One warp per chain (a contig strand; chains run side by side on the
-//     SMs).  Lane 0 runs the recursion with the seven scores in registers.
-//   * The warp stages the next TILE = 128 positions' inputs with coalesced
-//     loads into registers before lane 0 starts the current tile, and moves
-//     them to shared memory after it: lane 0 never waits on device memory.
-//   * Backpointers are the seven source states, 3 bits each, packed into one
-//     word a position in shared memory and stored by the warp 128 words at a
-//     time.
-//   * The reverse pass stages the words of a tile from the end the same way;
-//     lane 0 walks them (a shift and a mask a step) and the warp stores the
-//     tile's 128 state bytes.
+// and exit scores) and writes one state byte: 13 bytes, ~0.045 ms for the two
+// 5.77 M-step strands of a 5.3 Mb contig at 3.35 TB/s.  But step i needs the
+// seven scores of step i-1, and one strand is a chain of 5.77 M such steps.
+// The step renormalises (the best state is exactly 0 after it), so two runs
+// that reach a position with the same seven scores, bit for bit, go on
+// identically; the design uses that to cut the chain:
+//   * Every strand is cut into chunks of GENE_CHUNK positions, and every chunk
+//     of every strand of the launch runs at once, one chunk a lane
+//     (gene_forward_kernel).  A strand's first chunk starts from the exact
+//     start vector (N = 0, the rest -BIG); any other chunk from a guess, the
+//     forward run over the GENE_WARMUP positions before it from that vector,
+//     without backpointers.  A warp stages its 32 chunks' inputs 32 positions
+//     at a time into shared memory with cp.async, one tile ahead, and stores
+//     backpointers (seven 3-bit sources packed in a word) a tile at a time.
+//   * gene_check_kernel compares, bit for bit, each chunk's start vector with
+//     the end vector of the chunk before it, and lists the chunks that differ;
+//     gene_forward_kernel re-runs those from that end vector, in rounds, until
+//     no start differs.  The first chunk of a strand is exact, so after round
+//     r the first r + 1 chunks are: the worst case is the serial chain's time,
+//     never another answer.
+//   * A strand's pad tail (and any run of one repeated input) never forgets
+//     its start: a guess there is always wrong, and the rounds would walk the
+//     tail one chunk a round.  With one input repeated, the seven scores come
+//     back bit for bit after three steps once they have done so once (the
+//     coding states rotate, nothing else moves).  After a round's re-runs,
+//     gene_fill_test_kernel tries that on the first differing chunk of each
+//     strand, or the chunk after it, whose start is then exact: three steps
+//     from it; if the vector is back, gene_fill_kernel writes the three-step
+//     pattern over that chunk and every following chunk of the same repeated
+//     input, exactly what the steps would give.
+//   * The backtrace composes maps: gene_walk_kernel<true> walks each chunk's
+//     words back from all seven end states at once (a map from the chunk's end
+//     state to the state before it), gene_link_kernel takes a strand's maps 32
+//     at a time from its last chunk (the first argmax of its exact end vector)
+//     and gives each its end state by a warp's suffix scan of the maps, and
+//     gene_walk_kernel<false> walks each chunk once more from its end state
+//     and writes the state bytes a tile at a time.
 //
 // What bounds the architectural decode.  N rows of S = K + 3 states (28 at
-// the default K = 25) and N a few hundred to a few thousand ORFs a contig:
+// the default K = 25), N a few hundred to tens of thousands of ORFs a contig:
 // N x S x S adds and compares and ~4 N S bytes, microseconds of work at the
-// card's rates.  It is bound by its N dependent steps: one block per contig,
-// one thread per state, S candidates in order a step and two block barriers,
-// ~200-300 cycles a step; one thread walks the backpointers back from POST.
+// card's rates.  The scores are not renormalised, so a contig stays one chain
+// of N dependent rows.  One warp a contig, one lane a state (ceil(S / 32)
+// states a lane up to MAX_ARCH_STATES): a lane keeps its column of the
+// transitions in registers (S <= 32) or reads it from shared memory (S <= 128)
+// or the cache; a row broadcasts the previous scores through shared memory
+// (a store a lane, a warp barrier, then loads of one address in every lane,
+// in place of 32 __shfl_sync a row), adds the S candidates independently and
+// reduces them by a tree over (value, index) that keeps the lower index on a
+// tie, with no block barrier.  Emission rows
+// are staged a tile ahead with cp.async; backpointer bytes are stored a tile
+// at a time, and read back a tile ahead while lane 0 walks the tile before.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
-constexpr int TILE = 128;              // positions a warp stages at once
-constexpr int PER_LANE = TILE / 32;
-constexpr float NEG = -1.0e9f;         // the JAX package's -BIG clamp
-constexpr int MAX_ARCH_STATES = 256;   // backpointers are bytes
+constexpr float NEG = -1.0e9f;  // the JAX package's -BIG clamp
+constexpr int N_GENE_STATES = 7;
+constexpr int VEC = 8;           // floats kept a chunk for a vector of seven scores
+constexpr int GT = 32;           // positions a lane stages at once (a tile)
+constexpr int GENE_CHUNK = 1024;   // positions a chunk
+constexpr int GENE_WARMUP = 1024;  // positions a chunk's guess runs over before its start
+constexpr int FWD_STAGES = 3;    // input tiles gene_forward_kernel keeps in flight or in use
+constexpr int WALK_STAGES = 4;   // backpointer tiles gene_walk_kernel keeps in flight or in use
+constexpr uint32_t IDENTITY_MAP = 0u | 1u << 3 | 2u << 6 | 3u << 9 | 4u << 12 | 5u << 15 | 6u << 18;
+constexpr int NO_CHUNK = 0x7f7f7f7f;  // first_dirty of a strand with none (a memset of 0x7f bytes)
+constexpr int MAX_ARCH_STATES = 256;  // backpointers are bytes
+constexpr int ARCH_ROWS = 16;         // emission rows a warp stages at once
+constexpr int ARCH_BACK_ROWS = 64;    // backpointer rows staged at once for the walk
+constexpr int ARCH_SMEM_TRANSITIONS = 128;  // the largest S whose transitions are kept in shared memory
+constexpr unsigned FULL = 0xffffffffu;
 
 enum : uint32_t { SN = 0, SC0 = 1, SC1 = 2, SC2 = 3, SI0 = 4, SI1 = 5, SI2 = 6 };
 
@@ -74,233 +111,819 @@ __device__ __forceinline__ void take(float cand, uint32_t src, float& best, uint
     }
 }
 
-__global__ void __launch_bounds__(32) gene_viterbi_kernel(
-    const float* __restrict__ codemit, const float* __restrict__ entry_b, const float* __restrict__ exit_b,
-    const long long* __restrict__ offsets, long long total, float indel, float ins_extend,
-    uint32_t* __restrict__ back, int8_t* __restrict__ states) {
-    __shared__ float s_in[2][3][TILE];
-    __shared__ uint32_t s_back[TILE];
-    __shared__ int8_t s_state[TILE];
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) { return __float_as_uint(a) == __float_as_uint(b); }
+
+// ---- the gene decode ---------------------------------------------------------------------------
+
+// One step of the gene HMM: v (N, C0, C1, C2, I0, I1, I2) becomes the step's
+// scores; returns the seven sources packed 3 bits each.
+__device__ __forceinline__ uint32_t gene_step(float (&v)[N_GENE_STATES], float ce, float eb, float xb, float indel,
+                                              float ins_extend) {
+    const float vN = v[0], vC0 = v[1], vC1 = v[2], vC2 = v[3], vI0 = v[4], vI1 = v[5], vI2 = v[6];
+    float nN = vN;
+    uint32_t bN = SN;
+    take(vC2 + xb, SC2, nN, bN);
+    float n0 = vN + eb;
+    uint32_t b0 = SN;
+    take(vC2, SC2, n0, b0);
+    take(vC1 + indel, SC1, n0, b0);
+    take(vI2, SI2, n0, b0);
+    float n1 = vC0;
+    uint32_t b1 = SC0;
+    take(vC2 + indel, SC2, n1, b1);
+    take(vI0, SI0, n1, b1);
+    float n2 = vC1;
+    uint32_t b2 = SC1;
+    take(vC0 + indel, SC0, n2, b2);
+    take(vI1, SI1, n2, b2);
+    n2 = n2 + ce;
+    float n4 = vC0 + indel;
+    uint32_t b4 = SC0;
+    take(vI0 + ins_extend, SI0, n4, b4);
+    float n5 = vC1 + indel;
+    uint32_t b5 = SC1;
+    take(vI1 + ins_extend, SI1, n5, b5);
+    float n6 = vC2 + indel;
+    uint32_t b6 = SC2;
+    take(vI2 + ins_extend, SI2, n6, b6);
+    nN = fmaxf(nN, NEG);
+    n0 = fmaxf(n0, NEG);
+    n1 = fmaxf(n1, NEG);
+    n2 = fmaxf(n2, NEG);
+    n4 = fmaxf(n4, NEG);
+    n5 = fmaxf(n5, NEG);
+    n6 = fmaxf(n6, NEG);
+    const float m = fmaxf(fmaxf(fmaxf(nN, n0), fmaxf(n1, n2)), fmaxf(fmaxf(n4, n5), n6));
+    v[0] = nN - m;
+    v[1] = n0 - m;
+    v[2] = n1 - m;
+    v[3] = n2 - m;
+    v[4] = n4 - m;
+    v[5] = n5 - m;
+    v[6] = n6 - m;
+    return bN | b0 << 3 | b1 << 6 | b2 << 9 | b4 << 12 | b5 << 15 | b6 << 18;
+}
+
+__device__ __forceinline__ void start_vector(float (&v)[N_GENE_STATES]) {
+#pragma unroll
+    for (int k = 0; k < N_GENE_STATES; ++k) v[k] = k == 0 ? 0.f : NEG;
+}
+
+// The chunk table: four int64 a chunk, [start, end) of its positions, the
+// start of its strand, and its strand's index.
+struct Chunk {
+    long long start, end, base;
+    int chain;
+};
+
+__device__ __forceinline__ Chunk load_chunk(const long long* chunks, int c) {
+    return {chunks[4 * c], chunks[4 * c + 1], chunks[4 * c + 2], (int)chunks[4 * c + 3]};
+}
+
+// The forward pass of 32 chunks a warp, one a lane.  The first pass (RERUN
+// false) takes chunk `item` and starts it from its guess: `warmup` positions
+// (fewer at its strand's start) from the start vector, then the chunk; it
+// writes the start vector it guessed (vin), the end vector (vout) and whether
+// the chunk's inputs are one repeated value (cflag, cval).  A re-run takes
+// chunk `items[item]` and starts it from vin.  Both write the chunk's packed
+// backpointers.
+template <bool RERUN>
+__global__ void __launch_bounds__(32) gene_forward_kernel(
+    const float* __restrict__ ce_g, const float* __restrict__ eb_g, const float* __restrict__ xb_g,
+    const long long* __restrict__ chunks, const int* __restrict__ items, int n_items, int chunk, int warmup,
+    float indel, float ins_extend, uint32_t* __restrict__ back, float* __restrict__ vin,
+    float* __restrict__ vout, float* __restrict__ cval, int* __restrict__ cflag) {
+    __shared__ float s_in[FWD_STAGES][3][32][GT + 1];
+    __shared__ uint32_t s_bk[32][GT + 1];
+    __shared__ long long s_start[32];
+    __shared__ int s_lo[32], s_len[32];  // live positions [start + lo, start + len)
 
     const int lane = threadIdx.x;
-    const long long base = offsets[blockIdx.x];
-    const long long L = offsets[blockIdx.x + 1] - base;
-    if (L <= 0 || base < 0 || base + L > total) return;  // empty, or bounds outside the inputs
-    const float* ce_g = codemit + base;
-    const float* eb_g = entry_b + base;
-    const float* xb_g = exit_b + base;
-    uint32_t* back_g = back + base;
-    int8_t* state_g = states + base;
-    const long long n_tiles = (L + TILE - 1) / TILE;
+    const int item = blockIdx.x * 32 + lane;
+    const bool has = item < n_items;
+    const int n_lanes = n_items - blockIdx.x * 32 < 32 ? n_items - blockIdx.x * 32 : 32;  // chunks of this warp
+    const int c = has ? (RERUN ? items[item] : item) : 0;
+    const Chunk ch = has ? load_chunk(chunks, c) : Chunk{0, 0, 0, 0};
+    const int len = (int)(ch.end - ch.start);
+    const int lo = RERUN ? 0 : -(int)(ch.start - ch.base < warmup ? ch.start - ch.base : warmup);
+    s_start[lane] = ch.start;
+    s_lo[lane] = lo;
+    s_len[lane] = len;
+    const int pre = RERUN ? 0 : (warmup + GT - 1) / GT;  // warm-up tiles
+    const int n_tiles = pre + (chunk + GT - 1) / GT;
 
-    // ---- forward pass ----
-    float r_ce[PER_LANE], r_eb[PER_LANE], r_xb[PER_LANE];
-    auto fetch = [&](long long t) {
+    float v[N_GENE_STATES];
+    if (RERUN) {
 #pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-            const long long i = t * TILE + lane + 32 * k;
-            const bool in = i < L;
-            r_ce[k] = in ? ce_g[i] : 0.f;
-            r_eb[k] = in ? eb_g[i] : 0.f;
-            r_xb[k] = in ? xb_g[i] : 0.f;
-        }
-    };
-    auto stash = [&](int buf) {
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-            s_in[buf][0][lane + 32 * k] = r_ce[k];
-            s_in[buf][1][lane + 32 * k] = r_eb[k];
-            s_in[buf][2][lane + 32 * k] = r_xb[k];
-        }
-    };
-
-    fetch(0);
-    stash(0);
+        for (int k = 0; k < N_GENE_STATES; ++k) v[k] = vin[VEC * c + k];
+    } else {
+        start_vector(v);
+    }
+    float c_ce = 0.f, c_eb = 0.f, c_xb = 0.f;
+    if (!RERUN && len > 0) {
+        c_ce = ce_g[ch.start];
+        c_eb = eb_g[ch.start];
+        c_xb = xb_g[ch.start];
+    }
+    bool constant = true;
     __syncwarp();
 
-    float vN = 0.f, vC0 = NEG, vC1 = NEG, vC2 = NEG, vI0 = NEG, vI1 = NEG, vI2 = NEG;
-    for (long long t = 0; t < n_tiles; ++t) {
-        const int buf = (int)(t & 1);
-        if (t + 1 < n_tiles) fetch(t + 1);  // in flight while lane 0 works on tile t
-        const int n = (int)(L - t * TILE < TILE ? L - t * TILE : TILE);
-        if (lane == 0) {
+    // Tile t holds, for each chunk j of the warp, its positions start_j + (t - pre) * GT + [0, GT).
+    auto stage = [&](int t, int buf) {
+        const int r = (t - pre) * GT + lane;
 #pragma unroll 4
-            for (int j = 0; j < n; ++j) {
-                const float ce = s_in[buf][0][j], eb = s_in[buf][1][j], xb = s_in[buf][2][j];
-                float nN = vN;
-                uint32_t bN = SN;
-                take(vC2 + xb, SC2, nN, bN);
-                float n0 = vN + eb;
-                uint32_t b0 = SN;
-                take(vC2, SC2, n0, b0);
-                take(vC1 + indel, SC1, n0, b0);
-                take(vI2, SI2, n0, b0);
-                float n1 = vC0;
-                uint32_t b1 = SC0;
-                take(vC2 + indel, SC2, n1, b1);
-                take(vI0, SI0, n1, b1);
-                float n2 = vC1;
-                uint32_t b2 = SC1;
-                take(vC0 + indel, SC0, n2, b2);
-                take(vI1, SI1, n2, b2);
-                n2 = n2 + ce;
-                float n4 = vC0 + indel;
-                uint32_t b4 = SC0;
-                take(vI0 + ins_extend, SI0, n4, b4);
-                float n5 = vC1 + indel;
-                uint32_t b5 = SC1;
-                take(vI1 + ins_extend, SI1, n5, b5);
-                float n6 = vC2 + indel;
-                uint32_t b6 = SC2;
-                take(vI2 + ins_extend, SI2, n6, b6);
-                nN = fmaxf(nN, NEG);
-                n0 = fmaxf(n0, NEG);
-                n1 = fmaxf(n1, NEG);
-                n2 = fmaxf(n2, NEG);
-                n4 = fmaxf(n4, NEG);
-                n5 = fmaxf(n5, NEG);
-                n6 = fmaxf(n6, NEG);
-                const float m = fmaxf(fmaxf(fmaxf(nN, n0), fmaxf(n1, n2)), fmaxf(fmaxf(n4, n5), n6));
-                vN = nN - m;
-                vC0 = n0 - m;
-                vC1 = n1 - m;
-                vC2 = n2 - m;
-                vI0 = n4 - m;
-                vI1 = n5 - m;
-                vI2 = n6 - m;
-                s_back[j] = bN | b0 << 3 | b1 << 6 | b2 << 9 | b4 << 12 | b5 << 15 | b6 << 18;
-            }
+        for (int j = 0; j < n_lanes; ++j) {
+            const bool live = r >= s_lo[j] && r < s_len[j];
+            const long long p = live ? s_start[j] + r : 0;
+            cp_async4(&s_in[buf][0][j][lane], ce_g + p, live);
+            cp_async4(&s_in[buf][1][j][lane], eb_g + p, live);
+            cp_async4(&s_in[buf][2][j][lane], xb_g + p, live);
         }
-        __syncwarp();
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-            const int j = lane + 32 * k;
-            if (j < n) back_g[t * TILE + j] = s_back[j];
-        }
-        if (t + 1 < n_tiles) stash(buf ^ 1);
-        __syncwarp();
-    }
+        cp_async_commit();
+    };
 
-    // The last state: the first maximum of the final scores.
-    uint32_t state = SN;
-    {
-        float best = vN;
-        take(vC0, SC0, best, state);
-        take(vC1, SC1, best, state);
-        take(vC2, SC2, best, state);
-        take(vI0, SI0, best, state);
-        take(vI1, SI1, best, state);
-        take(vI2, SI2, best, state);
-    }
-
-    // ---- reverse pass: each lane reads back the words it wrote ----
-    uint32_t r_back[PER_LANE];
-    auto fetch_back = [&](long long t) {
+    float v_start[N_GENE_STATES];
 #pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-            const long long i = t * TILE + lane + 32 * k;
-            r_back[k] = i < L ? back_g[i] : 0u;
+    for (int k = 0; k < N_GENE_STATES; ++k) v_start[k] = v[k];
+    // Step position r0 + i of tile `buf` for this lane's chunk.
+    auto step_at = [&](int buf, int i, bool body) {
+        const float ce = s_in[buf][0][lane][i], eb = s_in[buf][1][lane][i], xb = s_in[buf][2][lane][i];
+        const uint32_t word = gene_step(v, ce, eb, xb, indel, ins_extend);
+        if (body) {
+            s_bk[lane][i] = word;
+            if (!RERUN) constant = constant && same_bits(ce, c_ce) && same_bits(eb, c_eb) && same_bits(xb, c_xb);
         }
     };
-    fetch_back(n_tiles - 1);
-    for (long long t = n_tiles - 1; t >= 0; --t) {
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) s_back[lane + 32 * k] = r_back[k];
+    for (int t = 0; t < FWD_STAGES - 1; ++t) {
+        if (t < n_tiles) {
+            stage(t, t);
+        } else {
+            cp_async_commit();
+        }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+        const int ahead = t + FWD_STAGES - 1;
+        if (ahead < n_tiles) {
+            stage(ahead, ahead % FWD_STAGES);  // the buffer of tile t - 1, which every lane is done with
+        } else {
+            cp_async_commit();  // an empty group keeps the count of pending groups fixed
+        }
+        cp_async_wait<FWD_STAGES - 1>();
         __syncwarp();
-        if (t > 0) fetch_back(t - 1);  // in flight while lane 0 walks tile t
-        const int n = (int)(L - t * TILE < TILE ? L - t * TILE : TILE);
-        if (lane == 0) {
-            for (int j = n - 1; j >= 0; --j) {
-                s_state[j] = (int8_t)state;
-                state = (s_back[j] >> (3 * state)) & 7u;
+        const int buf = t % FWD_STAGES;
+        if (!RERUN && t == pre) {
+#pragma unroll
+            for (int k = 0; k < N_GENE_STATES; ++k) v_start[k] = v[k];
+        }
+        const int r0 = (t - pre) * GT;
+        const bool body = t >= pre;
+        if (r0 >= lo && r0 + GT <= len) {  // the whole tile is live
+#pragma unroll 4
+            for (int i = 0; i < GT; ++i) step_at(buf, i, body);
+        } else {
+#pragma unroll 4
+            for (int i = 0; i < GT; ++i) {
+                if (r0 + i >= lo && r0 + i < len) step_at(buf, i, body);
             }
         }
         __syncwarp();
-#pragma unroll
-        for (int k = 0; k < PER_LANE; ++k) {
-            const int j = lane + 32 * k;
-            if (j < n) state_g[t * TILE + j] = s_state[j];
+        if (body) {
+            const int r = r0 + lane;
+#pragma unroll 4
+            for (int j = 0; j < n_lanes; ++j) {
+                if (r < s_len[j]) back[s_start[j] + r] = s_bk[j][lane];
+            }
         }
         __syncwarp();
+    }
+    cp_async_wait<0>();
+    if (!has) return;
+#pragma unroll
+    for (int k = 0; k < N_GENE_STATES; ++k) vout[VEC * c + k] = v[k];
+    if (!RERUN) {
+#pragma unroll
+        for (int k = 0; k < N_GENE_STATES; ++k) vin[VEC * c + k] = v_start[k];
+        cval[4 * c] = c_ce;
+        cval[4 * c + 1] = c_eb;
+        cval[4 * c + 2] = c_xb;
+        cflag[c] = constant ? 1 : 0;
     }
 }
 
-__global__ void arch_viterbi_kernel(const float* __restrict__ emissions, const float* __restrict__ transitions,
-                                    const long long* __restrict__ offsets, long long rows, int S,
-                                    uint8_t* __restrict__ back,
-                                    int* __restrict__ paths, float* __restrict__ scores) {
-    __shared__ float prev[MAX_ARCH_STATES];
-    const int s = threadIdx.x;
+// Compares each chunk's start vector with the end vector of the chunk before
+// it (a strand's first chunk starts from the exact vector); a chunk that
+// differs takes that end vector as its start and is listed for a re-run, and
+// its strand's first such chunk is kept.
+__global__ void gene_check_kernel(const long long* __restrict__ chunks, int n_chunks, float* __restrict__ vin,
+                                  const float* __restrict__ vout, int* __restrict__ dirty, int* __restrict__ counters,
+                                  int* __restrict__ first_dirty) {
+    const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    if (c >= n_chunks) return;
+    const Chunk ch = load_chunk(chunks, c);
+    if (ch.start == ch.base) return;
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < N_GENE_STATES; ++k) same = same && same_bits(vin[VEC * c + k], vout[VEC * (c - 1) + k]);
+    if (same) return;
+#pragma unroll
+    for (int k = 0; k < N_GENE_STATES; ++k) vin[VEC * c + k] = vout[VEC * (c - 1) + k];
+    dirty[atomicAdd(&counters[0], 1)] = c;
+    atomicMin(&first_dirty[ch.chain], c);
+}
+
+// Per strand, one warp, after the round's re-runs.  The strand's first
+// differing chunk k0 started exactly, so it now ends exactly too.  A chunk k,
+// k0 or else k0 + 1, whose start (the end of chunk k - 1) is thus exact and
+// whose input is one repeated value: if three steps of that input bring its
+// start vector back bit for bit, the vector and the backpointer word repeat
+// every three positions from there for as long as the input repeats.  Keeps k
+// and the last chunk m of that run (runs[2 chain], runs[2 chain + 1]; m = -1
+// for none) and the three steps' vectors and words (pattern[chain]).
+__global__ void __launch_bounds__(32) gene_fill_test_kernel(
+    const long long* __restrict__ chain_chunks, const int* __restrict__ first_dirty, const int* __restrict__ cflag,
+    const float* __restrict__ cval, const float* __restrict__ vout, float indel, float ins_extend,
+    int* __restrict__ runs, float* __restrict__ pattern) {
+    const int chain = blockIdx.x, lane = threadIdx.x;
+    const int end = (int)chain_chunks[chain + 1];
+    const int k0 = first_dirty[chain];
+    int k = NO_CHUNK;
+    float u[3][N_GENE_STATES];
+    uint32_t w[3];
+    for (int cand = k0; k == NO_CHUNK && k0 != NO_CHUNK && cand <= k0 + 1 && cand < end; ++cand) {
+        if (!cflag[cand]) continue;
+        float x[N_GENE_STATES];
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) x[q] = vout[VEC * (cand - 1) + q];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+            w[j] = gene_step(x, cval[4 * cand], cval[4 * cand + 1], cval[4 * cand + 2], indel, ins_extend);
+#pragma unroll
+            for (int q = 0; q < N_GENE_STATES; ++q) u[j][q] = x[q];
+        }
+        bool periodic = true;
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) periodic = periodic && same_bits(u[2][q], vout[VEC * (cand - 1) + q]);
+        if (periodic) k = cand;
+    }
+    if (k == NO_CHUNK) {
+        if (lane == 0) runs[2 * chain + 1] = -1;
+        return;
+    }
+    const float ce = cval[4 * k], eb = cval[4 * k + 1], xb = cval[4 * k + 2];
+    // The run: chunk k and every following chunk of the strand with the same repeated input.
+    int m = k;
+    for (int base = k + 1; base < end; base += 32) {
+        const int j = base + lane;
+        const bool same = j < end && cflag[j] && same_bits(cval[4 * j], ce) && same_bits(cval[4 * j + 1], eb) &&
+                          same_bits(cval[4 * j + 2], xb);
+        const unsigned differ = __ballot_sync(FULL, !same);
+        if (differ) {
+            m = base + __ffs(differ) - 2;
+            break;
+        }
+        m = base + 31;
+    }
+    if (lane == 0) {
+        runs[2 * chain] = k;
+        runs[2 * chain + 1] = m;
+        float* pat = pattern + 32 * chain;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+            for (int q = 0; q < N_GENE_STATES; ++q) pat[VEC * j + q] = u[j][q];
+            pat[24 + j] = __uint_as_float(w[j]);
+        }
+    }
+}
+
+// One block a chunk: a chunk inside its strand's run (gene_fill_test_kernel)
+// takes the three-step pattern: position p's word is the pattern's word
+// (p - start_k) mod 3, its end vector likewise, and its start vector the end
+// vector of the chunk before it (for chunk k, the start it was tested from).
+__global__ void gene_fill_kernel(const long long* __restrict__ chunks, const int* __restrict__ runs,
+                                 const float* __restrict__ pattern, uint32_t* __restrict__ back,
+                                 float* __restrict__ vin, float* __restrict__ vout, int* __restrict__ counters) {
+    const int c = blockIdx.x;
+    const Chunk ch = load_chunk(chunks, c);
+    const int k = runs[2 * ch.chain], m = runs[2 * ch.chain + 1];
+    if (m < 0 || c < k || c > m) return;
+    const long long s_k = chunks[4 * k];
+    const float* pat = pattern + 32 * ch.chain;
+    const uint32_t w[3] = {__float_as_uint(pat[24]), __float_as_uint(pat[25]), __float_as_uint(pat[26])};
+    for (long long p = ch.start + threadIdx.x; p < ch.end; p += blockDim.x) back[p] = w[(p - s_k) % 3];
+    if (threadIdx.x == 0) {
+        const int last = (int)((ch.end - 1 - s_k) % 3);
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) vout[VEC * c + q] = pat[VEC * last + q];
+        const int before = (int)((ch.start - 1 - s_k + 3) % 3);  // 2 for chunk k: its start, u2
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) vin[VEC * c + q] = pat[VEC * before + q];
+        atomicAdd(&counters[1], 1);
+    }
+}
+
+// Walks 32 chunks a warp back from their ends, one a lane, a tile of
+// backpointer words at a time (staged one tile ahead with cp.async).  MAP:
+// from all seven end states at once; writes the chunk's map (the state before
+// the chunk for each end state, 3 bits each).  Otherwise from the chunk's end
+// state (xend); writes the state bytes.
+template <bool MAP>
+__global__ void __launch_bounds__(32) gene_walk_kernel(const long long* __restrict__ chunks, int n_chunks, int chunk,
+                                                       const uint32_t* __restrict__ back,
+                                                       uint32_t* __restrict__ maps, const int* __restrict__ xend,
+                                                       int8_t* __restrict__ states) {
+    __shared__ uint32_t s_bk[WALK_STAGES][32][GT + 1];
+    __shared__ int8_t s_st[32][GT + 4];
+    __shared__ long long s_end[32];
+    __shared__ int s_len[32];
+
+    const int lane = threadIdx.x;
+    const int c = blockIdx.x * 32 + lane;
+    const bool has = c < n_chunks;
+    const int n_lanes = n_chunks - blockIdx.x * 32 < 32 ? n_chunks - blockIdx.x * 32 : 32;  // chunks of this warp
+    const Chunk ch = has ? load_chunk(chunks, c) : Chunk{0, 0, 0, 0};
+    const int len = (int)(ch.end - ch.start);
+    s_end[lane] = ch.end;
+    s_len[lane] = len;
+    const int n_tiles = (chunk + GT - 1) / GT;
+    __syncwarp();
+
+    // Tile t holds, for each chunk j, its positions end_j - GT * (t + 1) + [0, GT).
+    auto stage = [&](int t, int buf) {
+        const int r = -GT * (t + 1) + lane;  // from the chunk's end
+#pragma unroll 4
+        for (int j = 0; j < n_lanes; ++j) {
+            const bool live = r >= -s_len[j];
+            cp_async4(&s_bk[buf][j][lane], back + (live ? s_end[j] + r : 0), live);
+        }
+        cp_async_commit();
+    };
+
+    uint32_t x[MAP ? N_GENE_STATES : 1];
+    if constexpr (MAP) {
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) x[q] = q;
+    } else {
+        x[0] = has ? (uint32_t)xend[c] : 0u;
+    }
+    for (int t = 0; t < WALK_STAGES - 1; ++t) {
+        if (t < n_tiles) {
+            stage(t, t);
+        } else {
+            cp_async_commit();
+        }
+    }
+    for (int t = 0; t < n_tiles; ++t) {
+        const int ahead = t + WALK_STAGES - 1;
+        if (ahead < n_tiles) {
+            stage(ahead, ahead % WALK_STAGES);
+        } else {
+            cp_async_commit();
+        }
+        cp_async_wait<WALK_STAGES - 1>();
+        __syncwarp();
+        const int buf = t % WALK_STAGES;
+        const int r0 = -GT * (t + 1);
+#pragma unroll 4
+        for (int i = GT - 1; i >= 0; --i) {
+            if (r0 + i >= -len) {
+                const uint32_t word = s_bk[buf][lane][i];
+                if constexpr (MAP) {
+#pragma unroll
+                    for (int q = 0; q < N_GENE_STATES; ++q) x[q] = (word >> (3 * x[q])) & 7u;
+                } else {
+                    s_st[lane][i] = (int8_t)x[0];
+                    x[0] = (word >> (3 * x[0])) & 7u;
+                }
+            }
+        }
+        __syncwarp();
+        if (!MAP) {
+            const int r = r0 + lane;
+#pragma unroll 4
+            for (int j = 0; j < n_lanes; ++j) {
+                if (r >= -s_len[j]) states[s_end[j] + r] = s_st[j][lane];
+            }
+        }
+        __syncwarp();
+    }
+    cp_async_wait<0>();
+    if (MAP && has) {
+        uint32_t packed = 0;
+#pragma unroll
+        for (int q = 0; q < N_GENE_STATES; ++q) packed |= x[q] << (3 * q);
+        maps[c] = packed;
+    }
+}
+
+// (f o g)(x) = f(g(x)) for maps of the seven states, 3 bits an entry.
+__device__ __forceinline__ uint32_t compose(uint32_t f, uint32_t g) {
+    uint32_t r = 0;
+#pragma unroll
+    for (int x = 0; x < N_GENE_STATES; ++x) {
+        const uint32_t gx = (g >> (3 * x)) & 7u;
+        r |= ((f >> (3 * gx)) & 7u) << (3 * x);
+    }
+    return r;
+}
+
+// One step of the warp's suffix scan of maps: lane i composes its map with lane i + D's.
+template <int D>
+__device__ __forceinline__ uint32_t suffix_step(uint32_t m, int lane) {
+    const uint32_t later = __shfl_down_sync(FULL, m, D);
+    return lane + D < 32 ? compose(m, later) : m;
+}
+
+// One warp a strand: its last state is the first argmax of its last chunk's
+// end vector.  The chunk before chunk k ends in map_k(end state of k); the warp
+// takes the strand's chunks 32 at a time from the last, lane i holding chunk
+// hi - 31 + i, and a suffix scan of the 32 maps gives every chunk of the group
+// its end state at once, and the state the group before ends in.
+__global__ void __launch_bounds__(32) gene_link_kernel(const long long* __restrict__ chain_chunks,
+                                                       const float* __restrict__ vout,
+                                                       const uint32_t* __restrict__ maps, int* __restrict__ xend) {
+    const int chain = blockIdx.x, lane = threadIdx.x;
+    const int first = (int)chain_chunks[chain], last = (int)chain_chunks[chain + 1] - 1;
+    if (last < first) return;
+    uint32_t x = SN;
+    {
+        float best = vout[VEC * last];
+#pragma unroll
+        for (int q = 1; q < N_GENE_STATES; ++q) take(vout[VEC * last + q], (uint32_t)q, best, x);
+    }
+    uint32_t next = last - 31 + lane >= first ? maps[last - 31 + lane] : IDENTITY_MAP;
+    for (int hi = last; hi >= first; hi -= 32) {
+        const int k = hi - 31 + lane;
+        uint32_t m = next;
+        next = k - 32 >= first ? maps[k - 32] : IDENTITY_MAP;  // the group before, loaded ahead
+        m = suffix_step<1>(m, lane);  // now lane i holds map_i o ... o map_31 of the group
+        m = suffix_step<2>(m, lane);
+        m = suffix_step<4>(m, lane);
+        m = suffix_step<8>(m, lane);
+        m = suffix_step<16>(m, lane);
+        const uint32_t after = __shfl_down_sync(FULL, m, 1);  // lane i + 1's: the end state of chunk k
+        if (k >= first) xend[k] = (int)(lane == 31 ? x : (after >> (3 * x)) & 7u);
+        x = (__shfl_sync(FULL, m, 0) >> (3 * x)) & 7u;
+    }
+}
+
+// ---- the architectural decode ------------------------------------------------------------------
+
+// One level of tree_pick: the pair (q, q + D) keeps q unless q + D is strictly greater.
+template <int D>
+__device__ __forceinline__ void tree_level(float (&val)[32], int (&idx)[32]) {
+#pragma unroll
+    for (int q = 0; q < 32; q += 2 * D) {
+        if (val[q + D] > val[q]) {
+            val[q] = val[q + D];
+            idx[q] = idx[q + D];
+        }
+    }
+}
+
+// The first maximum of 32 candidates: a tree over (value, index) pairs of
+// neighbours that keeps the left, lower, index unless the right is strictly
+// greater.  Leaves at index base + q.  Every level is written out, so every
+// index is a constant and the candidates stay in registers.
+__device__ __forceinline__ void tree_pick(float (&val)[32], int base, float& best, int& arg) {
+    int idx[32];
+#pragma unroll
+    for (int q = 0; q < 32; ++q) idx[q] = base + q;
+    tree_level<1>(val, idx);
+    tree_level<2>(val, idx);
+    tree_level<4>(val, idx);
+    tree_level<8>(val, idx);
+    tree_level<16>(val, idx);
+    best = val[0];
+    arg = idx[0];
+}
+
+// One warp a contig; lane l holds the states l + 32 r, r < R.  The
+// transitions' columns are in registers (R == 1) or read through `tsrc`, in
+// shared memory or device memory (R > 1).  Dynamic shared memory: the
+// emission tiles (2 x ARCH_ROWS x S floats), the backpointer tile
+// (ARCH_ROWS x pitch bytes), the walk's two backpointer tiles
+// (ARCH_BACK_ROWS x pitch bytes each, in the emission tiles' room when it is
+// free) and path tile, then the transitions when they are kept there.
+template <int R>
+__global__ void __launch_bounds__(32) arch_viterbi_kernel(
+    const float* __restrict__ emissions, const float* __restrict__ transitions, const long long* __restrict__ offsets,
+    long long rows, int S, int pitch, int trans_smem, uint8_t* __restrict__ back, int* __restrict__ paths,
+    float* __restrict__ scores) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ __align__(16) float s_prev[MAX_ARCH_STATES];  // the previous row's scores
+    const int lane = threadIdx.x;
     const long long row0 = offsets[blockIdx.x];
     const long long n = offsets[blockIdx.x + 1] - row0;
     if (n <= 0 || row0 < 0 || row0 + n > rows) return;  // empty, or bounds outside the emissions
-    const float* em = emissions + row0 * S;
-    uint8_t* bk = back + row0 * S;
-    const bool live = s < S;
 
-    float cur = live ? transitions[s] + em[s] : 0.f;  // transitions[0] + emissions[0]
-    for (long long i = 1; i < n; ++i) {
-        if (live) prev[s] = cur;
-        __syncthreads();
-        if (live) {
-            float best = prev[0] + transitions[s];
-            uint32_t arg = 0;
-            for (int p = 1; p < S; ++p) take(prev[p] + transitions[p * S + s], (uint32_t)p, best, arg);
-            cur = best + em[i * S + s];
-            bk[i * S + s] = (uint8_t)arg;
-        }
-        __syncthreads();
+    const int em_tile = ARCH_ROWS * S;
+    const int fwd_bytes = 2 * em_tile * 4 + ARCH_ROWS * pitch;
+    const int bwd_bytes = 2 * ARCH_BACK_ROWS * pitch + ARCH_BACK_ROWS * 4;
+    const int room = ((fwd_bytes > bwd_bytes ? fwd_bytes : bwd_bytes) + 15) / 16 * 16;
+    float* s_em = reinterpret_cast<float*>(smem);
+    uint8_t* s_bk = smem + 2 * em_tile * 4;
+    float* s_trans = reinterpret_cast<float*>(smem + room);
+    const float* em = emissions + row0 * S;
+    uint8_t* bk = back + row0 * pitch;
+
+    const float* tsrc = transitions;
+    if (R > 1 && trans_smem) {
+        for (int f = lane; f < S * S; f += 32) s_trans[f] = transitions[f];
+        __syncwarp();
+        tsrc = s_trans;
     }
-    if (s == S - 1) scores[blockIdx.x] = cur;
-    __syncthreads();  // every backpointer of the block is written
-    if (s == 0) {
-        int* path = paths + row0;
-        int state = S - 1;  // forced end in POST
-        path[n - 1] = state;
-        for (long long i = n - 1; i >= 1; --i) {
-            state = bk[i * S + state];
-            path[i - 1] = state;
-        }
+    float tcol[R == 1 ? 32 : 1];
+    if constexpr (R == 1) {
+#pragma unroll
+        for (int q = 0; q < 32; ++q) tcol[q] = (q < S && lane < S) ? transitions[q * S + lane] : -CUDART_INF_F;
     }
+
+    float cur[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        const int s = lane + 32 * r;
+        cur[r] = s < S ? transitions[s] + em[s] : -CUDART_INF_F;  // transitions[0] + emissions[0]
+    }
+
+    // Emission tile t: rows t * ARCH_ROWS + [0, ARCH_ROWS) of the contig, S floats a row.
+    auto stage = [&](long long t, int buf) {
+        const long long first = t * ARCH_ROWS;
+        const long long live_f = (n - first < ARCH_ROWS ? n - first : ARCH_ROWS) * S;
+        for (int f = lane; f < em_tile; f += 32) {
+            const bool live = f < live_f;
+            cp_async4(&s_em[buf * em_tile + f], em + (live ? first * S + f : 0), live);
+        }
+        cp_async_commit();
+    };
+
+    const long long n_tiles = (n + ARCH_ROWS - 1) / ARCH_ROWS;
+    stage(0, 0);
+    for (long long t = 0; t < n_tiles; ++t) {
+        const int buf = (int)(t & 1);
+        if (t + 1 < n_tiles) {
+            stage(t + 1, buf ^ 1);
+        } else {
+            cp_async_commit();
+        }
+        cp_async_wait<1>();
+        __syncwarp();
+        const int n_rows = (int)(n - t * ARCH_ROWS < ARCH_ROWS ? n - t * ARCH_ROWS : ARCH_ROWS);
+        const float* tile = s_em + buf * em_tile;
+        for (int i = (t == 0 ? 1 : 0); i < n_rows; ++i) {
+            float best[R];
+            int arg[R];
+#pragma unroll
+            for (int r = 0; r < R; ++r) s_prev[lane + 32 * r] = cur[r];
+            __syncwarp();
+#pragma unroll
+            for (int rb = 0; rb < R; ++rb) {  // predecessors 32 rb + [0, 32)
+                float pv[32];
+#pragma unroll
+                for (int q = 0; q < 32; ++q) pv[q] = s_prev[32 * rb + q];  // the same address in every lane
+#pragma unroll
+                for (int r = 0; r < R; ++r) {
+                    const int s = lane + 32 * r;
+                    float cand[32];
+                    if constexpr (R == 1) {
+#pragma unroll
+                        for (int q = 0; q < 32; ++q) cand[q] = pv[q] + tcol[q];
+                    } else {
+#pragma unroll
+                        for (int q = 0; q < 32; ++q) {
+                            const int p = 32 * rb + q;
+                            cand[q] = (p < S && s < S) ? pv[q] + tsrc[p * S + s] : -CUDART_INF_F;
+                        }
+                    }
+                    float b;
+                    int a;
+                    tree_pick(cand, 32 * rb, b, a);
+                    if (rb == 0 || b > best[r]) {
+                        best[r] = b;
+                        arg[r] = a;
+                    }
+                }
+            }
+            __syncwarp();  // every lane has read s_prev before it is written again
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+                const int s = lane + 32 * r;
+                if (s < S) {
+                    cur[r] = best[r] + tile[i * S + s];
+                    s_bk[i * pitch + s] = (uint8_t)arg[r];
+                }
+            }
+        }
+        __syncwarp();
+        // Store the tile's backpointer rows (pitch bytes each, 16-byte aligned) with 16-byte stores.
+        const int chunks16 = n_rows * pitch / 16;
+        uint4* dst = reinterpret_cast<uint4*>(bk + t * ARCH_ROWS * pitch);
+        const uint4* src = reinterpret_cast<const uint4*>(s_bk);
+        for (int f = lane; f < chunks16; f += 32) dst[f] = src[f];
+        __syncwarp();
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+        if (lane + 32 * r == S - 1) scores[blockIdx.x] = cur[r];
+    }
+    __syncwarp();
+
+    // The walk back from POST, in tiles of ARCH_BACK_ROWS rows from the end; the
+    // tile before is staged while lane 0 walks.
+    uint8_t* w_bk = smem;  // two tiles of ARCH_BACK_ROWS x pitch bytes
+    int* w_path = reinterpret_cast<int*>(smem + 2 * ARCH_BACK_ROWS * pitch);
+    const int back_tile = ARCH_BACK_ROWS * pitch;
+    const long long n_back = (n + ARCH_BACK_ROWS - 1) / ARCH_BACK_ROWS;
+    auto stage_back = [&](long long t, int buf) {  // tile t holds rows [n - (t + 1) B, n - t B) clipped at 0
+        const long long hi = n - t * ARCH_BACK_ROWS;
+        const long long lo = hi - ARCH_BACK_ROWS > 0 ? hi - ARCH_BACK_ROWS : 0;
+        const int chunks16 = (int)(hi - lo) * pitch / 16;
+        for (int f = lane; f < chunks16; f += 32) cp_async16(w_bk + buf * back_tile + 16 * f, bk + lo * pitch + 16 * f);
+        cp_async_commit();
+    };
+    int state = S - 1;  // forced end in POST
+    stage_back(0, 0);
+    for (long long t = 0; t < n_back; ++t) {
+        const int buf = (int)(t & 1);
+        if (t + 1 < n_back) {
+            stage_back(t + 1, buf ^ 1);
+        } else {
+            cp_async_commit();
+        }
+        cp_async_wait<1>();
+        __syncwarp();
+        const long long hi = n - t * ARCH_BACK_ROWS;
+        const long long lo = hi - ARCH_BACK_ROWS > 0 ? hi - ARCH_BACK_ROWS : 0;
+        const int rows_here = (int)(hi - lo);
+        if (lane == 0) {
+            const uint8_t* tb = w_bk + buf * back_tile;
+            const int last = lo == 0 ? 1 : 0;  // the contig's row 0 has no predecessor
+            for (int i = rows_here - 1; i >= last; --i) {
+                w_path[i] = state;
+                state = tb[i * pitch + state];
+            }
+            if (last) w_path[0] = state;
+        }
+        __syncwarp();
+        for (int f = lane; f < rows_here; f += 32) paths[row0 + lo + f] = w_path[f];
+        __syncwarp();
+    }
+    cp_async_wait<0>();
 }
+
+int arch_pitch(int S) { return (S + 15) / 16 * 16; }
+
+size_t arch_smem_bytes(int S, int R) {
+    const int pitch = arch_pitch(S);
+    const int fwd = 2 * ARCH_ROWS * S * 4 + ARCH_ROWS * pitch;
+    const int bwd = 2 * ARCH_BACK_ROWS * pitch + ARCH_BACK_ROWS * 4;
+    const size_t room = ((fwd > bwd ? fwd : bwd) + 15) / 16 * 16;
+    const bool trans_smem = R > 1 && S <= ARCH_SMEM_TRANSITIONS;
+    return room + (trans_smem ? (size_t)S * S * 4 : 0);
+}
+
+template <int R>
+int launch_arch(const float* em, const float* trans, const long long* offsets, int n_contigs, long long rows, int S,
+                uint8_t* back, int* paths, float* scores, cudaStream_t stream) {
+    const size_t smem = arch_smem_bytes(S, R);
+    cudaError_t err = cudaFuncSetAttribute(arch_viterbi_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int trans_smem = R > 1 && S <= ARCH_SMEM_TRANSITIONS;
+    arch_viterbi_kernel<R><<<n_contigs, 32, smem, stream>>>(em, trans, offsets, rows, S, arch_pitch(S), trans_smem,
+                                                             back, paths, scores);
+    return (int)cudaGetLastError();
+}
+
+// Gene workspace, in 4-byte words: vin, vout (VEC a chunk), cval (4 a chunk),
+// cflag, dirty, maps, xend (1 a chunk), first_dirty (1 a strand), runs (2 a
+// strand), pattern (32 a strand), two counters.
+size_t gene_workspace_words(long long n_chunks, long long n_chains) { return 24 * n_chunks + 35 * n_chains + 2; }
 
 }  // namespace
 
 extern "C" {
 
 int kts_arch_max_states() { return MAX_ARCH_STATES; }
+int kts_gene_chunk() { return GENE_CHUNK; }
+int kts_gene_warmup() { return GENE_WARMUP; }
+int kts_arch_pitch(int S) { return arch_pitch(S); }
+long long kts_gene_workspace_words(long long n_chunks, long long n_chains) {
+    return (long long)gene_workspace_words(n_chunks, n_chains);
+}
 
-// Gene-HMM Viterbi over `n_chains` chains laid end to end in the `total`
-// positions of the three inputs (chain c is [offsets[c], offsets[c + 1]); the
-// caller checks that the offsets run from 0 to `total` without decreasing, and
-// the kernel skips a chain outside them); `back` is scratch of one word a position.
-// Launches on `stream`; returns the launch's CUDA error.
-int kts_gene_viterbi(const void* codemit, const void* entry_b, const void* exit_b, const void* offsets,
-                     int n_chains, long long total, float indel, float ins_extend, void* back, void* states,
-                     void* stream) {
-    if (n_chains <= 0) return 0;
-    gene_viterbi_kernel<<<n_chains, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(codemit), static_cast<const float*>(entry_b),
-        static_cast<const float*>(exit_b), static_cast<const long long*>(offsets), total, indel, ins_extend,
-        static_cast<uint32_t*>(back), static_cast<int8_t*>(states));
+// Gene-HMM Viterbi over strands laid end to end in the three inputs.  The
+// caller cuts them into `n_chunks` chunks of at most `chunk` positions
+// (`chunks`: int64 start, end, strand start, strand index a chunk, in strand
+// order; `chain_chunks`: the first chunk of each of the `n_chains` strands and
+// the total), allocates `back` (a word a position) and `workspace`
+// (kts_gene_workspace_words), and checks the bounds.  `warmup` is the guess's
+// run before a chunk (GENE_WARMUP; 0 forces every chunk but a strand's first
+// to be re-run).  Launches on `stream` and waits on it once a fix-up round;
+// stats (host): chunks, fix-up rounds, re-run chunks, chunks filled from a
+// three-step pattern.  Returns the first CUDA error.
+int kts_gene_viterbi(const void* codemit, const void* entry_b, const void* exit_b, const void* chunks,
+                     const void* chain_chunks, int n_chunks, int n_chains, int chunk, int warmup, float indel,
+                     float ins_extend, void* back, void* states, void* workspace, long long* stats, void* stream) {
+    stats[0] = n_chunks;
+    stats[1] = stats[2] = stats[3] = 0;
+    if (n_chunks <= 0) return 0;
+    if (chunk < 1 || warmup < 0) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* ce = static_cast<const float*>(codemit);
+    const float* eb = static_cast<const float*>(entry_b);
+    const float* xb = static_cast<const float*>(exit_b);
+    const long long* tab = static_cast<const long long*>(chunks);
+    const long long* cc = static_cast<const long long*>(chain_chunks);
+    uint32_t* bk = static_cast<uint32_t*>(back);
+    float* ws = static_cast<float*>(workspace);
+    const long long n = n_chunks, nc = n_chains;
+    float* vin = ws;
+    float* vout = vin + VEC * n;
+    float* cval = vout + VEC * n;
+    int* cflag = reinterpret_cast<int*>(cval + 4 * n);
+    int* dirty = cflag + n;
+    uint32_t* maps = reinterpret_cast<uint32_t*>(dirty + n);
+    int* xend = reinterpret_cast<int*>(maps + n);
+    int* first_dirty = xend + n;
+    int* runs = first_dirty + nc;
+    float* pattern = reinterpret_cast<float*>(runs + 2 * nc);
+    int* counters = reinterpret_cast<int*>(pattern + 32 * nc);  // re-runs listed this round, chunks filled
+
+    const int blocks = (n_chunks + 31) / 32;
+    gene_forward_kernel<false><<<blocks, 32, 0, st>>>(ce, eb, xb, tab, nullptr, n_chunks, chunk, warmup, indel,
+                                                      ins_extend, bk, vin, vout, cval, cflag);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    if ((err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), st)) != cudaSuccess) return (int)err;
+    for (;;) {
+        if ((err = cudaMemsetAsync(counters, 0, sizeof(int), st)) != cudaSuccess) return (int)err;
+        if ((err = cudaMemsetAsync(first_dirty, 0x7f, nc * sizeof(int), st)) != cudaSuccess) return (int)err;
+        gene_check_kernel<<<(n_chunks + 127) / 128, 128, 0, st>>>(tab, n_chunks, vin, vout, dirty, counters,
+                                                                  first_dirty);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+        int counts[2];
+        if ((err = cudaMemcpyAsync(counts, counters, sizeof(counts), cudaMemcpyDeviceToHost, st)) != cudaSuccess)
+            return (int)err;
+        if ((err = cudaStreamSynchronize(st)) != cudaSuccess) return (int)err;
+        stats[3] = counts[1];
+        if (counts[0] == 0) break;
+        if (stats[1] >= n) return (int)cudaErrorUnknown;  // each round makes one more chunk of every strand exact
+        stats[1] += 1;
+        stats[2] += counts[0];
+        gene_forward_kernel<true><<<(counts[0] + 31) / 32, 32, 0, st>>>(
+            ce, eb, xb, tab, dirty, counts[0], chunk, 0, indel, ins_extend, bk, vin, vout, cval, cflag);
+        gene_fill_test_kernel<<<n_chains, 32, 0, st>>>(cc, first_dirty, cflag, cval, vout, indel, ins_extend, runs,
+                                                       pattern);
+        gene_fill_kernel<<<n_chunks, 128, 0, st>>>(tab, runs, pattern, bk, vin, vout, counters);
+        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    gene_walk_kernel<true><<<blocks, 32, 0, st>>>(tab, n_chunks, chunk, bk, maps, nullptr, nullptr);
+    gene_link_kernel<<<n_chains, 32, 0, st>>>(cc, vout, maps, xend);
+    gene_walk_kernel<false><<<blocks, 32, 0, st>>>(tab, n_chunks, chunk, bk, nullptr, xend,
+                                                   static_cast<int8_t*>(states));
     return (int)cudaGetLastError();
 }
 
 // Architectural Viterbi over `n_contigs` contigs of S states (contig c owns
 // rows [offsets[c], offsets[c + 1]) of the `rows` emission rows; the caller
-// checks that the offsets run from 0 to `rows` and that no contig is empty, and
-// the kernel skips a contig outside them); `back` is scratch of one byte a row and state.
-// Launches on `stream`; returns the launch's CUDA error.
+// checks that the offsets run from 0 to `rows` and that no contig is empty,
+// and the kernel skips a contig outside them); `back` is scratch of
+// kts_arch_pitch(S) bytes a row.  Launches on `stream`; returns the launch's
+// CUDA error.
 int kts_arch_viterbi(const void* emissions, const void* transitions, const void* offsets, int n_contigs,
                      long long rows, int S, void* back, void* paths, void* scores, void* stream) {
     if (n_contigs <= 0) return 0;
     if (S < 1 || S > MAX_ARCH_STATES) return (int)cudaErrorInvalidValue;
-    const int threads = (S + 31) / 32 * 32;
-    arch_viterbi_kernel<<<n_contigs, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(emissions), static_cast<const float*>(transitions),
-        static_cast<const long long*>(offsets), rows, S, static_cast<uint8_t*>(back), static_cast<int*>(paths),
-        static_cast<float*>(scores));
-    return (int)cudaGetLastError();
+    const float* em = static_cast<const float*>(emissions);
+    const float* tr = static_cast<const float*>(transitions);
+    const long long* off = static_cast<const long long*>(offsets);
+    uint8_t* bk = static_cast<uint8_t*>(back);
+    int* pa = static_cast<int*>(paths);
+    float* sc = static_cast<float*>(scores);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (S <= 32) return launch_arch<1>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
+    if (S <= 64) return launch_arch<2>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
+    if (S <= 128) return launch_arch<4>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
+    return launch_arch<8>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
 }
 
 }  // extern "C"

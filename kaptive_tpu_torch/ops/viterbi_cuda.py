@@ -7,24 +7,29 @@ max-plus decode).  The library is compiled at first use
 (:mod:`kaptive_tpu_torch.utils.nvcc`) and loaded with ctypes; nothing is
 compiled at import.
 
-``gene_viterbi_kernel``: one warp per chain; lane 0 runs the recursion with
-the seven scores in registers while the warp stages the next 128 positions'
-inputs and stores the packed backpointers (seven 3-bit source states in one
-word a position), then walks the words back from the end.
-``arch_viterbi_kernel``: one block per contig, one thread per state, the
-backtrace by one thread.  The design notes are at the head of the source.
+The gene decode runs every strand in chunks of ``kts_gene_chunk()``
+positions, all at once, each from a guess (the forward run over the
+``kts_gene_warmup()`` positions before it); fix-up rounds on the card re-run
+the chunks whose guessed start differs, bit for bit, from the end of the chunk
+before, and fill runs of one repeated input (a strand's pad tail) from a
+three-step pattern; the backtrace composes each chunk's map of end states.
+:func:`gene_chunk_table` cuts the strands here, on the host.  The
+architectural decode runs one warp a contig, one lane a state, with a tree
+pick and no block barrier.  The design notes are at the head of the source.
 
 Each wrapper checks device, dtype, shape and contiguity, reads the chain
 offsets on the host and checks them as the plain forms do, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
-raises if the launch returns a CUDA error, and counts the launch as
+raises if a launch returns a CUDA error, and counts the decode as
 ``viterbi.cuda.gene`` / ``viterbi.cuda.arch`` in
-:mod:`kaptive_tpu_torch.utils.metrics`.  There is no fallback.
+:mod:`kaptive_tpu_torch.utils.metrics`.  The gene decode waits on the stream
+once a fix-up round (it reads how many chunks differ).  There is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -36,10 +41,15 @@ from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.kts_arch_max_states.restype = i32
-    lib.kts_arch_max_states.argtypes = []
+    for name in ("kts_arch_max_states", "kts_gene_chunk", "kts_gene_warmup"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = []
+    lib.kts_arch_pitch.restype = i32
+    lib.kts_arch_pitch.argtypes = [i32]
+    lib.kts_gene_workspace_words.restype = i64
+    lib.kts_gene_workspace_words.argtypes = [i64, i64]
     lib.kts_gene_viterbi.restype = i32
-    lib.kts_gene_viterbi.argtypes = [ptr] * 4 + [i32, i64, f32, f32] + [ptr] * 3
+    lib.kts_gene_viterbi.argtypes = [ptr] * 5 + [i32] * 4 + [f32, f32] + [ptr] * 3 + [ctypes.POINTER(i64), ptr]
     lib.kts_arch_viterbi.restype = i32
     lib.kts_arch_viterbi.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 4
 
@@ -52,20 +62,48 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def _chain_lengths(offsets: torch.Tensor, device: torch.device, total: int) -> np.ndarray:
-    r"""The lengths of the chains ``offsets`` bounds, read on the host and checked as the
-    plain forms check them (:func:`chain_bounds`): the kernels trust every bound."""
+def _chain_bounds(offsets: torch.Tensor, device: torch.device, total: int) -> np.ndarray:
+    r"""The chain bounds ``offsets`` holds, read on the host and checked as the plain forms
+    check them (:func:`chain_bounds`): the kernels trust every bound."""
     if offsets.dim() != 1 or offsets.shape[0] < 1:
         raise ValueError(f"offsets: expected a 1-D tensor of chains + 1 bounds, got {tuple(offsets.shape)}")
     check_tensor("offsets", offsets, torch.int64, (offsets.shape[0],), device)
-    return np.diff(chain_bounds(offsets, total))
+    return chain_bounds(offsets, total)
 
 
-def gene_viterbi_cuda(
+def gene_chunk_table(bounds: np.ndarray, chunk: int) -> tuple[np.ndarray, np.ndarray]:
+    r"""Cut the chains ``bounds`` delimits into chunks of at most ``chunk`` positions.
+
+    Returns ``(chunks, chain_chunks)``: (n, 4) int64 rows of a chunk's
+    ``[start, end)``, its chain's start and its chain's index, in chain order;
+    and (chains + 1,) int64, the first chunk of each chain and the total.  An
+    empty chain has no chunk.
+    """
+    bounds = np.asarray(bounds, dtype=np.int64)
+    per_chain = -(-np.diff(bounds) // chunk)
+    chain_chunks = np.concatenate([[0], np.cumsum(per_chain)]).astype(np.int64)
+    chain = np.repeat(np.arange(len(per_chain)), per_chain)
+    start = bounds[chain] + (np.arange(chain_chunks[-1]) - chain_chunks[chain]) * chunk
+    end = np.minimum(start + chunk, bounds[chain + 1])
+    return np.stack([start, end, bounds[chain], chain], axis=1).astype(np.int64), chain_chunks
+
+
+class GeneDecodeStats(NamedTuple):
+    r"""What a gene decode did: its chunks, fix-up rounds, chunks re-run in them, and chunks
+    filled from a three-step pattern (runs of one repeated input)."""
+
+    chunks: int
+    rounds: int
+    reruns: int
+    filled: int
+
+
+def _gene_launch(
     codemit: torch.Tensor, entry_b: torch.Tensor, exit_b: torch.Tensor, offsets: torch.Tensor,
-    *, indel: float, ins_extend: float,
-) -> torch.Tensor:
-    r"""Gene-HMM Viterbi on the card: (sum Lp,) int8 states, as :func:`gene_viterbi_plain`."""
+    indel: float, ins_extend: float, warmup: int | None = None, chunk: int | None = None,
+) -> tuple[torch.Tensor, GeneDecodeStats]:
+    r"""The gene decode with the source's warm-up and chunk length (``None``), or others (the
+    card tests' forced fix-ups, ``measure_viterbi.py``'s sweep)."""
     device = codemit.device
     if device.type != "cuda":
         raise ValueError(f"gene_viterbi_cuda expects CUDA tensors, got {device}")
@@ -73,20 +111,52 @@ def gene_viterbi_cuda(
     total = codemit.shape[0] if codemit.dim() == 1 else -1
     for name, x in (("codemit", codemit), ("entry_b", entry_b), ("exit_b", exit_b)):
         check_tensor(name, x, torch.float32, (total,), device)
-    n_chains = len(_chain_lengths(offsets, device, total))
+    bounds = _chain_bounds(offsets, device, total)
+    chunk = lib.kts_gene_chunk() if chunk is None else chunk
+    table, chain_chunks = gene_chunk_table(bounds, chunk)
+    n_chunks, n_chains = len(table), len(bounds) - 1
     states = torch.empty(total, dtype=torch.int8, device=device)
-    if n_chains == 0 or total == 0:
-        return states
+    stats = (ctypes.c_longlong * 4)()
+    if n_chunks == 0:
+        return states, GeneDecodeStats(0, 0, 0, 0)
     back = torch.empty(total, dtype=torch.int32, device=device)  # packed backpointers, scratch
+    workspace = torch.empty(lib.kts_gene_workspace_words(n_chunks, n_chains), dtype=torch.int32, device=device)
+    table_d, chain_chunks_d = torch.from_numpy(table).to(device), torch.from_numpy(chain_chunks).to(device)
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.kts_gene_viterbi(
-        codemit.data_ptr(), entry_b.data_ptr(), exit_b.data_ptr(), offsets.data_ptr(),
-        n_chains, total, float(indel), float(ins_extend), back.data_ptr(), states.data_ptr(), stream,
+        codemit.data_ptr(), entry_b.data_ptr(), exit_b.data_ptr(), table_d.data_ptr(), chain_chunks_d.data_ptr(),
+        n_chunks, n_chains, chunk, lib.kts_gene_warmup() if warmup is None else warmup, float(indel),
+        float(ins_extend), back.data_ptr(), states.data_ptr(), workspace.data_ptr(), stats, stream,
     )
     if rc != 0:
-        raise RuntimeError(f"gene Viterbi kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"gene Viterbi kernels failed: CUDA error {rc}")
     count("viterbi.cuda.gene")
-    return states
+    return states, GeneDecodeStats(*stats)
+
+
+def gene_viterbi_cuda(
+    codemit: torch.Tensor, entry_b: torch.Tensor, exit_b: torch.Tensor, offsets: torch.Tensor,
+    *, indel: float, ins_extend: float,
+) -> torch.Tensor:
+    r"""Gene-HMM Viterbi on the card: (sum Lp,) int8 states, as :func:`gene_viterbi_plain`."""
+    return _gene_launch(codemit, entry_b, exit_b, offsets, indel, ins_extend)[0]
+
+
+def gene_viterbi_cuda_with_stats(
+    codemit: torch.Tensor, entry_b: torch.Tensor, exit_b: torch.Tensor, offsets: torch.Tensor,
+    *, indel: float, ins_extend: float,
+) -> tuple[torch.Tensor, GeneDecodeStats]:
+    r""":func:`gene_viterbi_cuda` and what the decode did (:class:`GeneDecodeStats`)."""
+    return _gene_launch(codemit, entry_b, exit_b, offsets, indel, ins_extend)
+
+
+def _gene_viterbi_forced_fixups(
+    codemit: torch.Tensor, entry_b: torch.Tensor, exit_b: torch.Tensor, offsets: torch.Tensor,
+    *, indel: float, ins_extend: float,
+) -> tuple[torch.Tensor, GeneDecodeStats]:
+    r"""The gene decode with no warm-up: every chunk but a strand's first starts from the
+    start vector, so the fix-up rounds run.  For the card tests; nothing else calls it."""
+    return _gene_launch(codemit, entry_b, exit_b, offsets, indel, ins_extend, warmup=0)
 
 
 def arch_viterbi_cuda(
@@ -102,7 +172,7 @@ def arch_viterbi_cuda(
         raise ValueError(f"emissions: expected (rows, states), got {tuple(emissions.shape)}")
     rows, S = emissions.shape
     check_tensor("emissions", emissions, torch.float32, (rows, S), device)
-    lengths = _chain_lengths(offsets, device, rows)
+    lengths = np.diff(_chain_bounds(offsets, device, rows))
     if (lengths < 1).any():
         raise ValueError("arch_viterbi: every contig needs at least one emission row")
     n_contigs = len(lengths)
@@ -113,7 +183,7 @@ def arch_viterbi_cuda(
     scores = torch.empty(n_contigs, dtype=torch.float32, device=device)
     if n_contigs == 0:
         return paths, scores
-    back = torch.empty((rows, S), dtype=torch.uint8, device=device)  # backpointers, scratch
+    back = torch.empty((rows, lib.kts_arch_pitch(S)), dtype=torch.uint8, device=device)  # backpointers, scratch
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.kts_arch_viterbi(
         emissions.data_ptr(), transitions.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,

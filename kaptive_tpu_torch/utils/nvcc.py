@@ -79,13 +79,15 @@ class CudaLibrary:
 
     def ptxas_report(self) -> str:
         r"""The last build's ``-Xptxas -v`` report, one entry per kernel: its name (with its
-        template argument), registers, shared memory and, where there are any, spilled bytes."""
+        template argument), registers, shared memory and, where there are any, its stack
+        frame (local arrays) and spilled bytes."""
         out, name, spill = [], "?", ""
         for ln in self.log.read_text().splitlines():
             if m := re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)(?:IL[ib](\d+)E)?", ln):
                 name = m[1] + (f"<{m[2]}>" if m[2] else "")
-            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
-                spill = f", spills {m[1]}/{m[2]} B" if int(m[1]) or int(m[2]) else ""
+            elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+                spill = f", stack {m[1]} B" if int(m[1]) else ""
+                spill += f", spills {m[2]}/{m[3]} B" if int(m[2]) or int(m[3]) else ""
             elif m := re.search(r"Used (\d+ registers)(?:.*?(\d+ bytes smem))?", ln):
                 out.append(f"{name}: {m[1]}" + (f", {m[2]}" if m[2] else "") + spill)
         return " | ".join(out)

@@ -19,14 +19,24 @@ sums; on the same emissions the port's decode equals the JAX decode exactly.
 """
 
 import io
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
+from jax_hostio import ensure_jax_hostio, jax_package_root
 from synthetic import make_orf, make_synthetic_db, random_dna
 from viterbi_panels import arch_panel
 
 torch.set_num_threads(1)  # the plain decode issues many tiny ops
+# The JAX package's host library, whole, before any xdist worker's first test parses FASTA with it
+# (``tests/jax_hostio.py``: a worker that loaded it while another's g++ wrote it failed with
+# "file too short" in ``test_annotator_equals_jax[planted-hmm-*]``).
+ensure_jax_hostio()
 
 
 @pytest.fixture(scope="module")
@@ -108,6 +118,32 @@ def test_annotator_equals_jax(dbs, contigs, tmp_path, panel, orf_method, align):
         assert counts.get("viterbi.plain.gene") == 1  # every strand of every contig in one decode
     else:
         assert "viterbi.plain.gene" not in counts
+
+
+def test_planted_hmm_annotation_survives_a_jax_hostio_mid_build(tmp_path):
+    """``test_annotator_equals_jax``'s planted/hmm cases in the state that failed them: in the
+    first seconds of an xdist run another worker's g++ has created the JAX package's
+    ``_hostio.so`` and not yet written it.  A copy of the JAX package holds an empty
+    ``_hostio.so`` newer than its source (the JAX module alone then fails with "file too
+    short"); the two cases run in a child pytest that imports that copy, and pass."""
+    root = jax_package_root()
+    shutil.copytree(root / "kaptive_tpu", tmp_path / "kaptive_tpu",
+                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+    (tmp_path / "native").mkdir()
+    shutil.copy2(root / "native" / "hostio.cpp", tmp_path / "native" / "hostio.cpp")
+    so = tmp_path / "kaptive_tpu" / "native" / "_hostio.so"
+    so.touch()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(Path(__file__).resolve().parent.parent),
+                                                        os.environ.get("PYTHONPATH", "")])}
+    alone = subprocess.run([sys.executable, "-c", "import kaptive_tpu.native.hostio"], cwd=tmp_path, env=env,
+                           capture_output=True, text=True, timeout=120)
+    assert alone.returncode != 0 and "file too short" in alone.stderr
+    run = subprocess.run(
+        [sys.executable, "-m", "pytest", str(Path(__file__).resolve()), "-q", "-p", "no:cacheprovider",
+         "-p", "no:xdist", "-p", "no:randomly", "-k", "annotator_equals_jax and planted and hmm"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and "2 passed" in run.stdout, run.stdout[-3000:] + run.stderr[-3000:]
+    assert so.stat().st_size > 0  # the copy's library was the one built and loaded
 
 
 def test_annotator_device_defaults_to_cuda(dbs):

@@ -538,6 +538,109 @@ def test_arch_kernel_equals_plain(viterbi_device, n_states):
     assert int(paths.max()) == n_states - 1 and int(paths.min()) >= 0
 
 
+def _strand_pieces(params, lengths, seed):
+    """Strands of ``lengths`` steps cut from one unpadded 200 kb random strand, and a 1 kb
+    contig's strand padded to 4 Ki positions (a pad tail of one repeated input): flat
+    inputs and offsets."""
+    from unittest import mock
+
+    from synthetic import random_dna
+    from viterbi_panels import gene_chains
+
+    from kaptive_tpu_torch.ops import minimizer
+
+    rng = np.random.default_rng(seed)
+    with mock.patch.object(minimizer, "bucket_length", lambda n, minimum=0: n):
+        _, *source, _ = gene_chains([random_dna(rng, 200_000)], params)
+    _, *padded, _ = gene_chains([random_dna(rng, 1000)], params)  # 1 kb padded to 4 Ki positions
+    pieces = []
+    for n in lengths:
+        lo = int(rng.integers(0, len(source[0]) - n))
+        pieces.append([a[lo: lo + n] for a in source])
+    pieces.append(padded)
+    arrays = [np.concatenate([p[k] for p in pieces]) for k in range(3)]
+    return arrays, np.cumsum([0] + [len(p[0]) for p in pieces]).astype(np.int64)
+
+
+def test_gene_kernel_equals_plain_with_fixups_forced(viterbi_device):
+    """No warm-up (the wrapper's private entry): every chunk but a strand's first starts from
+    the start vector, so fix-up rounds re-run chunks; the states still equal the plain form's,
+    and those of the default warm-up, which re-runs fewer chunks."""
+    from synthetic import random_dna
+    from viterbi_panels import gene_chains, gene_panels, gene_training_set
+
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams
+    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.ops.viterbi import gene_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import _gene_viterbi_forced_fixups, gene_viterbi_cuda_with_stats
+
+    params = GeneHmmParams.from_sequences(Sequences.from_bytes(gene_training_set()))
+    rng = np.random.default_rng(21)
+    _, *arrays = gene_chains([*gene_panels().values(), random_dna(rng, 3000), random_dna(rng, 60000)], params)
+    kw = dict(indel=params.indel, ins_extend=params.ins_extend)
+    on_card = [torch.from_numpy(a).to(viterbi_device) for a in arrays]
+    want = gene_viterbi_plain(*(torch.from_numpy(a) for a in arrays), **kw)
+    forced, stats = _gene_viterbi_forced_fixups(*on_card, **kw)
+    default, default_stats = gene_viterbi_cuda_with_stats(*on_card, **kw)
+    torch.cuda.synchronize()
+    print(f"forced fix-ups: {stats}; default warm-up: {default_stats}")
+    assert torch.equal(forced.cpu(), want) and torch.equal(default.cpu(), want)
+    assert stats.rounds > 0 and stats.reruns > 0 and stats.filled > 0
+    assert stats.chunks == default_stats.chunks and default_stats.reruns < stats.reruns
+
+
+@pytest.mark.parametrize("layout", ["chunk_edges", "short_beside_long"])
+def test_gene_kernel_equals_plain_on_ragged_chunks(viterbi_device, layout):
+    """One launch of strands whose lengths put chunk edges on strand edges (multiples of the
+    chunk, one more, one fewer), or of 300 strands of 1 to 40 steps beside two long ones; a
+    padded strand in each.  Default warm-up and forced fix-ups."""
+    from kaptive_tpu_torch.bgc.genefinder import GeneHmmParams
+    from kaptive_tpu_torch.ops.viterbi import gene_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import (
+        _gene_viterbi_forced_fixups, build, gene_chunk_table, gene_viterbi_cuda_with_stats,
+    )
+
+    C = build().kts_gene_chunk()
+    rng = np.random.default_rng(5)
+    lengths = ([C, 2 * C, C + 1, C - 1, 3 * C + 2, 1, 2, 3] if layout == "chunk_edges"
+               else [40_000, *rng.integers(1, 41, 300).tolist(), 33_000])
+    params = GeneHmmParams.uniform()
+    arrays, offsets = _strand_pieces(params, lengths, 8)
+    kw = dict(indel=params.indel, ins_extend=params.ins_extend)
+    want = gene_viterbi_plain(*(torch.from_numpy(a) for a in arrays), torch.from_numpy(offsets), **kw)
+    on_card = [torch.from_numpy(a).to(viterbi_device) for a in (*arrays, offsets)]
+    for decode in (gene_viterbi_cuda_with_stats, _gene_viterbi_forced_fixups):
+        got, stats = decode(*on_card, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (decode.__name__, stats)
+        assert stats.chunks == len(gene_chunk_table(offsets, C)[0]) and stats.filled > 0
+    if layout == "chunk_edges":
+        ends = set(gene_chunk_table(offsets, C)[0][:, 1].tolist())
+        assert set(offsets[1:].tolist()) <= ends and offsets[1] == C
+
+
+@pytest.mark.parametrize("n_states", [1, 2, 28, 32, 33, 64, 256])
+def test_arch_kernel_equals_plain_with_ties(viterbi_device, n_states):
+    """One launch of 200 contigs of 1 to 3 rows beside one of 24,000 rows: ties, -inf
+    transitions and -inf emissions; paths and scores equal."""
+    from viterbi_panels import arch_tie_panel
+
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
+
+    rng = np.random.default_rng(n_states)
+    n_rows = rng.integers(1, 4, 200).tolist()
+    n_rows.insert(100, 24_000)
+    em, trans, offsets = arch_tie_panel(rng, n_rows, n_states)
+    args = [torch.from_numpy(a) for a in (em, trans, offsets)]
+    paths, scores = arch_viterbi_cuda(*(a.to(viterbi_device) for a in args))
+    want_paths, want_scores = arch_viterbi_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(paths.cpu(), want_paths)
+    assert torch.equal(scores.cpu(), want_scores)
+    assert np.isneginf(trans).any() or n_states == 1
+
+
 @pytest.mark.parametrize("bad", ["short", "past_end", "decreasing", "not_from_zero"])
 def test_viterbi_kernels_refuse_bad_offsets(viterbi_device, bad):
     """Offsets that do not run from 0 to the inputs' rows without decreasing raise, as the

@@ -6,7 +6,8 @@ single-base indels on both strands, adjacent genes, and the five
 end-truncation cases and the interior case of its padding test.
 ``gene_chains`` turns contigs into the gene decode's flat inputs, both
 strands each, padded as the gene finder pads them; ``arch_panel`` draws
-seeded emission and transition matrices for the architectural decode.
+seeded emission and transition matrices for the architectural decode, and
+``arch_tie_panel`` the same with many ties and ``-inf`` entries.
 """
 
 import numpy as np
@@ -87,3 +88,15 @@ def arch_panel(rng, n_rows: list[int], n_states: int):
     trans = np.log(counts / counts.sum(axis=1, keepdims=True)).astype(np.float32)
     trans[-1, :], trans[-1, -1] = -np.inf, 0.0
     return em, trans, np.cumsum([0] + list(n_rows)).astype(np.int64)
+
+
+def arch_tie_panel(rng, n_rows: list[int], n_states: int):
+    """``arch_panel`` with heavier ties: rounded emissions, repeated and ``-inf`` transitions,
+    ``-inf`` emissions."""
+    em, trans, offsets = arch_panel(rng, n_rows, n_states)
+    em = np.round(em).astype(np.float32)
+    em[rng.random(em.shape) < 0.03] = -np.inf
+    trans = np.where(rng.random(trans.shape) < 0.5, np.float32(-1.0), np.round(trans)).astype(np.float32)
+    trans[rng.random(trans.shape) < 0.2] = -np.inf
+    trans[-1, :], trans[-1, -1] = -np.inf, 0.0
+    return em, trans, offsets
