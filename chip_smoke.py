@@ -84,20 +84,42 @@ module of either was loaded).  Steps:
     must equal the CPU path: BED bytes, alignments, predictions (scores to
     rtol 1e-5).
 
+11. The mesh: four slots, ``cuda:i % device_count()`` for i < 4 (four cards
+    where the machine has them, ``cuda:0`` four times on one card).  The 8
+    assemblies are typed through ``stream_type(Serotyper(db, mesh=make_mesh(
+    devices=slots, model_parallel=m)), batch_size=4)`` for mesh shapes (2, 2)
+    and (1, 4), a priming pass and a measured pass each, with the counts set
+    to 0 just before and read just after the measured one: every call must be
+    correct, every KaptiveRow equal to step 3's, and the scan, fill and
+    traceback kernels must have launched and no plain form.  Each pass's wall
+    seconds are printed beside the card.  The shards' own launches are
+    recorded in the measured passes: the largest extension shard's fill and
+    traceback and the largest data row's scan are held to their plain forms
+    at those shapes (``mesh_shape``, ``mesh_max_abs_err`` on the ``kernels``
+    line).  ``Serotyper(db, mesh=...).screen``
+    and ``sharded_locus_screen`` on both shapes must give step 8's single-card
+    ``best`` and tallies, ``weighted`` within ``rtol=1e-6``.  Then two
+    subprocesses meet through ``parallel.multihost.initialize_distributed``
+    (gloo, 127.0.0.1), each types its ``shard_inputs`` slice of the eight
+    FASTA files of step 7 on ``cuda`` and writes its ``ShardedJsonlWriter``
+    shard; the merged records must equal the in-process
+    ``result_to_jsonl_bytes`` records, and each process asserts that no
+    ``jax*`` or ``kaptive_tpu*`` module was loaded.
+
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-11. bench.py's full 32 assemblies, host- and then device-seeded, typed in
+12. bench.py's full 32 assemblies, host- and then device-seeded, typed in
     stream batches of 32 and of 8, three timed passes each after a priming
     pass (every pass and the median printed), and for each mode one more
     batch-32 pass under ``torch.profiler`` for the card's busy share and its
     time per kernel.
-12. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+13. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
     ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
     times, and band cells per second of the fill.
-13. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
+14. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
     (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
     lattice batch of 384 pairs fills the card.
-14. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
+15. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
     kernel == plain at each, CUDA-event time and bound: latency against
     throughput of the scan, and the time of a 32-genome batch in one launch.
 
@@ -354,8 +376,17 @@ def _counters(stderr: str) -> dict[str, int]:
     return out
 
 
-def cli_phase(card: str, sources: dict, assemblies, results) -> dict:
-    """Step 7: the port's ``type`` and ``convert`` as subprocesses; returns wall seconds per mode."""
+def write_inputs(tmp: Path, sources: dict, assemblies) -> None:
+    """The database's GenBank and TOML sources and one FASTA file an assembly, written to ``tmp``."""
+    for name, data in sources.items():
+        (tmp / name).write_bytes(data)
+    for name, *_, fasta in assemblies:
+        (tmp / f"{name}.fasta").write_bytes(fasta)
+
+
+def cli_phase(card: str, tmp: Path, assemblies, results) -> dict:
+    """Step 7: the port's ``type`` and ``convert`` as subprocesses on the files of ``tmp``
+    (:func:`write_inputs`); returns wall seconds per mode."""
     import subprocess
 
     from kaptive_tpu_torch.serotyping.io import KaptiveRow
@@ -364,51 +395,44 @@ def cli_phase(card: str, sources: dict, assemblies, results) -> dict:
     truth = [a[1].encode() for a in assemblies]
     env = {k: v for k, v in os.environ.items() if k not in ("KAPTIVE_SEED_MODE", "KAPTIVE_PROFILE")}
     env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
-    gbk = next(name for name in sources if name.endswith(".gbk"))
+    gbk = next(tmp.glob("*.gbk")).name
+    fastas = [f"../{name}.fasta" for name, *_ in assemblies]
     walls = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        for name, data in sources.items():
-            (tmp / name).write_bytes(data)
-        fastas = []
-        for name, *_, fasta in assemblies:
-            (tmp / f"{name}.fasta").write_bytes(fasta)
-            fastas.append(f"../{name}.fasta")
-        for mode in ("host", "device"):
-            cwd = tmp / mode
-            cwd.mkdir()
-            cmd = [sys.executable, "-m", "kaptive_tpu_torch.cli", "type", f"../{gbk}", *fastas,
-                   "-o", "out.tsv", "-j", "out.jsonl", "--pha4ge", "out.pha4ge", "-l", ".", "-g", ".", "-p", ".",
-                   "--batch-size", str(BATCH_SIZE), "--device", "cuda", "--seed-mode", mode, "--profile"]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, timeout=600)
-            walls[mode] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise AssertionError(f"type --seed-mode {mode} exited {proc.returncode}:\n"
-                                     f"{proc.stderr.decode()[-3000:]}")
-            counts = _counters(proc.stderr.decode())
-            tsv = (cwd / "out.tsv").read_bytes()
-            calls = [row.split(b"\t")[4] for row in tsv.splitlines()[1:]]
-            if calls != truth:
-                raise AssertionError(f"type --seed-mode {mode}: calls {calls} != truth {truth}")
-            if tsv != want:
-                raise AssertionError(f"type --seed-mode {mode}: TSV differs from the in-process rows")
-            kernels = ["swg.cuda.fill", "swg.cuda.traceback"] + (["scan.cuda.rowcompact"] if mode == "device" else [])
-            if min(counts.get(k, 0) for k in kernels) == 0 or any(k.split(".")[1] == "plain" for k in counts):
-                raise AssertionError(f"type --seed-mode {mode} did not run on the kernels: {counts}")
-            n_files = sum(1 for _ in cwd.glob("*_kaptive_results.*"))
-            if n_files != 3 * len(assemblies):
-                raise AssertionError(f"type --seed-mode {mode}: {n_files} FASTA files, want {3 * len(assemblies)}")
-            conv = subprocess.run([sys.executable, "-m", "kaptive_tpu_torch.cli", "convert", "out.jsonl",
-                                   "-t", "conv.tsv"], cwd=cwd, env=env, capture_output=True, timeout=300)
-            if conv.returncode != 0 or (cwd / "conv.tsv").read_bytes() != tsv:
-                raise AssertionError(f"convert of the {mode}-seeded JSONL does not reproduce the TSV: "
-                                     f"{conv.stderr.decode()[-2000:]}")
-            print(f"# CLI, {mode}-seeded: `type` of {len(assemblies)} assemblies in {walls[mode]:.3f} s wall "
-                  f"(process start, database load and kernel load included) [{card}]; TSV == in-process rows, "
-                  f"{len(calls)}/{len(assemblies)} correct, `convert` reproduces it; counters "
-                  f"{ {k: v for k, v in sorted(counts.items()) if k.startswith(('swg.', 'scan.'))} }",
-                  flush=True)
+    for mode in ("host", "device"):
+        cwd = tmp / mode
+        cwd.mkdir()
+        cmd = [sys.executable, "-m", "kaptive_tpu_torch.cli", "type", f"../{gbk}", *fastas,
+               "-o", "out.tsv", "-j", "out.jsonl", "--pha4ge", "out.pha4ge", "-l", ".", "-g", ".", "-p", ".",
+               "--batch-size", str(BATCH_SIZE), "--device", "cuda", "--seed-mode", mode, "--profile"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, timeout=600)
+        walls[mode] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"type --seed-mode {mode} exited {proc.returncode}:\n"
+                                 f"{proc.stderr.decode()[-3000:]}")
+        counts = _counters(proc.stderr.decode())
+        tsv = (cwd / "out.tsv").read_bytes()
+        calls = [row.split(b"\t")[4] for row in tsv.splitlines()[1:]]
+        if calls != truth:
+            raise AssertionError(f"type --seed-mode {mode}: calls {calls} != truth {truth}")
+        if tsv != want:
+            raise AssertionError(f"type --seed-mode {mode}: TSV differs from the in-process rows")
+        kernels = ["swg.cuda.fill", "swg.cuda.traceback"] + (["scan.cuda.rowcompact"] if mode == "device" else [])
+        if min(counts.get(k, 0) for k in kernels) == 0 or any(k.split(".")[1] == "plain" for k in counts):
+            raise AssertionError(f"type --seed-mode {mode} did not run on the kernels: {counts}")
+        n_files = sum(1 for _ in cwd.glob("*_kaptive_results.*"))
+        if n_files != 3 * len(assemblies):
+            raise AssertionError(f"type --seed-mode {mode}: {n_files} FASTA files, want {3 * len(assemblies)}")
+        conv = subprocess.run([sys.executable, "-m", "kaptive_tpu_torch.cli", "convert", "out.jsonl",
+                               "-t", "conv.tsv"], cwd=cwd, env=env, capture_output=True, timeout=300)
+        if conv.returncode != 0 or (cwd / "conv.tsv").read_bytes() != tsv:
+            raise AssertionError(f"convert of the {mode}-seeded JSONL does not reproduce the TSV: "
+                                 f"{conv.stderr.decode()[-2000:]}")
+        print(f"# CLI, {mode}-seeded: `type` of {len(assemblies)} assemblies in {walls[mode]:.3f} s wall "
+              f"(process start, database load and kernel load included) [{card}]; TSV == in-process rows, "
+              f"{len(calls)}/{len(assemblies)} correct, `convert` reproduces it; counters "
+              f"{ {k: v for k, v in sorted(counts.items()) if k.startswith(('swg.', 'scan.'))} }",
+              flush=True)
     return walls
 
 
@@ -781,6 +805,155 @@ def bgc_phase(card: str, db, assemblies) -> dict:
     return {"gene": gene, "arch": arch, "launches": counts, "wall_s": wall}
 
 
+MESH_SHAPES = ((2, 2), (1, 4))  # (data, model) over four slots
+
+MULTIHOST_WORKER = r"""
+import glob, json, os, sys, time
+
+rank, port, inputs, outdir = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+import torch
+import torch.distributed as dist
+
+from kaptive_tpu_torch.db import Database
+from kaptive_tpu_torch.parallel.multihost import ShardedJsonlWriter, initialize_distributed, shard_inputs
+from kaptive_tpu_torch.serotyping import Serotyper
+
+t0 = time.perf_counter()
+assert initialize_distributed("127.0.0.1:%s" % port, 2, rank)
+assert (dist.get_rank(), dist.get_world_size()) == (rank, 2)
+db = Database.from_genbank(glob.glob(os.path.join(inputs, "*.gbk"))[0])
+mine = shard_inputs(sorted(glob.glob(os.path.join(inputs, "*.fasta"))))
+with ShardedJsonlWriter(os.path.join(outdir, "results.jsonl")) as w:
+    for result in Serotyper(db, device="cuda").batch(mine):
+        w.write_result(result)
+dist.barrier()
+dist.destroy_process_group()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kaptive_tpu"))
+assert loaded == [], "foreign modules loaded: %s" % loaded
+print(json.dumps({"rank": rank, "typed": len(mine), "seconds": time.perf_counter() - t0}), flush=True)
+"""
+
+
+def _multihost_run(card: str, inputs: Path, results) -> list[float]:
+    """Two processes on the card meet through ``initialize_distributed`` (gloo) and type their
+    ``shard_inputs`` slices; the merged shards must equal the in-process records. Returns walls."""
+    import socket
+    import subprocess
+
+    from kaptive_tpu_torch.serotyping.cli import result_to_jsonl_bytes
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outdir = inputs / "multihost"
+    outdir.mkdir()
+    env = {k: v for k, v in os.environ.items() if k not in ("KAPTIVE_SEED_MODE", "KAPTIVE_PROFILE")}
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, (str(ROOT), env.get("PYTHONPATH"))))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER, str(rank), str(port), str(inputs),
+                               str(outdir)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, text=True)
+             for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"multi-host worker {rank} exited {p.returncode}:\n{err[-3000:]}")
+    reports = [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+    merged = {}
+    for shard in sorted(outdir.glob("results.part-*.jsonl")):
+        for line in shard.read_bytes().splitlines(keepends=True):
+            merged[json.loads(line)["genome"]] = line
+    want = {r.genome: result_to_jsonl_bytes(r) for r in results}
+    if merged != want:
+        raise AssertionError(f"two-process records differ from the in-process records: "
+                             f"{sorted(set(merged) ^ set(want)) or [g for g in want if merged.get(g) != want[g]]}")
+    typed = ", ".join(str(r["typed"]) for r in reports)
+    each = ", ".join(f"{r['seconds']:.3f}" for r in reports)
+    print(f"# two processes on the card (gloo, 127.0.0.1): {typed} assemblies typed; merged JSONL shards == "
+          f"in-process records on {len(want)}/{len(want)}; {wall:.3f} s wall for both (each {each} s from its "
+          f"group join to its exit, database load included); no jax or kaptive_tpu module in either [{card}]",
+          flush=True)
+    return [r["seconds"] for r in reports]
+
+
+def mesh_phase(card: str, db, assemblies, results, inputs: Path) -> dict:
+    """Step 11: typing, screen and multi-host scaffolding on a four-slot mesh. Returns the launches
+    and the checks of one recorded shard call of the fill and traceback and one of the scan."""
+    import numpy as np
+    import torch
+
+    from kaptive_tpu_torch.ops import mapper, swg
+    from kaptive_tpu_torch.parallel import make_mesh
+    from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.parallel.screen import sharded_locus_screen
+    from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    slots = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(4)]
+    want = [bytes(KaptiveRow.from_result(r)) for r in results]
+    kernels = ("scan.cuda.rowcompact", "swg.cuda.fill", "swg.cuda.traceback")
+    launches = dict.fromkeys(kernels, 0)
+    buckets, scans = _CallRecorder(swg.banded_swg), _CallRecorder(mapper.rowcompact_scan)
+    for data, model in MESH_SHAPES:
+        serotyper = Serotyper(db, mesh=make_mesh(devices=slots, model_parallel=model))
+        _, prime_s = type_all(serotyper, assemblies, BATCH_SIZE)
+        reset_metrics()
+        swg.banded_swg, mapper.rowcompact_scan = buckets, scans  # each shard's calls
+        try:
+            got, wall = type_all(serotyper, assemblies, BATCH_SIZE)
+        finally:
+            swg.banded_swg, mapper.rowcompact_scan = buckets.inner, scans.inner
+        counts = snapshot()
+        if [bytes(KaptiveRow.from_result(r)) for r in got] != want:
+            raise AssertionError(f"mesh ({data}, {model}): rows differ from the single-card host-seeded rows")
+        if min(counts.get(k, 0) for k in kernels) == 0 or any(".plain." in k for k in counts):
+            raise AssertionError(f"mesh ({data}, {model}) did not run on the kernels alone: {counts}")
+        for k in kernels:
+            launches[k] += counts[k]
+        print(f"# mesh ({data}, {model}) over {[str(d) for d in slots]}: {len(got)}/{len(got)} correct, rows == "
+              f"step 3's; priming pass {prime_s:.3f} s, measured pass {wall:.3f} s wall "
+              f"({len(got) / wall:.3f} asm/s); launches {({k: counts[k] for k in kernels})}, "
+              f"device-chained {counts.get('map.device_chained', 0)}, host fall-backs "
+              f"{ {k: v for k, v in counts.items() if k.startswith('map.host_fallback')} } [{card}]", flush=True)
+    # The shards' own shapes: the largest extension shard and the largest data row's scan.
+    shard = buckets.largest_bucket(4)
+    if shard is None or not scans.calls:
+        raise AssertionError("no extension shard or row scan was recorded in the mesh passes")
+    checks = {"bucket": _check_bucket("mesh extension shard", *shard, "warp"),
+              "scan": _check_scan(*max((args for args, _ in scans.calls), key=lambda args: args[0].numel()))}
+    del buckets, scans, shard
+
+    streams = [_named_stream(name, fasta) for name, *_, fasta in assemblies]
+    genomes, best_one, weighted_one = Serotyper(db, device="cuda").screen(streams)
+    codes = encode_assemblies_to_batch(genomes)
+    tables = ScreenTables.build(db, db.gene_index)
+    _, _, tallies_one = locus_screen_batch(torch.from_numpy(codes).cuda(), tables, len(db.genes))
+    for data, model in MESH_SHAPES:
+        mesh = make_mesh(devices=slots, model_parallel=model)
+        reset_metrics()
+        _, best, weighted = Serotyper(db, mesh=mesh).screen([_named_stream(a[0], a[3]) for a in assemblies])
+        counts = snapshot()
+        best_m, weighted_m, tallies_m = sharded_locus_screen(mesh, codes, tables)
+        if counts.get("scan.cuda.rowcompact", 0) == 0 or any(".plain." in k for k in counts):
+            raise AssertionError(f"sharded screen ({data}, {model}) did not scan on the kernel: {counts}")
+        if not (np.array_equal(best, best_one) and torch.equal(tallies_m.cpu(), tallies_one.cpu())
+                and np.array_equal(best_m.cpu().numpy(), best_one)):
+            raise AssertionError(f"sharded screen ({data}, {model}) differs from one card's in best or tallies")
+        if not (np.allclose(weighted, weighted_one, rtol=1e-6, atol=0)
+                and np.allclose(weighted_m.cpu().numpy(), weighted_one, rtol=1e-6, atol=0)):
+            raise AssertionError(f"sharded screen ({data}, {model}) differs in weighted beyond rtol=1e-6")
+    print(f"# sharded screen on {MESH_SHAPES}: best and tallies == one card's, weighted within rtol 1e-6; "
+          f"scan kernel only", flush=True)
+
+    _multihost_run(card, inputs, results)
+    return {"launches": launches, **checks}
+
+
 def build_workload(n_assemblies: int, seed: int = SEED):
     """bench.py's database (140 loci x 18 genes) and ``n_assemblies`` 5.3 Mb assemblies
     cycling through its composition classes: ``(db, [(name, truth, class, fasta)],
@@ -843,7 +1016,7 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 def measure(card: str) -> None:
     """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 11 to 14)."""
+    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 12 to 15)."""
     import statistics
 
     import numpy as np
@@ -908,7 +1081,7 @@ def measure(card: str) -> None:
         print(f"#   fill: {cells / times['fill_ms'] / 1e6:.2f} G band-cells/s "
               f"(band cells = sum of q_len x w_pad) [{card}]", flush=True)
 
-    # Step 13: one shape, more and more live pairs (the rest of the bucket is empty pairs).
+    # Step 14: one shape, more and more live pairs (the rest of the bucket is empty pairs).
     rows_max, w_pad = 1024, 128
     matrix = as_kernel_matrix(nt_matrix(), torch.device("cuda"))
     fill_kw = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad)
@@ -926,7 +1099,7 @@ def measure(card: str) -> None:
         print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
               f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
-    # Step 14: the scan at more and more genomes in one launch.
+    # Step 15: the scan at more and more genomes in one launch.
     streams = torch.from_numpy(np.stack([random_stream(rng, SCAN_ROWS) for _ in range(max(SCAN_GENOME_STEPS))]))
     for n_genomes in SCAN_GENOME_STEPS:
         times = _check_scan(add_halo(streams[:n_genomes].cuda()), DEFAULT_K, DEFAULT_W)
@@ -943,7 +1116,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--measure", action="store_true",
-                        help="after the smoke, also run the measurements of steps 11 to 14")
+                        help="after the smoke, also run the measurements of steps 12 to 15")
     opts = parser.parse_args()
 
     from bench import GENOME_MB, KINDS
@@ -1078,10 +1251,14 @@ def main() -> int:
         raise AssertionError("no scan batch was recorded in the device-seeded pass")
     scan_check = _check_scan(*max((args for args, _ in scans.calls), key=lambda args: args[0].numel()))
 
-    cli_walls = cli_phase(card, sources, assemblies, results)
-    screen_rate = screen_phase(card, db, assemblies)
-    cigar_check, cigar_launches = cigar_phase(serotyper, db, assemblies)
-    bgc = bgc_phase(card, db, assemblies)
+    with tempfile.TemporaryDirectory() as inputs:  # steps 7 and 11 read the same files
+        inputs = Path(inputs)
+        write_inputs(inputs, sources, assemblies)
+        cli_walls = cli_phase(card, inputs, assemblies, results)
+        screen_rate = screen_phase(card, db, assemblies)
+        cigar_check, cigar_launches = cigar_phase(serotyper, db, assemblies)
+        bgc = bgc_phase(card, db, assemblies)
+        mesh = mesh_phase(card, db, assemblies, results, inputs)
 
     if opts.measure:
         measure(card)
@@ -1094,12 +1271,14 @@ def main() -> int:
 
     ext, prot, wide = checks["extension"], checks["protein"], checks["wide"]
     gene = bgc["gene"]
-    swg_err = max(ext["max_abs_err"], prot["max_abs_err"], wide["max_abs_err"])
+    mesh_launches, mesh_bucket, mesh_scan = mesh["launches"], mesh["bucket"], mesh["scan"]
+    swg_err = max(ext["max_abs_err"], prot["max_abs_err"], wide["max_abs_err"], mesh_bucket["max_abs_err"])
+    mesh_swg = {"mesh_shape": mesh_bucket["shape"], "mesh_max_abs_err": mesh_bucket["max_abs_err"]}
     kernels = [
         {"name": "swg_fill", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": launches["fill"],
          "max_abs_err": swg_err, "ms": ext["fill_ms"], "plain_ms": ext["fill_plain_ms"],
-         **ext["fill_bound"], "library_ms": None,
+         **ext["fill_bound"], "library_ms": None, "mesh_launches": mesh_launches["swg.cuda.fill"], **mesh_swg,
          "protein_ms": prot["fill_ms"], "protein_plain_ms": prot["fill_plain_ms"],
          "protein_bound_ms": prot["fill_bound"]["bound_ms"],
          "wide_form_ms": wide["fill_ms"], "wide_form_plain_ms": wide["fill_plain_ms"],
@@ -1107,13 +1286,15 @@ def main() -> int:
         {"name": "swg_traceback", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:324", "launches": launches["traceback"],
          "max_abs_err": swg_err, "ms": ext["traceback_ms"], "plain_ms": ext["traceback_plain_ms"],
-         **ext["traceback_bound"], "library_ms": None,
+         **ext["traceback_bound"], "library_ms": None, "mesh_launches": mesh_launches["swg.cuda.traceback"], **mesh_swg,
          "protein_ms": prot["traceback_ms"], "protein_plain_ms": prot["traceback_plain_ms"],
          "protein_bound_ms": prot["traceback_bound"]["bound_ms"]},
         {"name": "rowcompact_scan", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
          "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": scan_launches,
-         "max_abs_err": scan_check["max_abs_err"], "ms": scan_check["ms"], "plain_ms": scan_check["plain_ms"],
-         "bound_ms": scan_check["bound_ms"], "bound_by": scan_check["bound_by"], "library_ms": None},
+         "max_abs_err": max(scan_check["max_abs_err"], mesh_scan["max_abs_err"]), "ms": scan_check["ms"],
+         "plain_ms": scan_check["plain_ms"], "bound_ms": scan_check["bound_ms"], "bound_by": scan_check["bound_by"],
+         "library_ms": None, "mesh_launches": mesh_launches["scan.cuda.rowcompact"],
+         "mesh_shape": mesh_scan["shape"], "mesh_max_abs_err": mesh_scan["max_abs_err"]},
         {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
          "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],
@@ -1139,7 +1320,9 @@ def main() -> int:
           f"(B, rows); CIGAR traceback on the bucket {cigar_check['shape']}, planted_ms: the planted bucket of that "
           f"geometry; gene_viterbi on the clean assembly's launch (its two strands), draft_ms on the draft "
           f"assembly's launch (plain on the CPU); arch_viterbi on the largest main-path launch (plain on "
-          f"the CPU); launches: BGC phase; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"the CPU); launches: BGC phase; mesh_launches: the two measured mesh passes of step 11 "
+          f"{MESH_SHAPES}; mesh_shape / mesh_max_abs_err: the largest extension shard and the largest data "
+          f"row's scan recorded in them, held to the plain forms; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",
           flush=True)

@@ -28,8 +28,16 @@ import torch
 from kaptive_tpu_torch.core.alignment import Cigars
 from kaptive_tpu_torch.core.collections import SoAContainer, cumulative_offsets, soa
 from kaptive_tpu_torch.core.seq import Sequences
-from kaptive_tpu_torch.ops.swg import MAX_CIGAR_OPS, SwgLattice, banded_swg, banded_swg_cigars, plan_swg_buckets
-from kaptive_tpu_torch.utils.device import resolve_device
+from kaptive_tpu_torch.ops.swg import (
+    MAX_CIGAR_OPS,
+    SwgLattice,
+    banded_swg,
+    banded_swg_cigars,
+    device_matrix,
+    plan_swg_buckets,
+    sharded_banded_swg,
+)
+from kaptive_tpu_torch.utils.device import device_count, resolve_device, sharded
 
 _RESULT_FIELDS = ("scores", "matches", "mismatches", "gaps", "q_starts", "q_ends", "t_starts", "t_ends")
 
@@ -141,6 +149,7 @@ class PairwiseAligner:
     k: int = 20
     lattice: SwgLattice | None = None  # optional frozen bucket-shape set
     device: str | torch.device = "cuda"
+    mesh: Any = None  # optional parallel.mesh.Mesh: cuts each bucket's pair axis over its slots
 
     def __call__(self, queries: Sequences, targets: Sequences, seeds: Any | None = None) -> PairwiseAlignments:
         if len(queries.offsets) != len(targets.offsets):
@@ -164,7 +173,7 @@ class PairwiseAligner:
             offsets_arr, k_locals,
             matrix=np.asarray(blosum62_matrix(), dtype=np.int32),
             gap_open=self.gap_open, gap_extend=self.gap_extend,
-            lattice=self.lattice, device=self.device,
+            lattice=self.lattice, device=self.device, mesh=self.mesh,
         )
 
     def align_seeds(self, queries: Sequences, targets: Sequences, seeds: Any) -> PairwiseAlignments:
@@ -199,10 +208,14 @@ def cigars_from_runs(ops: np.ndarray, n_ops: np.ndarray, overflow: np.ndarray) -
     return Cigars(ops[kept].astype(np.uint32), cumulative_offsets(lengths), lengths)
 
 
-def run_bucket(args: tuple, statics: dict, emit_cigars: bool) -> torch.Tensor:
+def run_bucket(args: tuple, statics: dict, emit_cigars: bool, mesh=None) -> torch.Tensor:
     r"""One padded bucket through :func:`banded_swg` (or, with ``emit_cigars``,
     :func:`banded_swg_cigars`), its outputs stacked as one int32 tensor: the 8
-    :class:`SwgResult` rows, then ``n_ops``, ``overflow`` and the (cap, B) runs."""
+    :class:`SwgResult` rows, then ``n_ops``, ``overflow`` and the (cap, B) runs.
+    With a ``mesh`` (count-only) the pairs are cut over its slots
+    (:func:`~kaptive_tpu_torch.ops.swg.sharded_banded_swg`)."""
+    if mesh is not None and not emit_cigars:
+        return torch.stack(tuple(sharded_banded_swg(mesh, *args, **statics)))
     if not emit_cigars:
         return torch.stack(tuple(banded_swg(*args, **statics)))
     res, ops, n_ops, overflow = banded_swg_cigars(*args, **statics)
@@ -232,23 +245,25 @@ def collect_buckets(n: int, launched: list, emit_cigars: bool) -> tuple[Pairwise
 
 def _align_buckets(
     q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals,
-    matrix, gap_open: int, gap_extend: int, lattice, device, emit_cigars: bool,
+    matrix, gap_open: int, gap_extend: int, lattice, device, emit_cigars: bool, mesh=None,
 ):
     r"""The bucketed sweep of :func:`batched_swg_align` (and, with ``emit_cigars``,
-    of :func:`batched_swg_align_cigars`): ``(PairwiseAlignments, Cigars or None)``."""
-    device = resolve_device(device)
-    if device.type == "cuda":
-        from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
+    of :func:`batched_swg_align_cigars`): ``(PairwiseAlignments, Cigars or None)``.
 
-        mat = as_kernel_matrix(matrix, device)
-    else:
-        mat = torch.from_numpy(np.array(matrix, dtype=np.int32))
+    With a ``mesh`` of ``n`` slots every bucket's batch is a multiple of
+    ``n`` (``min_batch = ceil(16 / n) * n``, as in the JAX package) and its
+    pairs are cut over the slots; the matrices are gathered on ``device``.
+    """
+    device = resolve_device(device)
+    mat = device_matrix(matrix, device)
+    mesh = mesh if sharded(mesh) else None
+    n_dev = device_count(mesh)
     w_needed = 2 * k_locals.astype(np.int64) + 3
     joint = np.maximum(np.maximum(q_lengths, t_lengths), 1)
     q_data_d = _upload_stream(q_data, device)
     t_data_d = _upload_stream(t_data, device)
     launched = []
-    for sel, rows_max, w_pad, b_pad in plan_swg_buckets(joint, w_needed, lattice):
+    for sel, rows_max, w_pad, b_pad in plan_swg_buckets(joint, w_needed, lattice, min_batch=-(-16 // n_dev) * n_dev):
         t_pad = w_pad + 2
         meta = np.zeros((6, b_pad), dtype=np.int64)
         meta[4] = 1  # padding pairs: empty, band 1
@@ -262,7 +277,7 @@ def _align_buckets(
         i32 = torch.int32
         args = (q_mat, q_len.to(i32), t_mat, t_len.to(i32), do.to(i32), kl.to(i32), mat)
         statics = dict(gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
-        launched.append((sel, run_bucket(args, statics, emit_cigars)[:, : len(sel)]))
+        launched.append((sel, run_bucket(args, statics, emit_cigars, mesh)[:, : len(sel)]))
     return collect_buckets(len(q_offsets), launched, emit_cigars)
 
 
@@ -271,18 +286,19 @@ def batched_swg_align(
     t_data: np.ndarray, t_offsets: np.ndarray, t_lengths: np.ndarray,
     diag_offsets: np.ndarray, k_locals: np.ndarray,
     matrix: np.ndarray, gap_open: int, gap_extend: int,
-    lattice: SwgLattice | None = None, device: str | torch.device = "cuda",
+    lattice: SwgLattice | None = None, device: str | torch.device = "cuda", mesh=None,
 ) -> PairwiseAlignments:
     r"""Bucket ragged pairs into padded device batches and run :func:`banded_swg`.
 
     The two ragged streams are uploaded once and each bucket's matrices are
-    gathered on ``device``.  Every bucket is launched before anything is
-    copied back; the stacked ``(8, pairs)`` results of all buckets then cross
-    to the host in one copy.
+    gathered on ``device``; with a ``mesh`` each bucket's pairs are cut over
+    its slots.  Every bucket is launched before anything is copied back; the
+    stacked ``(8, pairs)`` results of all buckets then cross to the host in
+    one copy.
     """
     return _align_buckets(
         q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals,
-        matrix, gap_open, gap_extend, lattice, device, emit_cigars=False,
+        matrix, gap_open, gap_extend, lattice, device, emit_cigars=False, mesh=mesh,
     )[0]
 
 

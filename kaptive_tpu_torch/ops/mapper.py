@@ -61,7 +61,7 @@ from kaptive_tpu_torch.ops.scan import (
     unpack_sparse_to_padded,
     unpack_to_padded,
 )
-from kaptive_tpu_torch.utils.device import resolve_device
+from kaptive_tpu_torch.utils.device import resolve_device, sharded
 from kaptive_tpu_torch.utils.metrics import count
 from kaptive_tpu_torch.utils.profiling import phase_timer
 
@@ -97,6 +97,61 @@ _CHAIN_FIELDS = (
 )
 
 
+def table_buckets(hashes: np.ndarray) -> np.ndarray:
+    r"""Hash-prefix bucket starts (int32, ``2^(32 - BUCKET_SHIFT) + 1``) over a sorted uint32 hash table.
+
+    ``buckets[hash >> BUCKET_SHIFT] .. buckets[+1]`` bounds the table run of
+    any hash, so a search looks at one bucket.
+    """
+    bucket_of = (hashes >> np.uint32(BUCKET_SHIFT)).astype(np.int64)
+    return np.searchsorted(bucket_of, np.arange((1 << (32 - BUCKET_SHIFT)) + 1)).astype(np.int32)
+
+
+def table_run_lengths(hashes: np.ndarray) -> np.ndarray:
+    r"""The length of each sorted table entry's hash run (int64): the hit count without a second search."""
+    _, inv, counts = np.unique(hashes, return_inverse=True, return_counts=True)
+    return counts[inv].astype(np.int64)
+
+
+def table_bloom(hashes: np.ndarray) -> np.ndarray:
+    r"""Membership bitmap (uint32 words) over table hashes: bit ``hash & (2^BLOOM_BITS - 1)``."""
+    bit = (hashes.astype(np.uint64) & np.uint64((1 << BLOOM_BITS) - 1)).astype(np.int64)
+    words = np.zeros(1 << (BLOOM_BITS - 5), dtype=np.uint32)
+    np.bitwise_or.at(words, bit >> 5, np.uint32(1) << (bit & 31).astype(np.uint32))
+    return words
+
+
+def lookup_iters(buckets: np.ndarray) -> int:
+    r"""Steps of the bucketed search: ``ceil(log2(max occupancy + 1)) + 1``."""
+    return int(np.ceil(np.log2(max(int(np.diff(buckets).max()), 1) + 1))) + 1
+
+
+class SeedTable(NamedTuple):
+    r"""A gene minimizer table (or one hash-range shard of it) as :func:`match_rows_batch`
+    takes it on one device, and its bucketed search's steps."""
+
+    hashes: torch.Tensor  # int64 in [0, 2^32), sorted
+    genes: torch.Tensor  # int32
+    positions: torch.Tensor  # int32
+    strands: torch.Tensor  # bool
+    bucket_starts: torch.Tensor  # int64 (table_buckets)
+    run_len: torch.Tensor  # int64 (table_run_lengths)
+    bloom: torch.Tensor  # int32 bit patterns of table_bloom's words
+    iters: int
+
+    @classmethod
+    def upload(cls, device, hashes, genes, positions, strands, buckets, run_len, bloom, iters: int) -> SeedTable:
+        r"""Host arrays of the table to ``device`` in this layout."""
+
+        def put(a, dtype):
+            return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+
+        return cls(
+            put(hashes, np.int64), put(genes, np.int32), put(positions, np.int32), put(strands, bool),
+            put(buckets, np.int64), put(run_len, np.int64), put(bloom.view(np.int32), np.int32), iters,
+        )
+
+
 @dataclass(frozen=True, slots=True)
 class GeneIndex:
     r"""Static index of the DB gene set: the hash-sorted minimizer table and gene codes."""
@@ -122,42 +177,27 @@ class GeneIndex:
             self._cache[key] = make(torch.device(device))
         return self._cache[key]
 
-    def device_table(self, device: torch.device | str):
-        r"""The sorted minimizer table on ``device`` (cached): ``(hashes int64 in
-        [0, 2^32), gene indices int32, positions int32, strands bool)``."""
+    def seed_table(self, device: torch.device | str) -> SeedTable:
+        r"""The whole sorted minimizer table on ``device`` (cached), as :func:`match_rows_batch` takes it."""
         ms = self.minimizers
 
         def make(dev):
-            return (
-                torch.from_numpy(ms.hashes.astype(np.int64)).to(dev),
-                torch.from_numpy(ms.seq_indices.astype(np.int32)).to(dev),
-                torch.from_numpy(ms.positions.astype(np.int32)).to(dev),
-                torch.from_numpy(ms.strands.astype(bool)).to(dev),
+            return SeedTable.upload(
+                dev, ms.hashes, ms.seq_indices, ms.positions, ms.strands, self.host_buckets,
+                table_run_lengths(ms.hashes), self.host_bloom, lookup_iters(self.host_buckets),
             )
 
-        return self._on_device("table", device, make)
+        return self._on_device("seed_table", device, make)
+
+    def device_table(self, device: torch.device | str):
+        r"""``(hashes int64 in [0, 2^32), gene indices int32, positions int32, strands bool)`` on ``device``."""
+        return tuple(self.seed_table(device)[:4])
 
     def device_lookup(self, device: torch.device | str):
-        r"""Bucketed table search on ``device`` (cached): ``(bucket starts int64,
-        run length of each entry's hash int64, search steps)``.
-
-        Searching one hash-prefix bucket takes ``ceil(log2(max occupancy + 1)) + 1``
-        steps instead of a full-table binary search, and the run length gives
-        the hit count without a second search.
-        """
-
-        def make(dev):
-            h = self.minimizers.hashes
-            occupancy = np.diff(self.host_buckets)
-            iters = int(np.ceil(np.log2(max(int(occupancy.max()), 1) + 1))) + 1 if len(h) else 1
-            _, inv, counts = np.unique(h, return_inverse=True, return_counts=True)
-            return (
-                torch.from_numpy(self.host_buckets.astype(np.int64)).to(dev),
-                torch.from_numpy(counts[inv].astype(np.int64)).to(dev),
-                max(iters, 1),
-            )
-
-        return self._on_device("lookup", device, make)
+        r"""Bucketed table search on ``device``: ``(bucket starts int64, run length of
+        each entry's hash int64, search steps)``."""
+        t = self.seed_table(device)
+        return t.bucket_starts, t.run_len, t.iters
 
     def device_codes(self, device: torch.device | str) -> torch.Tensor:
         r"""The flat (sentinel-separated) gene code stream on ``device`` (cached)."""
@@ -170,36 +210,21 @@ class GeneIndex:
         )
 
     def device_bloom(self, device: torch.device | str) -> torch.Tensor:
-        r""":attr:`host_bloom` on ``device`` as int32 bit patterns (cached)."""
-        return self._on_device(
-            "bloom", device, lambda dev: torch.from_numpy(self.host_bloom.view(np.int32).copy()).to(dev)
-        )
+        r""":attr:`host_bloom` on ``device`` as int32 bit patterns."""
+        return self.seed_table(device).bloom
 
     @property
     def host_buckets(self) -> np.ndarray:
-        r"""Hash-prefix bucket starts over the sorted table (cached).
-
-        ``buckets[hash >> BUCKET_SHIFT] .. buckets[+1]`` bounds the table run
-        of any hash, so the native seeding kernel searches one bucket.
-        """
+        r""":func:`table_buckets` of the sorted table (cached)."""
         if "buckets_np" not in self._cache:
-            h = self.minimizers.hashes  # sorted uint32
-            n_buckets = 1 << (32 - BUCKET_SHIFT)
-            bucket_of = (h >> np.uint32(BUCKET_SHIFT)).astype(np.int64)
-            self._cache["buckets_np"] = np.searchsorted(
-                bucket_of, np.arange(n_buckets + 1)
-            ).astype(np.int32)
+            self._cache["buckets_np"] = table_buckets(self.minimizers.hashes)
         return self._cache["buckets_np"]
 
     @property
     def host_bloom(self) -> np.ndarray:
-        r"""Membership bitmap over table hashes (cached): bit ``hash & (2^BLOOM_BITS - 1)``."""
+        r""":func:`table_bloom` of the table hashes (cached)."""
         if "bloom_np" not in self._cache:
-            h = self.minimizers.hashes.astype(np.uint64)
-            bit = (h & np.uint64((1 << BLOOM_BITS) - 1)).astype(np.int64)
-            words = np.zeros(1 << (BLOOM_BITS - 5), dtype=np.uint32)
-            np.bitwise_or.at(words, bit >> 5, np.uint32(1) << (bit & 31).astype(np.uint32))
-            self._cache["bloom_np"] = words
+            self._cache["bloom_np"] = table_bloom(self.minimizers.hashes)
         return self._cache["bloom_np"]
 
 
@@ -404,10 +429,14 @@ def build_extension_problems(
 
 
 def _run_extension_dp(
-    problems: dict, lattice=None, device: str | torch.device = "cuda", emit_cigars: bool = False,
+    problems: dict, lattice=None, device: str | torch.device = "cuda", emit_cigars: bool = False, mesh=None,
 ) -> tuple[PairwiseAlignments, Cigars | None]:
     r"""One batched banded-SWG sweep over concatenated extension problems:
-    ``(PairwiseAlignments, Cigars or None)``, the CIGARs with ``emit_cigars``."""
+    ``(PairwiseAlignments, Cigars or None)``, the CIGARs with ``emit_cigars``.
+
+    With a ``mesh`` the buckets' pair axis is cut over its slots; CIGAR mode
+    runs unsharded on ``device``, as in the JAX package.
+    """
     from kaptive_tpu_torch.core.pairwise import batched_swg_align, batched_swg_align_cigars
 
     args = (
@@ -418,7 +447,7 @@ def _run_extension_dp(
     kw = dict(matrix=_NT_MATRIX, gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, lattice=lattice, device=device)
     if emit_cigars:
         return batched_swg_align_cigars(*args, **kw)
-    return batched_swg_align(*args, **kw), None
+    return batched_swg_align(*args, **kw, mesh=mesh), None
 
 
 def _alignments_from_extension(
@@ -546,7 +575,6 @@ def _map_genes_host_seeded(
     consumed only when they were seeded against this ``gene_index`` with
     these ``params``; otherwise the assembly is seeded here.
     """
-    n_genomes = len(genomes)
     with phase_timer("map.host_seed"):
         all_chains: list[dict | None] = []
         for ci in indexes:
@@ -560,6 +588,17 @@ def _map_genes_host_seeded(
             if chains is None:
                 chains = host_seed_chains(gene_index, ci, params)
             all_chains.append(chains if chains and len(chains["gene"]) else None)
+    return _extend_on_host(all_chains, gene_index, genomes, indexes, gene_names, params, device)
+
+
+def _extend_on_host(
+    all_chains: list, gene_index: GeneIndex, genomes: list, indexes: list,
+    gene_names: tuple[str, ...], params: MapperParams, device: torch.device | str, mesh=None,
+) -> list[Alignments]:
+    r"""Each genome's chains (or None) to extension problems built on the host,
+    ONE extension-DP sweep over the whole batch (its pair axis cut over the
+    ``mesh`` when one is given), and the batch's alignments."""
+    n_genomes = len(genomes)
     with phase_timer("map.chain_host"):
         all_problems = [
             build_extension_problems(ch, gene_index, ci, params) if ch is not None else None
@@ -580,7 +619,7 @@ def _map_genes_host_seeded(
     merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
     with phase_timer("map.extension_dp"):
         res, cigars_all = _run_extension_dp(
-            merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars,
+            merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars, mesh=mesh,
         )
     counts = [len(p["q_lengths"]) if p is not None else 0 for p in all_problems]
     bounds = np.cumsum([0] + counts)
@@ -590,13 +629,9 @@ def _map_genes_host_seeded(
             results.append(Alignments.empty())
             continue
         sl = slice(bounds[b], bounds[b + 1])
-        res_b = PairwiseAlignments(
-            res.scores[sl], res.matches[sl], res.mismatches[sl], res.gaps[sl],
-            res.q_starts[sl], res.q_ends[sl], res.t_starts[sl], res.t_ends[sl],
-        )
         results.append(
             _alignments_from_extension(
-                all_chains[b], res_b, all_problems[b]["t_lo"], all_problems[b]["glen"],
+                all_chains[b], res[sl], all_problems[b]["t_lo"], all_problems[b]["glen"],
                 gene_index, genomes[b], indexes[b], gene_names, params,
                 cigars=cigars_all[sl] if cigars_all is not None else None,
             )
@@ -982,15 +1017,10 @@ def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: t
     back here.
     """
     from kaptive_tpu_torch.core.pairwise import run_bucket
-    from kaptive_tpu_torch.ops.swg import plan_swg_buckets
+    from kaptive_tpu_torch.ops.swg import device_matrix, plan_swg_buckets
 
     dev = flat_codes.device
-    if dev.type == "cuda":
-        from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
-
-        matrix = as_kernel_matrix(_NT_MATRIX, dev)
-    else:
-        matrix = torch.from_numpy(_NT_MATRIX.copy())
+    matrix = device_matrix(_NT_MATRIX, dev)
     gene_codes = gene_index.device_codes(dev)
     n = len(specs["gene"])
     w_needed = 2 * specs["k_locals"] + 3
@@ -1040,9 +1070,10 @@ def genome_footprint(L: int) -> int:
     return rows * (ROW + SLOTS * _SLOT_BYTES) + (CANDIDATE_CAP + ANCHOR_CAP) * _ENTRY_BYTES
 
 
-def seeding_chunk(L: int, n_genomes: int, device: torch.device) -> int:
-    r"""Genomes a device-seeding chunk holds: half the card's free memory over
-    :func:`genome_footprint`, at least 1; the whole batch on the CPU.
+def seeding_chunk(L: int, n_genomes: int, device: torch.device, slots: int = 1) -> int:
+    r"""Genomes a device-seeding chunk holds: half the card's free memory, shared
+    by the ``slots`` mesh slots placed on the card, over :func:`genome_footprint`,
+    at least 1; the whole batch on the CPU.
 
     The other half is left for the flattened stream of the batch, the
     extension DP and the caching allocator's slack.
@@ -1050,7 +1081,74 @@ def seeding_chunk(L: int, n_genomes: int, device: torch.device) -> int:
     if device.type != "cuda":
         return max(n_genomes, 1)
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1, min(n_genomes, free // 2 // genome_footprint(L)))
+    return max(1, min(n_genomes, free // 2 // slots // genome_footprint(L)))
+
+
+def _device_chains(counts: np.ndarray, chains: np.ndarray, b: int, contig_index: ContigIndex,
+                   gene_index: GeneIndex, params: MapperParams) -> dict:
+    r"""Genome ``b``'s chains from :func:`chain_batch`'s ``counts`` (6, B) and
+    ``chains`` (B, 10, n) pulled to the host.
+
+    A genome whose scan row, fold row, candidate, anchor or chain buffer
+    overflowed is seeded on the host instead (:func:`find_anchors` +
+    :func:`chain_anchors`), counted under ``map.host_fallback.<cause>`` and
+    ``map.host_chained``; the others under ``map.device_chained``.
+    """
+    causes = {
+        "row_overflow": counts[3, b] > 0,
+        "candidates": counts[1, b] > CANDIDATE_CAP,
+        "anchors": counts[2, b] > ANCHOR_CAP,
+        "chains": counts[4, b] > CHAIN_CAP,
+    }
+    if any(causes.values()):
+        for cause, hit in causes.items():
+            if hit:
+                count(f"map.host_fallback.{cause}")
+        count("map.host_chained")
+        return chain_anchors(
+            *find_anchors(gene_index, contig_index.minimizers, params), gene_index.lengths, gene_index.k, params
+        )
+    count("map.device_chained")
+    arr = chains[b].astype(np.int64)
+    return {f: arr[i][: counts[5, b]] for i, f in enumerate(_CHAIN_FIELDS)}
+
+
+def seed_chunk(codes: torch.Tensor, starts: torch.Tensor, shards: list, gene_index: GeneIndex,
+               params: MapperParams) -> tuple[torch.Tensor, torch.Tensor]:
+    r"""Scan, match and chain one chunk of genomes against a gene table cut into ``shards``.
+
+    ``codes`` (n, R * 128 + halo) uint8 and ``starts`` are the chunk's
+    :func:`_batch_codes` on its home device.  ``shards`` lists ``(device,
+    SeedTable)``: the whole table on the home device, or a mesh row's table
+    shards (:class:`~kaptive_tpu_torch.parallel.typing.ShardedGeneTable`).
+    The chunk is scanned once on each distinct device of ``shards`` and
+    matched against each shard; the shards' anchor sets are disjoint, so their
+    anchors are concatenated in shard order on the home device and chained
+    there (chaining sorts on composite keys and masks on ``valid``).  The
+    match counts are the maxima over shards (each shard holds the caps on its
+    own) and the OR of the row-overflow flags.  Returns :func:`chain_batch`'s
+    ``(chains, counts)`` on the home device.
+    """
+    home = codes.device
+    scans: dict[torch.device, tuple] = {}
+    anchors, counts = [], []
+    for dev, table in shards:
+        if dev not in scans:
+            scans[dev] = rowcompact_scan(codes.to(dev), gene_index.k, gene_index.w)
+        a, c = match_rows_batch(
+            *scans[dev], *table[:7], cap_cand=CANDIDATE_CAP, cap_anchors=ANCHOR_CAP,
+            lookup_iters=table.iters, max_occ=min(params.max_occ, DEVICE_MAX_OCC),
+        )
+        anchors.append(a.to(home))
+        counts.append(c.to(home))
+    del scans
+    if len(shards) > 1:
+        anchors, counts = [torch.cat(anchors, 2)], [torch.stack(counts).amax(0)]
+    return chain_batch(
+        anchors[0], counts[0], starts, gene_index.device_gene_lengths(home),
+        k=gene_index.k, cap_chains=CHAIN_CAP, max_diag_drift=params.max_diag_drift,
+        max_anchor_gap=params.max_anchor_gap, min_anchors=params.min_anchors,
+    )
 
 
 def _map_genes_device_seeded(
@@ -1066,18 +1164,14 @@ def _map_genes_device_seeded(
 
     Device memory of the seeding stages is bounded by one chunk whatever the
     batch, as the JAX package's fixed chunks bound it (``SCAN_CHUNK``); the
-    alignments do not depend on the chunk size.  A genome whose scan row,
-    fold row, candidate, anchor or chain buffer overflowed is seeded on the
-    host (:func:`find_anchors` + :func:`chain_anchors`), counted under
-    ``map.host_fallback.<cause>`` and ``map.host_chained``; the others under
-    ``map.device_chained``.  Either way its extension problems are gathered
-    from the device stream.
+    alignments do not depend on the chunk size.  A genome that overflowed a
+    device buffer is seeded on the host (:func:`_device_chains`); either way
+    its extension problems are gathered from the device stream.
     """
     n_genomes = len(genomes)
-    k, w = gene_index.k, gene_index.w
     L = max(int(ci.codes.shape[0]) for ci in indexes)
     chunk = chunk or seeding_chunk(L, n_genomes, device)
-    bucket_starts, run_len, iters = gene_index.device_lookup(device)
+    shards = [(device, gene_index.seed_table(device))]
     padded, chain_parts, count_parts = None, [], []
     for lo in range(0, n_genomes, chunk):
         hi = min(lo + chunk, n_genomes)
@@ -1091,21 +1185,7 @@ def _map_genes_device_seeded(
                 padded[lo:hi] = codes
                 del codes
         with phase_timer("map.scan_match"):
-            h, a, c = rowcompact_scan(padded[lo:hi], k, w)
-            anchors, match_counts = match_rows_batch(
-                h, a, c, *gene_index.device_table(device), bucket_starts, run_len,
-                gene_index.device_bloom(device),
-                cap_cand=CANDIDATE_CAP, cap_anchors=ANCHOR_CAP, lookup_iters=iters,
-                max_occ=min(params.max_occ, DEVICE_MAX_OCC),
-            )
-            del h, a, c
-            chains_d, counts_d = chain_batch(
-                anchors, match_counts, starts,
-                gene_index.device_gene_lengths(device),
-                k=k, cap_chains=CHAIN_CAP, max_diag_drift=params.max_diag_drift,
-                max_anchor_gap=params.max_anchor_gap, min_anchors=params.min_anchors,
-            )
-            del anchors, match_counts
+            chains_d, counts_d = seed_chunk(padded[lo:hi], starts, shards, gene_index, params)
             chain_parts.append(chains_d)
             count_parts.append(counts_d)
     flat_codes = padded.reshape(-1)
@@ -1125,24 +1205,7 @@ def _map_genes_device_seeded(
     all_specs: list[dict | None] = []
     with phase_timer("map.chain_host"):
         for b, ci in enumerate(indexes):
-            causes = {
-                "row_overflow": counts_np[3, b] > 0,
-                "candidates": counts_np[1, b] > CANDIDATE_CAP,
-                "anchors": counts_np[2, b] > ANCHOR_CAP,
-                "chains": counts_np[4, b] > CHAIN_CAP,
-            }
-            if any(causes.values()):
-                for cause, hit in causes.items():
-                    if hit:
-                        count(f"map.host_fallback.{cause}")
-                count("map.host_chained")
-                chains = chain_anchors(
-                    *find_anchors(gene_index, ci.minimizers, params), gene_index.lengths, k, params
-                )
-            else:
-                count("map.device_chained")
-                arr = chains_np[b].astype(np.int64)
-                chains = {f: arr[i][: n_kept[b]] for i, f in enumerate(_CHAIN_FIELDS)}
+            chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)
             if not chains or len(chains["gene"]) == 0:
                 all_chains.append(None)
                 all_specs.append(None)
@@ -1175,6 +1238,30 @@ def _map_genes_device_seeded(
     return results
 
 
+def _map_genes_sharded(
+    gene_index: GeneIndex, genomes: list, indexes: list,
+    gene_names: tuple[str, ...], params: MapperParams, mesh, device: torch.device,
+) -> list[Alignments]:
+    r"""Seeding and chaining on the mesh (:func:`~kaptive_tpu_torch.parallel.typing.sharded_scan_match_chain`),
+    extension problems built on the host, one DP sweep cut over the mesh.
+
+    Each fallback cause is held against its per-shard cap, as in the JAX
+    package's sharded tail.
+    """
+    from kaptive_tpu_torch.parallel.typing import ShardedGeneTable, sharded_scan_match_chain
+
+    L = max(int(ci.codes.shape[0]) for ci in indexes)
+    table = ShardedGeneTable.of(gene_index, mesh.shape["model"])
+    with phase_timer("map.scan_match"):
+        chains_np, counts_np = sharded_scan_match_chain(mesh, indexes, table, gene_index, params, length=L)
+    with phase_timer("map.chain_host"):
+        all_chains = []
+        for b, ci in enumerate(indexes):
+            chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)
+            all_chains.append(chains if chains and len(chains["gene"]) else None)
+    return _extend_on_host(all_chains, gene_index, genomes, indexes, gene_names, params, device, mesh)
+
+
 def map_genes_batch(
     gene_index: GeneIndex,
     genomes: list,
@@ -1184,6 +1271,7 @@ def map_genes_batch(
     indexes: list[ContigIndex] | None = None,
     seed_mode: str | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> list[Alignments]:
     r"""Map the DB gene set against a batch of assemblies on ``device``.
 
@@ -1191,7 +1279,11 @@ def map_genes_batch(
     when not given; the streaming pipeline builds them on its ingest pool,
     pre-seeded in host mode and pre-uploaded in device mode).  ``seed_mode``
     is resolved by :func:`resolve_seed_mode`; both modes give the same
-    alignments.
+    alignments.  A ``mesh`` of more than one slot
+    (:func:`~kaptive_tpu_torch.parallel.mesh.make_mesh`) seeds on the mesh
+    whatever the seed mode, as the JAX package does: assemblies over its
+    ``data`` axis, the gene table over its ``model`` axis, the DP pairs over
+    every slot; the alignments are the same.
     """
     mode = resolve_seed_mode(seed_mode)
     params = params or MapperParams()
@@ -1202,6 +1294,8 @@ def map_genes_batch(
         indexes = [ContigIndex.build(g.contigs) for g in genomes]
     if len(gene_index.minimizers.hashes) == 0:  # empty DB gene table
         return [Alignments.empty() for _ in range(n_genomes)]
+    if sharded(mesh):
+        return _map_genes_sharded(gene_index, genomes, indexes, gene_names, params, mesh, resolve_device(device))
     if mode == "device":
         return _map_genes_device_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
     return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, device)
@@ -1215,10 +1309,11 @@ def map_genes(
     *,
     seed_mode: str | None = None,
     device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Alignments:
     r"""Map every DB gene against one assembly's contigs: :func:`map_genes_batch` on
     a batch of one (the JAX package's ``map_genes``).
 
     q_names are the DB gene indices as strings and t_names the contig names.
     """
-    return map_genes_batch(gene_index, [genome], gene_names, params, seed_mode=seed_mode, device=device)[0]
+    return map_genes_batch(gene_index, [genome], gene_names, params, seed_mode=seed_mode, device=device, mesh=mesh)[0]

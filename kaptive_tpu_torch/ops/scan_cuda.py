@@ -72,11 +72,12 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
     counts = torch.empty((B, R, 1), dtype=torch.int32, device=device)
     if B == 0 or R == 0:  # nothing to launch
         return hashes, aux, counts
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.kts_rowcompact_scan(
-        codes_padded.data_ptr(), B, R, HALO_ROWS, int(k), int(w),
-        hashes.data_ptr(), aux.data_ptr(), counts.data_ptr(), stream,
-    )
+    with torch.cuda.device(device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.kts_rowcompact_scan(
+            codes_padded.data_ptr(), B, R, HALO_ROWS, int(k), int(w),
+            hashes.data_ptr(), aux.data_ptr(), counts.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"row-compact scan kernel launch failed: CUDA error {rc}")
     count("scan.cuda.rowcompact")

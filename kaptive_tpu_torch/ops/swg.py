@@ -475,6 +475,43 @@ def banded_swg(
     )
 
 
+def device_matrix(matrix, device: torch.device) -> torch.Tensor:
+    r"""A (256, 256) substitution matrix as :func:`banded_swg` takes it on ``device``:
+    the kernels' int8 tensor on a card, int32 on the CPU."""
+    if device.type == "cuda":
+        from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
+
+        return as_kernel_matrix(matrix, device)
+    m = matrix if isinstance(matrix, torch.Tensor) else torch.from_numpy(np.array(matrix, dtype=np.int32))
+    return m.to(device=device, dtype=torch.int32)
+
+
+def sharded_banded_swg(mesh, q_mat, ql, t_mat, tl, do, kl, matrix, **statics) -> SwgResult:
+    r"""A padded banded-SWG bucket cut evenly over every slot of a device mesh
+    (:class:`~kaptive_tpu_torch.parallel.mesh.Mesh`).
+
+    Slot ``i`` (flattened ``(data, model)`` order) takes pairs ``i * B / n``
+    up to ``(i + 1) * B / n`` and runs :func:`banded_swg` on its device (the
+    fill and traceback kernels on a card); pairs are independent.  The eight
+    :class:`SwgResult` rows come back to the device of ``q_mat`` in pair
+    order.  The caller pads the batch to a multiple of the slot count.
+    """
+    devs = mesh.flat
+    B = q_mat.shape[0]
+    if B % len(devs):
+        raise ValueError(f"bucket of {B} pairs does not split over {len(devs)} mesh slots")
+    per = B // len(devs)
+    home = q_mat.device
+    matrices: dict[torch.device, torch.Tensor] = {}
+    parts = []
+    for i, dev in enumerate(devs):
+        if dev not in matrices:
+            matrices[dev] = device_matrix(matrix, dev)
+        part = [x[i * per : (i + 1) * per].to(dev) for x in (q_mat, ql, t_mat, tl, do, kl)]
+        parts.append(torch.stack(tuple(banded_swg(*part, matrices[dev], **statics))).to(home))
+    return SwgResult(*torch.cat(parts, 1).unbind(0))
+
+
 def banded_swg_cigars(
     q_codes: torch.Tensor,
     q_lens: torch.Tensor,

@@ -105,13 +105,14 @@ def swg_fill_cuda(
     best = torch.empty(B, dtype=torch.int32, device=device)
     best_i = torch.empty(B, dtype=torch.int32, device=device)
     best_j = torch.empty(B, dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.kts_swg_fill(
-        q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
-        offsets.data_ptr(), k_locals.data_ptr(), matrix.data_ptr(),
-        B, rows_max, w_pad, T, int(gap_open), int(gap_extend),
-        tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
-    )
+    with torch.cuda.device(device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.kts_swg_fill(
+            q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
+            offsets.data_ptr(), k_locals.data_ptr(), matrix.data_ptr(),
+            B, rows_max, w_pad, T, int(gap_open), int(gap_extend),
+            tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"swg fill kernel launch failed: CUDA error {rc}")
     count("swg.cuda.fill")
@@ -144,12 +145,13 @@ def swg_traceback_cuda(
     for name, x in (("best", best), ("best_i", best_i), ("best_j", best_j), ("offsets", offsets)):
         check_tensor(name, x, torch.int32, (B,), device)
     out = torch.empty((8, B), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.kts_swg_traceback(
-        tb.data_ptr(), q_codes.data_ptr(), t_codes.data_ptr(), best.data_ptr(),
-        best_i.data_ptr(), best_j.data_ptr(), offsets.data_ptr(),
-        B, rows_max, w_pad, T, int(t_pad), out.data_ptr(), stream,
-    )
+    with torch.cuda.device(device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.kts_swg_traceback(
+            tb.data_ptr(), q_codes.data_ptr(), t_codes.data_ptr(), best.data_ptr(),
+            best_i.data_ptr(), best_j.data_ptr(), offsets.data_ptr(),
+            B, rows_max, w_pad, T, int(t_pad), out.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"swg traceback kernel launch failed: CUDA error {rc}")
     count("swg.cuda.traceback")
@@ -189,13 +191,14 @@ def swg_traceback_cigar_cuda(
     ops = torch.empty((B, MAX_CIGAR_OPS), dtype=torch.int32, device=device)
     n_ops = torch.empty(B, dtype=torch.int32, device=device)
     overflow = torch.empty(B, dtype=torch.bool, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.kts_swg_traceback_cigar(
-        tb.data_ptr(), q_codes.data_ptr(), t_codes.data_ptr(), best.data_ptr(),
-        best_i.data_ptr(), best_j.data_ptr(), offsets.data_ptr(),
-        B, rows_max, w_pad, T, int(t_pad),
-        out.data_ptr(), ops.data_ptr(), n_ops.data_ptr(), overflow.data_ptr(), stream,
-    )
+    with torch.cuda.device(device):  # the launch goes to the current device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.kts_swg_traceback_cigar(
+            tb.data_ptr(), q_codes.data_ptr(), t_codes.data_ptr(), best.data_ptr(),
+            best_i.data_ptr(), best_j.data_ptr(), offsets.data_ptr(),
+            B, rows_max, w_pad, T, int(t_pad),
+            out.data_ptr(), ops.data_ptr(), n_ops.data_ptr(), overflow.data_ptr(), stream,
+        )
     if rc != 0:
         raise RuntimeError(f"swg CIGAR traceback kernel launch failed: CUDA error {rc}")
     count("swg.cuda.traceback_cigar")

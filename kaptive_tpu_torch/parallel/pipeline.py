@@ -7,7 +7,9 @@ batch before; then, by :func:`resolve_seed_mode`:
 - host seeding: the pool seeds and chains the assembly against the DB gene
   table (the native C scan releases the GIL);
 - device seeding: the pool builds the assembly's upload form and copies it to
-  the card, returning once the copy has landed (``ingest.h2d_wait``).
+  the card, returning once the copy has landed (``ingest.h2d_wait``);
+- on a mesh of more than one slot the pool only parses and indexes: the
+  mapper seeds on the mesh and uploads each data row's slice itself.
 
 ``map_batch`` runs on one worker thread and overlaps ``finish_batch`` of the
 batch before it on the calling thread; results stream in input order.
@@ -26,6 +28,7 @@ import torch
 from kaptive_tpu_torch.core.genome import GenomeAssembly
 from kaptive_tpu_torch.ops.mapper import device_inputs, host_seed_chains, resolve_seed_mode, upload_form
 from kaptive_tpu_torch.ops.minimizer import ContigIndex
+from kaptive_tpu_torch.utils.device import sharded
 from kaptive_tpu_torch.utils.profiling import phase_timer
 
 Ingested = tuple[GenomeAssembly, ContigIndex]
@@ -90,7 +93,7 @@ def stream_batches(
 
 
 def auto_batch_size(per_device: int = 16) -> int:
-    r"""Default assemblies per stream batch: ``per_device`` x the cards used, one today."""
+    r"""Default assemblies per stream batch of the command line, which types on one card."""
     return per_device
 
 
@@ -105,10 +108,14 @@ def stream_type(
     Two-stage pipeline: batch k+1's ``Serotyper.map_batch`` (one worker
     thread) overlaps batch k's ``Serotyper.finish_batch`` (this thread).  The
     ingest pool pre-seeds every assembly against the serotyper's gene index
-    in host mode, and pre-uploads it to the serotyper's device in device mode.
+    in host mode, and pre-uploads it to the serotyper's device in device mode;
+    with a mesh of more than one slot it does neither.  ``map_batch`` stays on
+    one thread on a mesh too: its launches on several cards are asynchronous.
     ``max_workers`` sizes the ingest pool (:func:`stream_batches`).
     """
-    if resolve_seed_mode() == "host":
+    if sharded(getattr(serotyper, "mesh", None)):
+        batches = stream_batches(genomes, batch_size, max_workers=max_workers)
+    elif resolve_seed_mode() == "host":
         gene_index = serotyper.gene_index
         mp = serotyper.mapper_params
         gene_index.host_bloom  # build once before the pool fans out

@@ -1,12 +1,11 @@
 r"""Locus screening on PyTorch: the scoring phase of typing over a batch of assemblies.
 
-Counterpart of :mod:`kaptive_tpu.parallel.screen` (one device; the sharded
-screen is multi-GPU work).  Per assembly: a minimizer scan of its code
-stream, a capped lookup of every selected minimizer in the DB gene table
-(``MAX_OCC`` entries at most, the JAX package's cap), float32 tallies per
-gene, then per-locus scores by a one-hot float32 matmul with the reference's
-``completeness**3`` weighting, and the best locus by ``argmax`` (the first
-index wins ties, as in ``jnp.argmax``).
+Counterpart of :mod:`kaptive_tpu.parallel.screen`.  Per assembly: a minimizer
+scan of its code stream, a capped lookup of every selected minimizer in the
+DB gene table (``MAX_OCC`` entries at most, the JAX package's cap), float32
+tallies per gene, then per-locus scores by a one-hot float32 matmul with the
+reference's ``completeness**3`` weighting, and the best locus by ``argmax``
+(the first index wins ties, as in ``jnp.argmax``).
 
 The scan is the row-compact front door (:func:`kaptive_tpu_torch.ops.scan.rowcompact_scan`):
 the Hopper kernel for a batch on the card, the plain version on the CPU.  Its
@@ -16,6 +15,12 @@ width.  A genome with a row of more than 64 minimizers (the kernel's row
 capacity) is tallied from the flat plain scan instead, on the same device,
 and counted as ``screen.overflow``: a semantic path, taken whatever the
 kernel did, and not a fallback from a failed one.
+
+:func:`sharded_locus_screen` runs the same steps on a device mesh:
+assemblies over its ``data`` axis, the gene table cut by hash runs over its
+``model`` axis, the shards' tallies summed (the JAX package's ``psum``) before
+one scoring of the batch.  Tallies are integer counts in float32, so the sum
+equals the single-device tallies exactly.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from kaptive_tpu_torch.ops.scan import (
     minimizer_scan_plain,
     rowcompact_scan,
 )
+from kaptive_tpu_torch.parallel.typing import _row_slices, shard_cuts
 from kaptive_tpu_torch.utils.metrics import count
 
 MAX_OCC = 8  # per-minimizer occurrence cap of the table lookup
@@ -84,6 +90,19 @@ class ScreenTables:
             }
         return self._cache[key]
 
+    def shard(self, s: int, model: int, device: torch.device) -> dict[str, torch.Tensor]:
+        r"""Shard ``s`` of ``model`` hash-run-aligned table shards
+        (:func:`~kaptive_tpu_torch.parallel.typing.shard_cuts`) on ``device`` (cached)."""
+        key = (model, s, str(device))
+        if key not in self._cache:
+            cuts = shard_cuts(self.table_hashes, model)
+            rows = slice(cuts[s], cuts[s + 1])
+            self._cache[key] = {
+                "hashes": torch.from_numpy(self.table_hashes[rows].astype(np.int64)).to(device),
+                "genes": torch.from_numpy(self.table_genes[rows].astype(np.int64)).to(device),
+            }
+        return self._cache[key]
+
 
 def encode_assemblies_to_batch(assemblies) -> np.ndarray:
     r"""Each assembly's sentinel-separated code stream as one row of a (B, W) uint8 batch.
@@ -107,8 +126,10 @@ def _tally(hashes: torch.Tensor, genome: torch.Tensor, tables: dict, n_genomes: 
     r"""(n_genomes, n_genes) float32 tallies of selected minimizer ``hashes`` (int64) owned by ``genome``."""
     th, tg = tables["hashes"], tables["genes"]
     t_len = th.shape[0]
-    lo = torch.searchsorted(th, hashes)
     tally = torch.zeros(n_genomes * (n_genes + 1), dtype=torch.float32, device=hashes.device)
+    if t_len == 0:  # an empty table shard
+        return tally.reshape(n_genomes, n_genes + 1)[:, :n_genes]
+    lo = torch.searchsorted(th, hashes)
     base = genome * (n_genes + 1)
     for o in range(MAX_OCC):
         in_bounds = lo + o < t_len  # clamping alone would re-count the last entry
@@ -128,6 +149,40 @@ def score_from_tallies(tallies: torch.Tensor, tables: dict):
     return weighted.argmax(dim=1).to(torch.int32), weighted
 
 
+def _shard_tallies(codes: torch.Tensor, shards: list, n_genes: int) -> torch.Tensor:
+    r"""(B, G) float32 tallies of a (B, L) code batch against each table shard
+    ``(device, tables)``, summed on the device of ``codes``.
+
+    The batch is scanned once on each distinct device of ``shards``; genomes
+    with an overflowing scan row are tallied from the flat plain scan.
+    """
+    home = codes.device
+    B = codes.shape[0]
+    scans: dict[torch.device, tuple] = {}
+    total = None
+    for dev, tab in shards:
+        if dev not in scans:
+            c = codes.to(dev)
+            h_rows, aux_rows, counts = rowcompact_scan(add_halo(c), DEFAULT_K, DEFAULT_W)
+            live = aux_rows >= 0
+            genome = torch.arange(B, device=dev)[:, None, None].expand_as(live)
+            over = (counts.reshape(B, -1) > SLOTS).any(-1).nonzero()[:, 0]
+            flat = None
+            if over.numel():
+                if not scans:
+                    count("screen.overflow", int(over.numel()))
+                sel, hashes, _ = minimizer_scan_plain(c[over], DEFAULT_K, DEFAULT_W)
+                owner = torch.arange(over.numel(), device=dev)[:, None].expand_as(sel)
+                flat = (hashes[sel], owner[sel])
+            scans[dev] = (as_uint32_values(h_rows[live]), genome[live], over, flat)
+        hashes, owner, over, flat = scans[dev]
+        tallies = _tally(hashes, owner, tab, B, n_genes)
+        if flat is not None:
+            tallies[over] = _tally(*flat, tab, int(over.numel()), n_genes)
+        total = tallies.to(home) if total is None else total + tallies.to(home)
+    return total
+
+
 def locus_screen_batch(codes: torch.Tensor, tables: ScreenTables, n_genes: int):
     r"""Best locus and weighted locus scores of a (B, L) uint8 code batch on its device.
 
@@ -135,19 +190,34 @@ def locus_screen_batch(codes: torch.Tensor, tables: ScreenTables, n_genes: int):
     widths are).  Returns ``(best (B,) int32, weighted (B, NL) float32,
     tallies (B, G) float32)``, all on the device of ``codes``.
     """
-    dev = codes.device
-    B, L = codes.shape
-    tab = tables.on(dev)
-    h_rows, aux_rows, counts = rowcompact_scan(add_halo(codes), DEFAULT_K, DEFAULT_W)
-    live = aux_rows >= 0
-    genome = torch.arange(B, device=dev)[:, None, None].expand_as(live)
-    tallies = _tally(as_uint32_values(h_rows[live]), genome[live], tab, B, n_genes)
-    overflow = (counts.reshape(B, -1) > SLOTS).any(-1)
-    if bool(overflow.any()):
-        over = overflow.nonzero()[:, 0]
-        count("screen.overflow", int(over.numel()))
-        sel, hashes, _ = minimizer_scan_plain(codes[over], DEFAULT_K, DEFAULT_W)
-        owner = torch.arange(over.numel(), device=dev)[:, None].expand_as(sel)
-        tallies[over] = _tally(hashes[sel], owner[sel], tab, int(over.numel()), n_genes)
+    tab = tables.on(codes.device)
+    tallies = _shard_tallies(codes, [(codes.device, tab)], n_genes)
     best, weighted = score_from_tallies(tallies, tab)
+    return best, weighted, tallies
+
+
+def sharded_locus_screen(mesh, codes_batch: np.ndarray, tables: ScreenTables):
+    r"""The screen on a mesh: assemblies over ``data``, gene table over ``model``.
+
+    Data row ``d`` takes its slice of the (B, L) uint8 batch (padded to the
+    data axis: a row past the batch's end screens nothing), scans it on each
+    distinct device of the row and tallies it against each model slot's
+    hash-run-aligned table shard; the shards' tallies are summed (the
+    ``psum``), and the whole batch is scored once on the mesh's first device.
+    Returns :func:`locus_screen_batch`'s ``(best, weighted, tallies)`` on that
+    device, equal to the single-device screen's.
+    """
+    n_genes = tables.gene_locus_onehot.shape[0]
+    model = mesh.shape["model"]
+    home = mesh.flat[0]
+    parts = []
+    for d, rows in enumerate(_row_slices(mesh, codes_batch.shape[0])):
+        if rows.start == rows.stop:
+            continue
+        devs = list(mesh.devices[d])
+        codes = torch.from_numpy(np.ascontiguousarray(codes_batch[rows])).to(devs[0])
+        shards = [(dev, tables.shard(s, model, dev)) for s, dev in enumerate(devs)]
+        parts.append(_shard_tallies(codes, shards, n_genes))
+    tallies = torch.cat([p.to(home) for p in parts])
+    best, weighted = score_from_tallies(tallies, tables.on(home))
     return best, weighted, tallies

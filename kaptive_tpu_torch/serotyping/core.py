@@ -5,7 +5,10 @@ decision semantics.  The mapping phase is the port's mapper
 (:mod:`kaptive_tpu_torch.ops.mapper`, host- or device-seeded as
 ``KAPTIVE_SEED_MODE`` resolves) and the protein-identity DP is the
 port's :class:`~kaptive_tpu_torch.core.pairwise.PairwiseAligner`, both on an
-explicit ``device`` (CUDA by default).  The decision phases are the numpy
+explicit ``device`` (CUDA by default) or, given a ``mesh``
+(:func:`kaptive_tpu_torch.parallel.mesh.make_mesh`), over its slots:
+assemblies over its ``data`` axis, the gene table over its ``model`` axis,
+the DP pairs over every slot, with the same results.  The decision phases are the numpy
 modules :mod:`kaptive_tpu_torch.serotyping.analysis` and
 :mod:`kaptive_tpu_torch.serotyping.models`, copies of the JAX package's, and
 :meth:`Serotyper.finish_batch` is carried over line for line, so results equal
@@ -15,6 +18,7 @@ the JAX ``Serotyper``'s in the same seeding mode.
 from __future__ import annotations
 
 import dataclasses
+import math
 from pathlib import Path
 
 import numpy as np
@@ -38,7 +42,7 @@ from kaptive_tpu_torch.serotyping.analysis import (
     resolve_phenotypes,
 )
 from kaptive_tpu_torch.serotyping.models import GeneHits, GeneState, LocusPieces, SerotypingResult
-from kaptive_tpu_torch.utils.device import resolve_device
+from kaptive_tpu_torch.utils.device import device_count, resolve_device, sharded
 from kaptive_tpu_torch.utils.profiling import phase_timer
 
 
@@ -50,10 +54,14 @@ def _byte_vocab(strings, pad: int = 0) -> np.ndarray:
 
 
 class Serotyper:
-    r"""*In silico* serotyping engine for bacterial genome assemblies on ``device``.
+    r"""*In silico* serotyping engine for bacterial genome assemblies on ``device`` or a ``mesh``.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present; the
-    CPU (the plain PyTorch DP) is used only when asked for.  ``db`` is a
+    CPU (the plain PyTorch DP) is used only when asked for.  With a ``mesh``
+    of more than one slot, mapping seeds on the mesh whatever the seed mode,
+    every DP sweep (CIGAR mode's excepted) and the screen are cut over its
+    slots, and ``device`` defaults to the mesh's first slot, where the
+    unsharded work runs; the decision stages stay on the host.  ``db`` is a
     :class:`kaptive_tpu_torch.db.Database`; a database object of the JAX
     package is refused (carry it across with
     :func:`kaptive_tpu_torch.utils.state.loads_reference`).
@@ -69,13 +77,17 @@ class Serotyper:
         *,
         min_gene_coverage: float = 0.20,
         partial_edge_tolerance: int = 5,
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
+        mesh=None,
     ) -> None:
         if not isinstance(db, Database):
             raise TypeError(
                 f"Serotyper needs a kaptive_tpu_torch.db.Database, got {type(db).__module__}.{type(db).__qualname__}"
             )
+        if device is None:
+            device = mesh.flat[0] if mesh is not None else "cuda"
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._db = db
         self.max_other_genes = max_other_genes
         self.min_completeness = min_completeness
@@ -90,11 +102,18 @@ class Serotyper:
         # window padding, with a typical and a worst-case row tier.  Batch
         # 384 on CUDA and 128 on the CPU, and a protein tail batch of 96, as
         # the JAX package uses on one accelerator and on the CPU; re-deciding
-        # them by measurement on the card is later work.
+        # them by measurement on the card is later work.  On a mesh of n
+        # slots both round up to lcm(ceil(16 / n) * n, 8), so every bucket
+        # splits evenly over the slots (the JAX package's rounding).
+        n_dev = device_count(mesh)
+        unit = math.lcm(-(-16 // n_dev) * n_dev, 8)
         dp_batch = 384 if self.device.type == "cuda" else 128
+        dp_batch = -(-dp_batch // unit) * unit
+        tail = unit * max(1, 96 // unit)
         max_prot = int(db.translations.lengths.max()) if len(db.translations) else 64
         self._protein_lattice = SwgLattice.for_max_len(
-            max_prot, len_slack=max(16, max_prot // 4), batch=dp_batch, tail_batch=96,
+            max_prot, len_slack=max(16, max_prot // 4), batch=dp_batch,
+            tail_batch=tail if tail < dp_batch else 0,
         )
         max_gene = int(db.genes.lengths.max()) if len(db.genes) else 256
         ext_rows_typ = -(-(max_gene + 192) // 64) * 64
@@ -107,7 +126,7 @@ class Serotyper:
         if mp.lattice is None:
             mp = dataclasses.replace(mp, lattice=self._ext_lattice)
         self.mapper_params = mp
-        self._protein_aligner = PairwiseAligner(lattice=self._protein_lattice, device=self.device)
+        self._protein_aligner = PairwiseAligner(lattice=self._protein_lattice, device=self.device, mesh=mesh)
 
         self._gene_id_bytes = _byte_vocab(db.genes.ids)
         self._cluster_bytes = _byte_vocab(db.cluster_keys)
@@ -145,7 +164,7 @@ class Serotyper:
         with phase_timer("type.map"):
             alns_list = map_genes_batch(
                 self._gene_index, assemblies, self._gene_names, self.mapper_params,
-                indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device,
+                indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device, mesh=self.mesh,
             )
         return assemblies, alns_list
 
@@ -287,8 +306,10 @@ class Serotyper:
         phenotype or confidence call (``type --screen-only``).
 
         The batch is scanned at the JAX package's stream width
-        (:func:`~kaptive_tpu_torch.parallel.screen.encode_assemblies_to_batch`).
-        Returns ``(assemblies,
+        (:func:`~kaptive_tpu_torch.parallel.screen.encode_assemblies_to_batch`);
+        on a mesh of more than one slot by
+        :func:`~kaptive_tpu_torch.parallel.screen.sharded_locus_screen`, with
+        the same results.  Returns ``(assemblies,
         best_locus_indices, weighted_scores)`` with ``weighted_scores``
         (B, n_loci) float32.
         """
@@ -296,6 +317,7 @@ class Serotyper:
             ScreenTables,
             encode_assemblies_to_batch,
             locus_screen_batch,
+            sharded_locus_screen,
         )
 
         with phase_timer("screen.parse"):
@@ -307,9 +329,12 @@ class Serotyper:
         with phase_timer("screen.encode"):
             codes = encode_assemblies_to_batch(assemblies)
         with phase_timer("screen.device"):
-            best, weighted, _ = locus_screen_batch(
-                torch.from_numpy(codes).to(self.device), self._screen_tables, n_genes=len(self._db.genes)
-            )
+            if sharded(self.mesh):
+                best, weighted, _ = sharded_locus_screen(self.mesh, codes, self._screen_tables)
+            else:
+                best, weighted, _ = locus_screen_batch(
+                    torch.from_numpy(codes).to(self.device), self._screen_tables, n_genes=len(self._db.genes)
+                )
             best, weighted = best.cpu().numpy(), weighted.cpu().numpy()
         return assemblies, best, weighted
 

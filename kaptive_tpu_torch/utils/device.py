@@ -4,7 +4,7 @@ The JAX package asks ``ops/scan_pallas.py::default_device_is_tpu`` whether the
 default device is an accelerator.  The port names its device explicitly on
 every public entry point; these helpers turn that name into a
 ``torch.device``, refuse a CUDA device when no card is present (there is no
-silent CPU fallback), and report the card's name and power limit so every
+silent CPU fallback), say when a device mesh shards the work, and report the card's name and power limit so every
 number the port measures can stand beside them.
 """
 
@@ -34,6 +34,16 @@ def resolve_device(device: str | torch.device) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def device_count(mesh) -> int:
+    r"""Slots of a device mesh (:class:`~kaptive_tpu_torch.parallel.mesh.Mesh`), 1 without one."""
+    return 1 if mesh is None else int(mesh.devices.size)
+
+
+def sharded(mesh) -> bool:
+    r"""Whether work is cut over ``mesh``: only a mesh of more than one slot shards it."""
+    return device_count(mesh) > 1
 
 
 def card_info() -> str:

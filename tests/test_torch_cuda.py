@@ -17,7 +17,11 @@ the CPU); the BGC toolkit on the card equals its CPU path except for the
 predictions' scores, held to ``rtol=1e-5`` (the emissions' matrix product
 sums in another order).  Device seeding in chunks: its peak memory at stream
 batches 8 and 32 differs by less than one chunk's worth, and a batch of 64
-maps to the same alignments in chunks of 5.
+maps to the same alignments in chunks of 5.  The mesh on four slots of the
+card (``cuda:0`` four times on a one-card machine): typing rows, streamed rows
+and screen equal one card's exactly, ``sharded_banded_swg`` equals
+``banded_swg`` exactly, and sharded seeding's peak memory stays within the
+budget of one slot.
 """
 
 import numpy as np
@@ -777,3 +781,97 @@ def test_seeding_batch_of_64_completes_and_chunks_agree(seeding_batch):
     assert len(whole) == 64 and all(len(a) > 0 for a in whole)
     for got, want in zip(chunked, whole, strict=True):
         assert_same(got, want)
+
+
+# --- the mesh: four slots of one card -----------------------------------------
+
+
+def _card_mesh(shape):
+    from kaptive_tpu_torch.parallel import make_mesh
+
+    data, model = shape
+    slots = [torch.device("cuda", i % torch.cuda.device_count()) for i in range(data * model)]
+    return make_mesh(devices=slots, model_parallel=model)
+
+
+def test_mesh_serotyper_on_card_equals_single_device(scan_device, tmp_path):
+    """The typing panel on a (2, 2) mesh of four card slots: batch, stream and screen equal one card's,
+    and the scan, fill and traceback ran on the kernels only."""
+    import io
+
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import TRUTH, make_port_typing_panel
+
+    from kaptive_tpu_torch.parallel import stream_type
+    from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    db, genomes = make_port_typing_panel(tmp_path)
+    single = Serotyper(db, device="cuda")
+    want = [bytes(KaptiveRow.from_result(r)) for r in single.batch([io.BytesIO(f) for _, f in genomes])]
+    mesh = Serotyper(db, mesh=_card_mesh((2, 2)))
+    reset_metrics()
+    batch = mesh.batch([io.BytesIO(f) for _, f in genomes])
+    streamed = list(stream_type(mesh, [io.BytesIO(f) for _, f in genomes], batch_size=3))
+    counts = snapshot()
+    assert [r.best_locus_name for r in batch] == TRUTH
+    assert [bytes(KaptiveRow.from_result(r)) for r in batch + streamed] == want + want
+    for name in ("scan.cuda.rowcompact", "swg.cuda.fill", "swg.cuda.traceback"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    assert not any(".plain." in name for name in counts), counts
+    assert counts["swg.cuda.fill"] % 4 == 0  # every bucket cut over the four slots
+    _, best, weighted = mesh.screen([io.BytesIO(f) for _, f in genomes])
+    _, best_one, weighted_one = single.screen([io.BytesIO(f) for _, f in genomes])
+    np.testing.assert_array_equal(best, best_one)
+    np.testing.assert_array_equal(weighted, weighted_one)
+
+
+def test_sharded_banded_swg_on_card_equals_banded_swg(device):
+    from kaptive_tpu_torch.ops.swg import banded_swg
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix
+    from kaptive_tpu_torch.parallel.typing import sharded_banded_swg
+
+    rows_max, w_pad = 1024, 128
+    arrays = random_swg_batch(np.random.default_rng(11), NT, 384, rows_max, w_pad, seeded=True)
+    args = [torch.from_numpy(a).to(device) for a in arrays]
+    matrix = as_kernel_matrix(torch.from_numpy(nt_matrix()), device)
+    statics = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
+    want = banded_swg(*args, matrix, **statics)
+    for shape in ((2, 2), (1, 4)):
+        got = sharded_banded_swg(_card_mesh(shape), *args, matrix, **statics)
+        for field, g, w in zip(want._fields, got, want, strict=True):
+            assert torch.equal(g, w), (shape, field)
+
+
+def test_sharded_seeding_on_four_slots_stays_within_one_slot_budget(seeding_batch):
+    """Four slots of one card share its free memory: each row's chunk is sized from a quarter of
+    the budget. Free memory is mocked to room for 2 genomes a slot, so a chunk sized from the
+    whole budget (a row's 4 genomes at once) would pass the quarter that the peak is held to."""
+    from unittest import mock
+
+    from kaptive_tpu_torch.ops.mapper import MapperParams, genome_footprint, seeding_chunk
+    from kaptive_tpu_torch.parallel.typing import ShardedGeneTable, sharded_scan_match_chain
+
+    db, genomes, indexes = seeding_batch
+    gi, p = db.gene_index, MapperParams()
+    L = max(len(ci.codes) for ci in indexes)
+    device = torch.device("cuda", 0)
+    mesh = _card_mesh((2, 2))
+    table = ShardedGeneTable.of(gi, 2)
+    want = sharded_scan_match_chain(mesh, indexes[:2], table, gi, p, length=L)  # tables resident first
+    free, total = torch.cuda.mem_get_info(device)
+    budget = 4 * 2 * genome_footprint(L) + genome_footprint(L) // 2  # half the mocked free memory
+    with mock.patch.object(torch.cuda, "mem_get_info", lambda *_: (min(free, 2 * budget), total)):
+        assert seeding_chunk(L, 4, device, 4) == 2 and seeding_chunk(L, 4, device, 1) == 4
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        chains, counts = sharded_scan_match_chain(mesh, indexes[:8], table, gi, p, length=L)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    print(f"sharded seeding of 8 genomes on 4 slots: peak {peak / 1e6:.1f} MB; the budget "
+          f"{budget / 1e6:.1f} MB, a slot's quarter of it {budget // 4 / 1e6:.1f} MB")
+    assert peak < budget // 4
+    np.testing.assert_array_equal(chains[:2], want[0])
+    assert (counts[5] > 0).all()

@@ -4,12 +4,15 @@ A subprocess imports the port, makes a database with the port's own GenBank
 writer, types one small genome on the CPU in host- and in device-seeded mode,
 runs the port's command line (``type``, ``convert`` and ``db``) on it,
 annotates it with the BGC toolkit (gene HMM, aligned hits), trains an
-architectural model on the database's loci and predicts on it, and checks that no ``kaptive_tpu``, ``kaptive_tpu.*`` or ``jax*`` module is in
+architectural model on the database's loci and predicts on it, types the genome again on a
+two-slot CPU mesh (``parallel.mesh``, ``parallel.typing``, the sharded screen) and loads
+``parallel.multihost``, and checks that no ``kaptive_tpu``, ``kaptive_tpu.*`` or ``jax*`` module is in
 ``sys.modules`` — once with every such import blocked in the meta-path finder
 (a machine that has neither) and once with all of them importable (as on the
 GPU machine, where jax and the JAX package are installed but must stay
 unused).  A static test reads every source file of the port and
-``chip_smoke.py`` for an import statement that names either.
+``chip_smoke.py`` for an import statement that names either, and checks that
+the port has every module of the JAX package's ``bgc`` and ``parallel`` packages.
 """
 
 import json
@@ -95,12 +98,20 @@ model = ArchitecturalTrainer(num_archetypes=3, feature_dim=128).train(
     [db.get_locus_data(name) for name in ("KL1", "KL2", "KL3")])
 predicted = ArchitecturalPredictor(model, device="cpu").predict(annotation)
 bgc_hits = sum("KL2" in str(name) for name in annotation.top_hit_names[annotation.hits_mask])
+
+import kaptive_tpu_torch.parallel.multihost  # noqa: F401
+from kaptive_tpu_torch.parallel import make_mesh
+
+mesh_serotyper = Serotyper(db, mesh=make_mesh(devices=[torch.device("cpu")] * 2, model_parallel=2))
+mesh_row = bytes(KaptiveRow.from_result(mesh_serotyper(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))))
+mesh_screen = mesh_serotyper.screen([GenomeAssembly.from_stream(io.BytesIO(fasta), "g")])[1].tolist()
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
 print(json.dumps({"locus": result.best_locus_name, "streamed": streamed[0].best_locus_name,
                   "row_bytes": len(row), "device_rows_equal": device_rows == [row, bytes(KaptiveRow.from_result(streamed[0]))],
                   "cli_rows_equal": cli_rows == row.splitlines(), "converted": converted,
                   "db_metadata": db_metadata, "bgc_genes": len(annotation.genes), "bgc_hits": bgc_hits,
                   "bgc_aligned": annotation.alignments is not None, "bgc_loci": len(predicted),
+                  "mesh_row_equal": mesh_row == row, "mesh_screen": [db.loci.ids[b] for b in mesh_screen],
                   "foreign_modules": loaded}))
 """
 
@@ -120,6 +131,7 @@ def test_port_types_without_jax(jax_import):
     assert out["device_rows_equal"]
     assert out["cli_rows_equal"] and out["converted"] and out["db_metadata"]
     assert out["bgc_genes"] > 0 and out["bgc_hits"] > 0 and out["bgc_aligned"]
+    assert out["mesh_row_equal"] and out["mesh_screen"] == ["KL2"]
 
 
 _FOREIGN_IMPORT = re.compile(r"^\s*(from|import) +(kaptive_tpu|jax|jaxlib)(\.|\s|$)", re.M)
@@ -128,8 +140,9 @@ _FOREIGN_IMPORT = re.compile(r"^\s*(from|import) +(kaptive_tpu|jax|jaxlib)(\.|\s
 def test_no_source_file_imports_the_jax_package():
     sources = [*sorted((ROOT / "kaptive_tpu_torch").rglob("*.py")), ROOT / "chip_smoke.py"]
     assert len(sources) > 40
-    bgc = {p.name for p in sources if p.parent.name == "bgc"}
-    assert bgc == {p.name for p in (ROOT / "kaptive_tpu" / "bgc").glob("*.py")}  # every module of the BGC toolkit
+    for package in ("bgc", "parallel"):  # every module of the BGC toolkit and of the parallel package
+        ported = {p.name for p in sources if p.parent.name == package}
+        assert ported == {p.name for p in (ROOT / "kaptive_tpu" / package).glob("*.py")}, package
     offenders = {str(p.relative_to(ROOT)): _FOREIGN_IMPORT.findall(p.read_text()) for p in sources}
     assert {name: hits for name, hits in offenders.items() if hits} == {}
     assert not (ROOT / "kaptive_tpu_torch" / "_reuse.py").exists()
