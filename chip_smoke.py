@@ -11,7 +11,8 @@ module of either was loaded).  Steps:
 
 1. Print the card's ``name, power.limit`` (``nvidia-smi``), refuse to run
    without CUDA, and build what the port builds, all from
-   ``kaptive_tpu_torch/csrc/`` into ``build/kaptive_tpu_torch/``: the Hopper
+   ``kaptive_tpu_torch/csrc/`` into ``build/kaptive_tpu_torch/`` (the
+   checkout's build directory; step 12 builds an installed copy elsewhere): the Hopper
    kernels (``swg.cu``, ``scan.cu`` and ``viterbi.cu``, one nvcc each) and the native host
    library (``hostio.cpp``, g++), started together, printing build seconds.
 2. Build bench.py's workload: a 140-locus x 18-gene synthetic database and
@@ -105,21 +106,45 @@ module of either was loaded).  Steps:
     shard; the merged records must equal the in-process
     ``result_to_jsonl_bytes`` records, and each process asserts that no
     ``jax*`` or ``kaptive_tpu*`` module was loaded.
+12. The port as users install and call it.  (a) A wheel of the repository's
+    packages is built offline (``pip wheel --no-deps --no-build-isolation``)
+    from a copy of them and installed with ``--target`` into a temporary
+    directory; where setuptools is missing, the tree the wheel would hold is
+    copied there instead (the line says which).  The wheel must ship every
+    ``csrc/`` source.  (b) ``python -m kaptive_tpu_torch.cli type`` of step
+    7's files runs from that directory, with its ``cwd`` outside the checkout
+    and ``XDG_CACHE_HOME`` a fresh temporary directory, host- and then
+    device-seeded: its TSV must equal step 3's rows byte for byte, the
+    kernels must launch and no plain form, the sources must resolve inside
+    the installed package and the libraries build in the fresh cache, no
+    ``jax*`` or ``kaptive_tpu*`` module may load, and nothing may change under
+    the checkout's ``build/``.  Prints each run's wall seconds beside the
+    card.  (c) The flat-scan kernel (``minimizer_scan_kernel``) is held to
+    ``minimizer_scan_plain`` on the card, exactly on ``selected``, ``hashes``
+    and ``strands``: step 3's four largest assemblies as one (4, L) stream of
+    ~22 M positions at full width, and the poly-A overflow panel of
+    ``tests/scan_panels.py``; timed with CUDA events beside its bound.
+    (d) Screen mode on four assemblies, one with a 400-base poly-A run, with
+    the counts set to 0 just before and read just after: ``screen.overflow``
+    must be 1, the flat-scan kernel must launch once and no plain scan run,
+    and ``best`` and the tallies must equal the CPU's.  (e) The one-contig
+    ``architectural_viterbi`` (24,438 rows x 28 states) launches the
+    architectural kernel once and equals its plain form.
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-12. bench.py's full 32 assemblies, host- and then device-seeded, typed in
+13. bench.py's full 32 assemblies, host- and then device-seeded, typed in
     stream batches of 32 and of 8, three timed passes each after a priming
     pass (every pass and the median printed), and for each mode one more
     batch-32 pass under ``torch.profiler`` for the card's busy share and its
     time per kernel.
-13. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+14. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
     ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
     times, and band cells per second of the fill.
-14. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
+15. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
     (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
     lattice batch of 384 pairs fills the card.
-15. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
+16. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
     kernel == plain at each, CUDA-event time and bound: latency against
     throughput of the scan, and the time of a 32-genome batch in one launch.
 
@@ -131,7 +156,7 @@ this run's data needs: the larger of the bytes moved (inputs read once,
 outputs written once) over 3.35 TB/s and the integer operations over the
 card's int32 rate, taken as a quarter of its 67 TFLOP/s float32 rate (half
 the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
-PyTorch call computes any of the six functions, so ``library_ms`` is null.
+PyTorch call computes any of the seven functions, so ``library_ms`` is null.
 The two Viterbi kernels are float32 work: their operations are counted
 against the 67 TFLOP/s float32 rate, and their bytes are the function's own
 inputs and outputs (no scratch of the kernel).  The gene decode's time is
@@ -954,6 +979,241 @@ def mesh_phase(card: str, db, assemblies, results, inputs: Path) -> dict:
     return {"launches": launches, **checks}
 
 
+# The installed ``type``: runs the command line and reports, after it, what it loaded and built.
+INSTALLED_RUN = r"""
+import atexit, json, sys
+
+
+@atexit.register
+def _report():
+    import kaptive_tpu_torch
+    from kaptive_tpu_torch.native import hostio
+    from kaptive_tpu_torch.ops import scan_cuda, swg_cuda, viterbi_cuda
+
+    sys.stderr.write("\nINSTALL=" + json.dumps({
+        "package": kaptive_tpu_torch.__file__,
+        "sources": [str(hostio.SOURCE)] + [str(m.LIBRARY.source) for m in (scan_cuda, swg_cuda, viterbi_cuda)],
+        "libraries": [str(hostio.LIBRARY)] + [str(m.LIBRARY.library) for m in (scan_cuda, swg_cuda, viterbi_cuda)],
+        "foreign": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "kaptive_tpu")),
+    }) + "\n")
+
+
+sys.argv = ["kaptive-tpu-torch", *sys.argv[1:]]
+from kaptive_tpu_torch.cli import main
+
+main()
+"""
+
+
+def _install_port(tmp: Path) -> tuple[Path, str]:
+    """Step 12 (a): a wheel of the repository's packages, built offline from a copy of them
+    (so nothing is written into the checkout) and installed with ``--target`` into ``tmp/site``;
+    where setuptools is missing, the tree that wheel would hold is copied there instead.
+    Returns ``(site, what was done)``."""
+    import importlib.util
+    import shutil
+    import subprocess
+    import zipfile
+
+    site, src = tmp / "site", tmp / "src"
+    skip = shutil.ignore_patterns("__pycache__", "*.pyc", "*.so", "*.tmp")
+    if importlib.util.find_spec("setuptools") is None:
+        shutil.copytree(ROOT / "kaptive_tpu_torch", site / "kaptive_tpu_torch", ignore=skip)
+        return site, "setuptools is missing: copied the tree the wheel would hold (the .py files and csrc/)"
+    src.mkdir()
+    for name in ("pyproject.toml", "README.md"):
+        shutil.copy2(ROOT / name, src / name)
+    for pkg in ("kaptive_tpu", "kaptive_tpu_torch"):
+        shutil.copytree(ROOT / pkg, src / pkg, ignore=skip)
+    def pip(*args):
+        proc = subprocess.run([sys.executable, "-m", "pip", *args, "--no-deps", "--no-index", "-q"], cwd=tmp,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"pip {args[0]} failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+
+    t0 = time.perf_counter()
+    pip("wheel", str(src), "--no-build-isolation", "-w", str(tmp / "wheel"))
+    (wheel,) = (tmp / "wheel").glob("*.whl")
+    pip("install", "--target", str(site), str(wheel))
+
+    shipped = sorted(n for n in zipfile.ZipFile(wheel).namelist() if "/csrc/" in n)
+    sources = sorted(f"kaptive_tpu_torch/csrc/{p.name}" for p in (ROOT / "kaptive_tpu_torch" / "csrc").iterdir()
+                     if p.suffix in (".cu", ".cpp"))
+    if shipped != sources:
+        raise AssertionError(f"the wheel ships {shipped}, not every kernel source {sources}")
+    return site, (f"built {wheel.name} offline (pip wheel --no-build-isolation) and installed it with "
+                  f"--target in {time.perf_counter() - t0:.1f} s; it ships {', '.join(Path(n).name for n in shipped)}")
+
+
+def install_phase(card: str, inputs: Path, assemblies, results) -> dict:
+    """Step 12 (a, b): the port as users install it; ``type`` from the installed package, outside
+    the checkout, host- and device-seeded. Returns the wall seconds per mode."""
+    import subprocess
+
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
+
+    want = KaptiveRow.header() + b"".join(bytes(KaptiveRow.from_result(r)) for r in results)
+    checkout_build = ROOT / "build"
+
+    def build_listing():
+        return sorted((str(p), p.stat().st_mtime_ns) for p in checkout_build.rglob("*")) if checkout_build.exists() else []
+
+    before = build_listing()
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        site, how = _install_port(tmp)
+        print(f"# installed port: {how}", flush=True)
+        cache = tmp / "cache"
+        env = {k: v for k, v in os.environ.items() if k not in ("KAPTIVE_SEED_MODE", "KAPTIVE_PROFILE", "PYTHONPATH")}
+        env.update(PYTHONPATH=str(site), XDG_CACHE_HOME=str(cache))
+        gbk = next(inputs.glob("*.gbk"))
+        fastas = [str(inputs / f"{name}.fasta") for name, *_ in assemblies]
+        for mode in ("host", "device"):
+            cwd = tmp / f"run_{mode}"
+            cwd.mkdir()
+            cmd = [sys.executable, "-c", INSTALLED_RUN, "type", str(gbk), *fastas, "-o", "out.tsv",
+                   "--batch-size", str(BATCH_SIZE), "--device", "cuda", "--seed-mode", mode, "--profile"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True, timeout=900)
+            walls[mode] = time.perf_counter() - t0
+            err = proc.stderr.decode()
+            if proc.returncode != 0:
+                raise AssertionError(f"installed type --seed-mode {mode} exited {proc.returncode}:\n{err[-3000:]}")
+            (line,) = [ln for ln in err.splitlines() if ln.startswith("INSTALL=")]
+            report = json.loads(line.removeprefix("INSTALL="))
+            package = site / "kaptive_tpu_torch"
+            if Path(report["package"]) != package / "__init__.py":
+                raise AssertionError(f"the installed run imported {report['package']}, not {package}")
+            if report["foreign"]:
+                raise AssertionError(f"the installed run loaded {report['foreign']}")
+            if any(Path(src).parent != package / "csrc" for src in report["sources"]):
+                raise AssertionError(f"sources outside the installed package: {report['sources']}")
+            if any(Path(lib).parent != cache / "kaptive_tpu_torch" for lib in report["libraries"]):
+                raise AssertionError(f"libraries outside the user cache: {report['libraries']}")
+            if (cwd / "out.tsv").read_bytes() != want:
+                raise AssertionError(f"installed type --seed-mode {mode}: TSV differs from step 3's rows")
+            counts = _counters(err)
+            kernels = ["swg.cuda.fill", "swg.cuda.traceback"] + (["scan.cuda.rowcompact"] if mode == "device" else [])
+            if min(counts.get(k, 0) for k in kernels) == 0 or any(k.split(".")[1] == "plain" for k in counts):
+                raise AssertionError(f"installed type --seed-mode {mode} did not run on the kernels: {counts}")
+            built = sorted(p.name for p in (cache / "kaptive_tpu_torch").glob("*.so"))
+            print(f"# installed `type`, {mode}-seeded, cwd outside the checkout: {len(assemblies)} assemblies in "
+                  f"{walls[mode]:.3f} s wall (its builds included) [{card}]; TSV == step 3's rows; no jax or "
+                  f"kaptive_tpu module; libraries in the fresh user cache: {built}; counters "
+                  f"{ {k: v for k, v in sorted(counts.items()) if k.startswith(('swg.', 'scan.'))} }", flush=True)
+        for lib in ("libkaptive_hostio.so", "libkaptive_swg.so", "libkaptive_scan.so"):
+            if not (cache / "kaptive_tpu_torch" / lib).is_file():
+                raise AssertionError(f"{lib} was not built in the user cache")
+    if build_listing() != before:
+        raise AssertionError("the installed runs wrote under the checkout's build/")
+    print("# nothing new under the checkout's build/", flush=True)
+    return walls
+
+
+def _flat_bound(n_positions: int) -> dict:
+    """The flat scan's bound: a code read, and selected, a 4-byte hash and a strand written,
+    a position (7 bytes); ~35 integer operations a position."""
+    return _bound(7 * n_positions, SCAN_OPS_PER_POSITION * n_positions)
+
+
+def _check_flat_scan(codes) -> dict:
+    """Flat-scan kernel vs plain version (both on the card) on a (B, L) batch: exact on all three
+    outputs; returns times and the largest difference."""
+    import torch
+
+    from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W
+    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+    from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
+
+    sel, hashes, strands = minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W)
+    want = minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W)
+    torch.cuda.synchronize()
+    got = (sel, as_uint32_values(hashes), strands)
+    if any(g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
+        raise AssertionError("flat scan: kernel and plain outputs differ in shape or dtype")
+    max_err = max(int((g.long() - p.long()).abs().max()) for g, p in zip(got, want))
+    if max_err != 0:
+        raise AssertionError(f"flat scan: kernel and plain version differ (max |diff| {max_err})")
+    n_sel = int(want[0].sum())
+    del got, want
+    times = {"ms": _timed(lambda: minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W), 20),
+             "plain_ms": _timed(lambda: minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W), 2)}
+    times.update(_flat_bound(codes.numel()))
+    return {"max_abs_err": max_err, "shape": tuple(codes.shape), "selected": n_sel, **times}
+
+
+def flat_scan_phase(card: str, db, assemblies) -> dict:
+    """Step 12 (c, d, e): the flat-scan kernel held to its plain form, screen mode's overflow
+    branch on the kernel, and the one-contig architectural Viterbi held to its plain form."""
+    import numpy as np
+    import torch
+    from scan_panels import poly_a
+    from viterbi_panels import arch_panel
+
+    from kaptive_tpu_torch.bgc.kernels import architectural_viterbi
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    # (c) Step 3's four largest assemblies as one (4, L) stream, and the poly-A overflow panel.
+    largest = sorted(assemblies, key=lambda a: -len(a[3]))[:4]
+    genomes = [GenomeAssembly.from_stream(_named_stream(name, fasta), name) for name, *_, fasta in largest]
+    codes = torch.from_numpy(encode_assemblies_to_batch(genomes)).cuda()
+    flat = _check_flat_scan(codes)
+    panel = _check_flat_scan(torch.from_numpy(poly_a(np.random.default_rng(SEED))).cuda()[None])
+    print(f"# flat scan (B, L) = {flat['shape']}, {flat['shape'][0] * flat['shape'][1]:,} positions, "
+          f"{flat['selected']:,} selected: kernel == plain on selected, hashes, strands; kernel {flat['ms']:.4f} ms, "
+          f"plain {flat['plain_ms']:.4f} ms (on the card); bound {flat['bound_ms']:.4f} ms by {flat['bound_by']}: "
+          f"the kernel runs at {_share(flat)} [{card}]; poly-A panel {panel['shape']}: kernel == plain, "
+          f"{panel['selected']} selected", flush=True)
+    del codes
+    torch.cuda.empty_cache()
+
+    # (d) Screen mode on a batch with one overflowing assembly (a 400-base poly-A run in its first contig).
+    name, truth, kind, fasta = assemblies[0]
+    head, _, rest = fasta.partition(b"\n")
+    batch = [(f"{name}_polyA", head + b"\n" + rest[:4] + b"A" * 400 + rest[4:])]
+    batch += [(a[0], a[3]) for a in assemblies[1:4]]
+    serotyper = Serotyper(db, device="cuda")
+    serotyper.screen([_named_stream(n, f) for n, f in batch])  # priming: tables to the card
+    reset_metrics()
+    screened, best, weighted = serotyper.screen([_named_stream(n, f) for n, f in batch])
+    counts = snapshot()
+    launches = counts.get("scan.cuda.flat", 0)
+    if counts.get("screen.overflow") != 1 or launches != 1 or any(k.startswith("scan.plain") for k in counts):
+        raise AssertionError(f"the overflow branch did not run on the flat-scan kernel: {counts}")
+    codes = torch.from_numpy(encode_assemblies_to_batch(screened))
+    tables = ScreenTables.from_database(db)
+    best_c, _, tallies_c = locus_screen_batch(codes.cuda(), tables, len(db.genes))
+    t0 = time.perf_counter()
+    best_p, weighted_p, tallies_p = locus_screen_batch(codes, tables, len(db.genes))
+    cpu_s = time.perf_counter() - t0
+    if not (torch.equal(tallies_c.cpu(), tallies_p) and torch.equal(best_c.cpu(), best_p)
+            and np.array_equal(best, best_p.numpy())):
+        raise AssertionError("the overflowing screen differs between the card and the CPU")
+    if not np.allclose(weighted, weighted_p.numpy(), rtol=1e-6, atol=0):
+        raise AssertionError("the overflowing screen's weighted scores differ beyond rtol=1e-6")
+    print(f"# screen with an overflowing assembly ({len(batch)} assemblies, codes {tuple(codes.shape)}): "
+          f"screen.overflow 1, scan.cuda.flat {launches}, no plain scan; card == CPU (tallies, best exact, "
+          f"weighted rtol 1e-6; CPU screen {cpu_s:.2f} s); best {[db.loci.ids[int(b)] for b in best]}", flush=True)
+
+    # (e) The one-contig architectural Viterbi front door, at the clean assembly's ORF count.
+    em, trans, _ = arch_panel(np.random.default_rng(SEED), [24438], 28)
+    reset_metrics()
+    path, score = architectural_viterbi(em, trans)
+    torch.cuda.synchronize()
+    arch_counts = snapshot()
+    want_path, want_score = architectural_viterbi(em, trans, device="cpu")
+    if arch_counts != {"viterbi.cuda.arch": 1} or not (torch.equal(path.cpu(), want_path)
+                                                       and torch.equal(score.cpu(), want_score)):
+        raise AssertionError(f"architectural_viterbi on the card differs from its plain form ({arch_counts})")
+    print(f"# architectural_viterbi, one contig of {em.shape[0]} rows x {em.shape[1]} states: one "
+          f"arch_viterbi_kernel launch, path and score == the plain form's (score {score.item():.4f})", flush=True)
+    return {**flat, "launches": launches, "panel_max_abs_err": panel["max_abs_err"]}
+
+
 def build_workload(n_assemblies: int, seed: int = SEED):
     """bench.py's database (140 loci x 18 genes) and ``n_assemblies`` 5.3 Mb assemblies
     cycling through its composition classes: ``(db, [(name, truth, class, fasta)],
@@ -1016,7 +1276,7 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 def measure(card: str) -> None:
     """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 12 to 15)."""
+    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 13 to 16)."""
     import statistics
 
     import numpy as np
@@ -1081,7 +1341,7 @@ def measure(card: str) -> None:
         print(f"#   fill: {cells / times['fill_ms'] / 1e6:.2f} G band-cells/s "
               f"(band cells = sum of q_len x w_pad) [{card}]", flush=True)
 
-    # Step 14: one shape, more and more live pairs (the rest of the bucket is empty pairs).
+    # Step 15: one shape, more and more live pairs (the rest of the bucket is empty pairs).
     rows_max, w_pad = 1024, 128
     matrix = as_kernel_matrix(nt_matrix(), torch.device("cuda"))
     fill_kw = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad)
@@ -1099,7 +1359,7 @@ def measure(card: str) -> None:
         print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
               f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
-    # Step 15: the scan at more and more genomes in one launch.
+    # Step 16: the scan at more and more genomes in one launch.
     streams = torch.from_numpy(np.stack([random_stream(rng, SCAN_ROWS) for _ in range(max(SCAN_GENOME_STEPS))]))
     for n_genomes in SCAN_GENOME_STEPS:
         times = _check_scan(add_halo(streams[:n_genomes].cuda()), DEFAULT_K, DEFAULT_W)
@@ -1116,7 +1376,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--measure", action="store_true",
-                        help="after the smoke, also run the measurements of steps 12 to 15")
+                        help="after the smoke, also run the measurements of steps 13 to 16")
     opts = parser.parse_args()
 
     from bench import GENOME_MB, KINDS
@@ -1259,6 +1519,8 @@ def main() -> int:
         cigar_check, cigar_launches = cigar_phase(serotyper, db, assemblies)
         bgc = bgc_phase(card, db, assemblies)
         mesh = mesh_phase(card, db, assemblies, results, inputs)
+        install_walls = install_phase(card, inputs, assemblies, results)
+        flat = flat_scan_phase(card, db, assemblies)
 
     if opts.measure:
         measure(card)
@@ -1294,7 +1556,14 @@ def main() -> int:
          "max_abs_err": max(scan_check["max_abs_err"], mesh_scan["max_abs_err"]), "ms": scan_check["ms"],
          "plain_ms": scan_check["plain_ms"], "bound_ms": scan_check["bound_ms"], "bound_by": scan_check["bound_by"],
          "library_ms": None, "mesh_launches": mesh_launches["scan.cuda.rowcompact"],
-         "mesh_shape": mesh_scan["shape"], "mesh_max_abs_err": mesh_scan["max_abs_err"]},
+         "mesh_shape": mesh_scan["shape"], "mesh_max_abs_err": mesh_scan["max_abs_err"],
+         "flat_scan_ms": flat["ms"], "flat_scan_bound_ms": flat["bound_ms"],
+         "flat_scan_max_abs_err": max(flat["max_abs_err"], flat["panel_max_abs_err"])},
+        {"name": "minimizer_scan", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
+         "replaces": "kaptive_tpu/ops/minimizer.py:146", "launches": flat["launches"],
+         "max_abs_err": max(flat["max_abs_err"], flat["panel_max_abs_err"]), "ms": flat["ms"],
+         "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"], "bound_by": flat["bound_by"],
+         "library_ms": None, "shape": flat["shape"]},
         {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
          "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],
@@ -1309,7 +1578,7 @@ def main() -> int:
          **{f"{key}_{field}": gene[key]["stats"]._asdict()[field]
             for key in ("clean", "draft", "windows") for field in ("chunks", "rounds", "reruns", "filled")}},
         {"name": "arch_viterbi", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
-         "replaces": "kaptive_tpu/bgc/kernels.py:82", "launches": bgc["launches"]["viterbi.cuda.arch"],
+         "replaces": "kaptive_tpu/bgc/kernels.py:83", "launches": bgc["launches"]["viterbi.cuda.arch"],
          "max_abs_err": bgc["arch"]["max_abs_err"], "ms": bgc["arch"]["ms"], "plain_ms": bgc["arch"]["plain_ms"],
          "bound_ms": bgc["arch"]["bound_ms"], "bound_by": bgc["arch"]["bound_by"], "library_ms": None},
     ]
@@ -1322,9 +1591,12 @@ def main() -> int:
           f"assembly's launch (plain on the CPU); arch_viterbi on the largest main-path launch (plain on "
           f"the CPU); launches: BGC phase; mesh_launches: the two measured mesh passes of step 11 "
           f"{MESH_SHAPES}; mesh_shape / mesh_max_abs_err: the largest extension shard and the largest data "
-          f"row's scan recorded in them, held to the plain forms; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"row's scan recorded in them, held to the plain forms; minimizer_scan (and flat_scan_* on the "
+          f"rowcompact_scan entry, the same library) on the (B, L) stream {flat['shape']} of step 12, launches: "
+          f"step 12's overflowing screen; {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
-          f"{cli_walls['device']:.3f} s wall host / device-seeded; screen {screen_rate:.3f} asm/s [{card}]",
+          f"{cli_walls['device']:.3f} s wall host / device-seeded, installed CLI {install_walls['host']:.3f} / "
+          f"{install_walls['device']:.3f} s; screen {screen_rate:.3f} asm/s [{card}]",
           flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

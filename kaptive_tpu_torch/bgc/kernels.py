@@ -85,6 +85,25 @@ def archetype_emissions(
     return emissions.to(torch.float32)
 
 
+def architectural_viterbi(emissions, transitions, *, device: str | torch.device = "cuda"):
+    r"""Max-plus Viterbi over one contig's (N, S) ORF emission rows, forced to end in POST.
+
+    Returns ``(path int32 (N,), max log-probability float32 scalar)`` as tensors
+    on ``device``: one launch of ``arch_viterbi_kernel<R>`` on a card
+    (:func:`kaptive_tpu_torch.ops.viterbi.arch_viterbi`), the plain form on
+    the CPU.  ``emissions`` and ``transitions`` are numpy arrays or tensors;
+    the matrix needs a row.
+    """
+    dev = resolve_device(device)
+    em = torch.as_tensor(emissions).to(dev, torch.float32).contiguous()
+    if em.dim() != 2 or em.shape[0] == 0:
+        raise ValueError(f"architectural_viterbi: expected (N >= 1, S) emissions, got {tuple(em.shape)}")
+    trans = torch.as_tensor(transitions).to(dev, torch.float32).contiguous()
+    bounds = torch.tensor([0, em.shape[0]], dtype=torch.int64, device=dev)
+    path, scores = arch_viterbi(em, trans, bounds)
+    return path, scores[0]
+
+
 def architectural_viterbi_batch(
     emissions: list, transitions: np.ndarray, *, device: str | torch.device = "cuda",
 ) -> list[tuple[np.ndarray, float]]:

@@ -17,7 +17,7 @@ brings every bucket's results back in one device-to-host copy per sweep.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import cache
 from typing import Any
 
@@ -147,9 +147,9 @@ class PairwiseAligner:
     gap_open: int = 11
     gap_extend: int = 1
     k: int = 20
-    lattice: SwgLattice | None = None  # optional frozen bucket-shape set
-    device: str | torch.device = "cuda"
     mesh: Any = None  # optional parallel.mesh.Mesh: cuts each bucket's pair axis over its slots
+    lattice: SwgLattice | None = None  # optional frozen bucket-shape set
+    device: str | torch.device = field(default="cuda", kw_only=True)
 
     def __call__(self, queries: Sequences, targets: Sequences, seeds: Any | None = None) -> PairwiseAlignments:
         if len(queries.offsets) != len(targets.offsets):
@@ -286,7 +286,7 @@ def batched_swg_align(
     t_data: np.ndarray, t_offsets: np.ndarray, t_lengths: np.ndarray,
     diag_offsets: np.ndarray, k_locals: np.ndarray,
     matrix: np.ndarray, gap_open: int, gap_extend: int,
-    lattice: SwgLattice | None = None, device: str | torch.device = "cuda", mesh=None,
+    mesh=None, lattice: SwgLattice | None = None, *, device: str | torch.device = "cuda",
 ) -> PairwiseAlignments:
     r"""Bucket ragged pairs into padded device batches and run :func:`banded_swg`.
 
@@ -307,7 +307,7 @@ def batched_swg_align_cigars(
     t_data: np.ndarray, t_offsets: np.ndarray, t_lengths: np.ndarray,
     diag_offsets: np.ndarray, k_locals: np.ndarray,
     matrix: np.ndarray, gap_open: int, gap_extend: int,
-    lattice: SwgLattice | None = None, device: str | torch.device = "cuda",
+    *, lattice: SwgLattice | None = None, device: str | torch.device = "cuda",
 ) -> tuple[PairwiseAlignments, Cigars]:
     r"""Like :func:`batched_swg_align` but with BAM CIGARs from the traceback
     (:func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars`).

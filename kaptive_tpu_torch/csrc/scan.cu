@@ -316,6 +316,127 @@ cudaError_t launch(const uint8_t* codes, int B, int R, int halo_rows, int k, uin
     return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------------------------
+// Flat minimizer scan.
+//
+// Replaces the XLA program kaptive_tpu/ops/minimizer.py::minimizer_scan.  For each position of
+// a (B, L) uint8 code stream (each row its own stream) it writes what that function returns:
+// `selected` (the position starts the w-window minimum of some window, the leftmost winning
+// ties), the canonical k-mer's murmur3 hash (0xFFFFFFFF where no valid k-mer starts) and the
+// strand (forward packing <= reverse packing).  The plain PyTorch version is
+// kaptive_tpu_torch/ops/scan.py::minimizer_scan_plain.
+//
+// The semantics are the JAX function's, rolls included: the k-mer at position i reads the codes
+// at (i + j) mod L, packed raw (a code >= 4 ORs its high bits into the word, and 3 - c wraps),
+// so `strands` agree at every position, also where no valid k-mer starts.  A k-mer is valid
+// when none of its codes is >= 4 and i < L-k+1; a window starting at s is valid when its
+// minimum is not 0xFFFFFFFF and s < L-k-w+2.  The end guards sit at the row's length L.  No
+// compaction and no halo rows: each row is one stream.
+//
+// What bounds it.  A position reads 1 byte and writes 6 (selected, the 4-byte hash, strand):
+// 7 bytes, and a k-mer, a hash and a window minimum need ~35 integer operations whatever the
+// design.  For four 5.3 Mb genomes (~21 M positions) that is 0.044 ms of bytes at 3.35 TB/s and
+// 0.044 ms of operations at 16.75 T/s.  This first kernel is the simple one: one block a tile of
+// FLAT_TILE positions, a thread a position in each stage, k and w read at run time.  Its k-mer
+// loop (~8 operations a base) and its window and selection loops (~3 a step) cost ~160
+// operations a position, so it stays several times above that bound; the packed-word k-mers
+// and the van Herk window of rowcompact_scan_kernel are the way down.
+//
+// Stages, a block barrier between them (x is a position's index in the block's smem arrays,
+// position t0 - (w-1) + x of the stream):
+//   1. Codes of [t0 - (w-1), t0 + FLAT_TILE + w - 1 + k - 1), read at index mod L past the end.
+//   2. Hash, valid and strand of each position in [t0 - (w-1), t0 + FLAT_TILE + w - 1).
+//   3. Each window starting in [t0 - (w-1), t0 + FLAT_TILE): its winner's x, or -1.
+//   4. Each tile position is selected when it is valid and some window of the w before it chose
+//      it; the three outputs are stored, neighbouring threads on neighbouring positions.
+// ---------------------------------------------------------------------------------------------
+
+constexpr int FLAT_TILE = 1024;                       // positions a block
+constexpr int FLAT_THREADS = 256;
+constexpr int FLAT_SPAN = FLAT_TILE + 2 * (MAX_W - 1);  // positions hashed: the windows' reach on both sides
+constexpr int FLAT_CODES = FLAT_SPAN + MAX_K - 1;       // codes read: the last k-mer's reach
+
+__global__ void __launch_bounds__(FLAT_THREADS) minimizer_scan_kernel(
+    const uint8_t* __restrict__ codes,  // (B, L)
+    long long L, int k, int w,
+    uint8_t* __restrict__ selected,     // out (B, L): 0 or 1
+    uint32_t* __restrict__ hashes,      // out (B, L)
+    uint8_t* __restrict__ strands) {    // out (B, L): 0 or 1
+    __shared__ uint8_t s_code[FLAT_CODES];
+    __shared__ uint32_t s_hash[FLAT_SPAN];
+    __shared__ uint8_t s_valid[FLAT_SPAN];
+    __shared__ uint8_t s_strand[FLAT_SPAN];
+    __shared__ int16_t s_win[FLAT_TILE + MAX_W - 1];
+
+    const int tid = threadIdx.x;
+    const long long row = (long long)blockIdx.y * L;
+    const long long t0 = (long long)blockIdx.x * FLAT_TILE;
+    const long long first = t0 - (w - 1);               // stream position of x = 0
+    const int span = FLAT_TILE + 2 * (w - 1);
+    const int n_codes = span + k - 1;
+    const int n_windows = FLAT_TILE + w - 1;
+
+    // 1. Codes, rolled past the row's end as jnp.roll does; nothing reads a code before 0.
+    for (int x = tid; x < n_codes; x += FLAT_THREADS) {
+        long long g = first + x;
+        uint8_t c = 4;
+        if (g >= 0) {
+            if (g >= L) g %= L;
+            c = codes[row + g];
+        }
+        s_code[x] = c;
+    }
+    __syncthreads();
+
+    // 2. Raw forward and reverse packings, the canonical hash, validity and strand.
+    const long long kmer_end = L - k + 1;  // a valid k-mer starts before this
+    for (int x = tid; x < span; x += FLAT_THREADS) {
+        const long long i = first + x;
+        uint32_t fwd = 0, rev = 0;
+        bool bad = false;
+        for (int j = 0; j < k; ++j) {
+            const uint32_t c = s_code[x + j];
+            bad |= c >= 4u;
+            fwd |= c << (2 * (k - 1 - j));
+            rev |= (3u - c) << (2 * j);
+        }
+        const bool valid = !bad && i >= 0 && i < kmer_end;
+        s_hash[x] = valid ? mix32(min(fwd, rev)) : UMAX;
+        s_valid[x] = valid;
+        s_strand[x] = fwd <= rev;
+    }
+    __syncthreads();
+
+    // 3. The winner of each window that can select in the tile (strict <: the leftmost wins).
+    const long long window_end = L - k - w + 2;  // a valid window starts before this
+    for (int y = tid; y < n_windows; y += FLAT_THREADS) {
+        const long long s = first + y;
+        uint32_t best = s_hash[y];
+        int win = y;
+        for (int j = 1; j < w; ++j) {
+            const uint32_t h = s_hash[y + j];
+            if (h < best) {
+                best = h;
+                win = y + j;
+            }
+        }
+        s_win[y] = (int16_t)(s >= 0 && s < window_end && best != UMAX ? win : -1);
+    }
+    __syncthreads();
+
+    // 4. Selection and the stores.
+    for (int t = tid; t < FLAT_TILE; t += FLAT_THREADS) {
+        const long long p = t0 + t;
+        if (p >= L) break;
+        const int x = t + (w - 1);
+        bool sel = false;
+        for (int d = 0; d < w; ++d) sel |= s_win[x - d] == x;
+        selected[row + p] = sel && s_valid[x];
+        hashes[row + p] = s_hash[x];
+        strands[row + p] = s_strand[x];
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -342,6 +463,20 @@ int kts_rowcompact_scan(const void* codes, int B, int R, int halo_rows, int k, i
     }
 #undef KTS_SCAN
     return (int)cudaErrorInvalidValue;
+}
+
+// The flat scan of a (B, L) code stream on `stream`; returns the CUDA error of the launch.
+int kts_minimizer_scan(const void* codes, int B, long long L, int k, int w,
+                       void* selected, void* hashes, void* strands, void* stream) {
+    if (B <= 0 || L <= 0) return 0;
+    if (k < 1 || k > MAX_K || w < 1 || w > MAX_W) return (int)cudaErrorInvalidValue;
+    const long long tiles = (L + FLAT_TILE - 1) / FLAT_TILE;
+    if (tiles > 0x7FFFFFFFLL || B > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid((unsigned)tiles, (unsigned)B);
+    minimizer_scan_kernel<<<grid, FLAT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(codes), L, k, w, static_cast<uint8_t*>(selected),
+        static_cast<uint32_t*>(hashes), static_cast<uint8_t*>(strands));
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

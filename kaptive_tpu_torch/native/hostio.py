@@ -1,9 +1,10 @@
 r"""ctypes binding for the native host-IO library (``kaptive_tpu_torch/csrc/hostio.cpp``).
 
-The shared object is built with ``g++ -O3 -march=native`` at first use into
-``build/kaptive_tpu_torch/`` at the root of the checkout, to a temporary name
-and then ``os.replace``, so two processes building at once never load a
-half-written library.  Nothing is compiled at import.  The port needs this
+The shared object is built with ``g++ -O3 -march=native`` at first use from
+the source shipped in the package into :data:`kaptive_tpu_torch.utils.nvcc.BUILD_DIR`
+(the checkout's ``build/kaptive_tpu_torch/``, or the per-user cache of an
+installed package), to a temporary name and then ``os.replace``, so two
+processes building at once never load a half-written library.  Nothing is compiled at import.  The port needs this
 library for FASTA parsing, the contig stream and host seeding: where ``g++``
 is missing or the build fails, :func:`load` raises.
 """

@@ -172,12 +172,13 @@ class GeneIndex:
         return cls(mins, flat, starts, genes.lengths.astype(np.int64), k, w)
 
     def _on_device(self, name: str, device: torch.device | str, make):
-        key = (name, str(torch.device(device)))
+        dev = resolve_device(device)
+        key = (name, str(dev))
         if key not in self._cache:
-            self._cache[key] = make(torch.device(device))
+            self._cache[key] = make(dev)
         return self._cache[key]
 
-    def seed_table(self, device: torch.device | str) -> SeedTable:
+    def seed_table(self, device: torch.device | str = "cuda") -> SeedTable:
         r"""The whole sorted minimizer table on ``device`` (cached), as :func:`match_rows_batch` takes it."""
         ms = self.minimizers
 
@@ -189,27 +190,27 @@ class GeneIndex:
 
         return self._on_device("seed_table", device, make)
 
-    def device_table(self, device: torch.device | str):
+    def device_table(self, device: torch.device | str = "cuda"):
         r"""``(hashes int64 in [0, 2^32), gene indices int32, positions int32, strands bool)`` on ``device``."""
         return tuple(self.seed_table(device)[:4])
 
-    def device_lookup(self, device: torch.device | str):
+    def device_lookup(self, device: torch.device | str = "cuda"):
         r"""Bucketed table search on ``device``: ``(bucket starts int64, run length of
         each entry's hash int64, search steps)``."""
         t = self.seed_table(device)
         return t.bucket_starts, t.run_len, t.iters
 
-    def device_codes(self, device: torch.device | str) -> torch.Tensor:
+    def device_codes(self, device: torch.device | str = "cuda") -> torch.Tensor:
         r"""The flat (sentinel-separated) gene code stream on ``device`` (cached)."""
         return self._on_device("codes", device, lambda dev: torch.from_numpy(self.codes.astype(np.uint8)).to(dev))
 
-    def device_gene_lengths(self, device: torch.device | str) -> torch.Tensor:
+    def device_gene_lengths(self, device: torch.device | str = "cuda") -> torch.Tensor:
         r"""Per-gene lengths on ``device`` as int64 (cached)."""
         return self._on_device(
             "glen", device, lambda dev: torch.from_numpy(self.lengths.astype(np.int64)).to(dev)
         )
 
-    def device_bloom(self, device: torch.device | str) -> torch.Tensor:
+    def device_bloom(self, device: torch.device | str = "cuda") -> torch.Tensor:
         r""":attr:`host_bloom` on ``device`` as int32 bit patterns."""
         return self.seed_table(device).bloom
 
@@ -1000,6 +1001,24 @@ def _ext_gather_bucket(gene_codes, flat_codes, q_start, glen, strand, t_flat, t_
     t = flat_codes[(t_flat[:, None] + (jt - t_pad)).clamp(0, flat_codes.shape[0] - 1)]
     t = torch.where((jt >= t_pad) & (jt < t_pad + t_len[:, None]), t, 0)
     return q.contiguous(), t.contiguous()
+
+
+def run_extension_dp_device(
+    specs: dict, gene_index: GeneIndex, flat_codes, params: MapperParams, *, device: str | torch.device = "cuda",
+) -> PairwiseAlignments | tuple[PairwiseAlignments, Cigars]:
+    r"""The bucketed banded-SWG sweep with device-side problem gathering, launched and
+    collected: :func:`launch_extension_dp_device` then :func:`collect_extension_dp_device`.
+
+    ``flat_codes`` (a tensor or a numpy array of the flattened padded stream)
+    is moved to ``device`` first.  Returns the JAX package's value: the
+    :class:`PairwiseAlignments`, with their ``Cigars`` beside them under
+    ``params.emit_cigars``.  The streaming mapper keeps the two halves apart,
+    so that one chunk's DP runs while the next chunk's chains are read.
+    """
+    dev = resolve_device(device)
+    codes = flat_codes if isinstance(flat_codes, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(flat_codes))
+    res, cigars = collect_extension_dp_device(launch_extension_dp_device(specs, gene_index, codes.to(dev), params))
+    return (res, cigars) if params.emit_cigars else res
 
 
 def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: torch.Tensor, params: MapperParams):

@@ -1,10 +1,13 @@
-r"""Host minimizer scan, contig index and upload packing (counterpart of ``kaptive_tpu.ops.minimizer``).
+r"""Minimizer scans, contig index and upload packing (counterpart of ``kaptive_tpu.ops.minimizer``).
 
-Re-homed unchanged from the JAX module, which imports ``jax`` at the top: the
-2-bit DNA encoding, the sentinel-separated flat code stream, the numpy
-minimizer scan (canonical k-mers, murmur3 finalizer hash, ``w``-window
-minimum, leftmost on ties), :class:`ContigIndex` and the 2-bit packing of the
-device upload.  In host-seeded mode the assembly never goes to the device:
+Re-homed from the JAX module, which imports ``jax`` at the top: the 2-bit DNA
+encoding, the sentinel-separated flat code stream, the numpy minimizer scan
+(canonical k-mers, murmur3 finalizer hash, ``w``-window minimum, leftmost on
+ties), :class:`ContigIndex` and the 2-bit packing of the device upload.
+:func:`minimizer_scan` is the flat scan's front door on tensors: the Hopper
+kernel (``csrc/scan.cu::minimizer_scan_kernel``) for a CUDA tensor, the plain
+PyTorch version (:func:`kaptive_tpu_torch.ops.scan.minimizer_scan_plain`) for
+a CPU one.  In host-seeded mode the assembly never goes to the device:
 the native C scan in ``native/hostio.cpp`` seeds straight from
 :attr:`ContigIndex.codes`.  In device-seeded mode the packed stream is
 uploaded and :func:`unpack_2bit_with_bits` (torch) restores the codes on the
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from kaptive_tpu_torch.core.seq import Sequences
+from kaptive_tpu_torch.utils.device import resolve_device
 
 # DNA byte -> 2-bit code LUT (A=0 C=1 G=2 T/U=3, else 4). Complement = 3-code.
 DNA_CODE_LUT = np.full(256, 4, dtype=np.uint8)
@@ -59,17 +63,17 @@ def bucket_length(n: int, minimum: int = 1 << 16) -> int:
 
 
 def concat_with_sentinels(
-    codes: np.ndarray, offsets: np.ndarray, lengths: np.ndarray, k: int
+    codes: np.ndarray, offsets: np.ndarray, lengths: np.ndarray, k: int, pad_to_bucket: bool = True
 ) -> tuple[np.ndarray, np.ndarray]:
     r"""Concatenate per-sequence code arrays with ``k-1`` sentinels between them.
 
-    Returns (flat_codes, seq_starts); the flat array is sentinel-padded to
-    :func:`bucket_length`.
+    Returns (flat_codes, seq_starts); with ``pad_to_bucket`` the flat array is
+    sentinel-padded to :func:`bucket_length` (sentinels yield no minimizers).
     """
     n = len(offsets)
     gap = k - 1
     total = int(lengths.sum()) + gap * max(n - 1, 0)
-    alloc = bucket_length(max(total, 1))
+    alloc = bucket_length(max(total, 1)) if pad_to_bucket else total
     flat = np.full(alloc, SENTINEL, dtype=np.uint8)
     starts = np.zeros(n, dtype=np.int64)
     pos = 0
@@ -113,6 +117,30 @@ def unpack_2bit_with_bits(packed: torch.Tensor, valid_bits: torch.Tensor, length
     vb = valid_bits.to(torch.uint8)
     bits = torch.stack([(vb >> i) & 1 for i in range(8)], -1).reshape(*lead, length)
     return torch.where(bits == 1, quads, SENTINEL).to(torch.uint8)
+
+
+def minimizer_scan(codes, k: int = DEFAULT_K, w: int = DEFAULT_W):
+    r"""Flat minimizer scan of (L,) or (B, L) base codes (0-3 valid, >= 4 sentinel), each row
+    its own stream: ``(selected bool, hashes int64, strands bool)`` of the input's shape, on
+    its device.
+
+    ``hashes`` are the canonical k-mers' murmur3 hashes as values in ``[0, 2^32)``
+    (``0xFFFFFFFF`` where no valid k-mer starts), ``strands`` is True where the
+    forward packing was canonical.  A CUDA tensor runs the Hopper kernel, a CPU
+    tensor (or a numpy array) the plain version; another device, or a CUDA
+    tensor the kernel cannot take, raises.
+    """
+    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+
+    x = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(codes))
+    if x.is_cuda:
+        from kaptive_tpu_torch.ops import scan_cuda
+
+        selected, hashes, strands = scan_cuda.minimizer_scan_cuda(x.to(torch.uint8).contiguous(), k, w)
+        return selected, as_uint32_values(hashes), strands
+    if x.device.type != "cpu":
+        raise ValueError(f"minimizer_scan: unsupported device {x.device}")
+    return minimizer_scan_plain(x, k, w)
 
 
 def minimizer_scan_host(codes: np.ndarray, k: int = DEFAULT_K, w: int = DEFAULT_W):
@@ -173,8 +201,17 @@ class MinimizerSet:
     w: int
 
 
-def build_minimizer_set(seqs: Sequences, k: int = DEFAULT_K, w: int = DEFAULT_W) -> MinimizerSet:
-    r"""Extract and hash-sort (stably) the minimizers of a ragged sequence batch (host scan)."""
+def build_minimizer_set(
+    seqs: Sequences, k: int = DEFAULT_K, w: int = DEFAULT_W, sort: bool = True,
+    device: bool | str | torch.device = False,
+) -> MinimizerSet:
+    r"""Extract and (with ``sort``, stably) hash-sort the minimizers of a ragged sequence batch.
+
+    ``device`` False scans on the host (numpy); True scans on the card through
+    :func:`minimizer_scan` (the Hopper kernel); a ``torch.device`` or a device
+    string scans on that device (``"cpu"``: the plain PyTorch version).  All
+    give the same set.
+    """
     if len(seqs) == 0 or len(seqs.seqs) == 0:
         e = np.empty(0)
         return MinimizerSet(
@@ -182,14 +219,19 @@ def build_minimizer_set(seqs: Sequences, k: int = DEFAULT_K, w: int = DEFAULT_W)
         )
     codes = encode_dna(seqs.seqs)
     flat, starts = concat_with_sentinels(codes, seqs.offsets, seqs.lengths, k)
-    sel, hashes, strands = minimizer_scan_host(flat, k, w)
+    if device is False:
+        sel, hashes, strands = minimizer_scan_host(flat, k, w)
+    else:
+        dev = resolve_device("cuda" if device is True else device)
+        sel, hashes, strands = (x.cpu().numpy() for x in minimizer_scan(torch.from_numpy(flat).to(dev), k, w))
     pos = np.flatnonzero(sel)
     h = hashes[pos]
     st = strands[pos]
     seq_idx = np.searchsorted(starts, pos, side="right").astype(np.int32) - 1
     local = (pos - starts[seq_idx]).astype(np.int32)
-    order = np.argsort(h, kind="stable")
-    h, seq_idx, local, st = h[order], seq_idx[order], local[order], st[order]
+    if sort:
+        order = np.argsort(h, kind="stable")
+        h, seq_idx, local, st = h[order], seq_idx[order], local[order], st[order]
     return MinimizerSet(h.astype(np.uint32), seq_idx, local, st.astype(bool), len(seqs), k, w)
 
 
@@ -242,3 +284,11 @@ class ContigIndex:
                 strands[pos].astype(bool), len(self.starts), self.k, self.w,
             )
         return self._cache["mins"]
+
+    def device_codes(self, device: str | torch.device = "cuda") -> torch.Tensor:
+        r"""The flat code stream as a uint8 tensor on ``device`` (cached)."""
+        dev = resolve_device(device)
+        key = ("device_codes", str(dev))
+        if key not in self._cache:
+            self._cache[key] = torch.from_numpy(self.codes).to(dev)
+        return self._cache[key]

@@ -147,8 +147,10 @@ def minimizer_scan_plain(codes: torch.Tensor, k: int, w: int):
     device: ``hashes`` as int64 values in ``[0, 2^32)`` (``0xFFFFFFFF`` where
     invalid).  The stream is the whole last axis, so the end guards sit at
     ``L``; :func:`rowcompact_scan_plain` runs the same body over the
-    halo-padded rows and compacts the result.
+    halo-padded rows and compacts the result.  The front door is
+    :func:`kaptive_tpu_torch.ops.minimizer.minimizer_scan`.
     """
+    count("scan.plain.flat")
     flat = codes.reshape(-1, codes.shape[-1]).to(torch.int64)
     out = _scan_positions(flat, 0, flat.shape[1], k, w)
     return tuple(x.reshape(codes.shape) for x in out)

@@ -1,6 +1,9 @@
-r"""ctypes binding of the Hopper row-compact minimizer scan (``csrc/scan.cu``).
+r"""ctypes binding of the Hopper minimizer scans (``csrc/scan.cu``).
 
-Replaces ``kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel``.  The library
+:func:`rowcompact_scan_cuda` replaces ``kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel``;
+:func:`minimizer_scan_cuda` replaces the XLA program
+``kaptive_tpu/ops/minimizer.py::minimizer_scan`` (the flat scan, one thread a
+position; see ``minimizer_scan_kernel`` in the source).  The library
 is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`) and loaded with
 ctypes; nothing is compiled at import.
 
@@ -13,10 +16,11 @@ Selected positions are marked in a bit mask of the tile, ranked inside their
 row by the threads that own them, and each row is stored as whole lines.  The
 design notes are at the head of the source.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the outputs
-with ``torch.empty``, launches on the current stream, raises if the launch
-returns a CUDA error, and counts each launch as ``scan.cuda.rowcompact`` in
-:mod:`kaptive_tpu_torch.utils.metrics`.  There is no fallback.
+The wrappers check device, dtype, shape and contiguity, allocate the outputs
+with ``torch.empty``, launch on the current stream, raise if the launch
+returns a CUDA error, and count each launch as ``scan.cuda.rowcompact`` or
+``scan.cuda.flat`` in :mod:`kaptive_tpu_torch.utils.metrics`.  There is no
+fallback.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_rowcompact_max_w.argtypes = []
     lib.kts_rowcompact_scan.restype = i32
     lib.kts_rowcompact_scan.argtypes = [ptr] + [i32] * 5 + [ptr] * 4
+    lib.kts_minimizer_scan.restype = i32
+    lib.kts_minimizer_scan.argtypes = [ptr, i32, ctypes.c_longlong, i32, i32] + [ptr] * 4
 
 
 LIBRARY = CudaLibrary("scan.cu", _declare)
@@ -82,3 +88,39 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
         raise RuntimeError(f"row-compact scan kernel launch failed: CUDA error {rc}")
     count("scan.cuda.rowcompact")
     return hashes, aux, counts
+
+
+def minimizer_scan_cuda(codes: torch.Tensor, k: int, w: int):
+    r"""Flat minimizer scan on the card over a contiguous (B, L) or (L,) uint8 CUDA tensor.
+
+    Returns ``(selected bool, hashes int32, strands bool)`` of the input's
+    shape: ``hashes`` holds the uint32 hash bits (:func:`~kaptive_tpu_torch.ops.scan.as_uint32_values`
+    reads them as :func:`~kaptive_tpu_torch.ops.scan.minimizer_scan_plain`'s values).
+    Each row is its own stream, its end guards at ``L``.
+    """
+    device = codes.device
+    if device.type != "cuda":
+        raise ValueError(f"minimizer_scan_cuda expects a CUDA tensor, got {device}")
+    lib = build()
+    if codes.dim() not in (1, 2):
+        raise ValueError(f"expected (L,) or (B, L) codes, got {tuple(codes.shape)}")
+    flat = codes.reshape(-1, codes.shape[-1]) if codes.dim() == 2 else codes[None]
+    B, L = flat.shape
+    check_tensor("codes", flat, torch.uint8, (B, L), device)
+    if not 1 <= k <= lib.kts_rowcompact_max_k() or not 1 <= w <= lib.kts_rowcompact_max_w():
+        raise ValueError(f"k={k}, w={w} outside the scan kernel's range "
+                         f"(k <= {lib.kts_rowcompact_max_k()}, w <= {lib.kts_rowcompact_max_w()})")
+    selected = torch.empty((B, L), dtype=torch.bool, device=device)
+    hashes = torch.empty((B, L), dtype=torch.int32, device=device)
+    strands = torch.empty((B, L), dtype=torch.bool, device=device)
+    if B and L:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.kts_minimizer_scan(
+                flat.data_ptr(), B, L, int(k), int(w),
+                selected.data_ptr(), hashes.data_ptr(), strands.data_ptr(), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"flat minimizer scan kernel launch failed: CUDA error {rc}")
+        count("scan.cuda.flat")
+    return tuple(x.reshape(codes.shape) for x in (selected, hashes, strands))

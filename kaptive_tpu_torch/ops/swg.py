@@ -15,9 +15,11 @@ kernels are checked on the card.  :func:`banded_swg_cigars` (CIGAR mode,
 ``banded_swg_lax_cigars``) routes the same way, its traceback also recording
 each pair's BAM CIGAR runs (:func:`traceback_cigar_plain` on the CPU).
 
-:class:`SwgLattice` and :func:`plan_swg_buckets` are re-homed unchanged from
-the JAX module (which imports ``jax`` at the top); the bucket plan decides
-padding only, never results.
+:class:`SwgLattice`, :func:`plan_swg_buckets` and :func:`pad_ragged_to_matrix`
+are re-homed unchanged from the JAX module (which imports ``jax`` at the
+top); the bucket plan decides padding only, never results.  The JAX names of
+the plain forms, ``banded_swg_lax`` and ``banded_swg_lax_cigars``, are
+aliases of :func:`banded_swg_plain` and :func:`banded_swg_cigars_plain`.
 """
 
 from __future__ import annotations
@@ -72,6 +74,23 @@ class SwgLattice:
     @property
     def tiers(self) -> tuple[int, ...]:
         return self.row_tiers if self.row_tiers else (self.rows,)
+
+    def batches_for(self, width: int) -> tuple[int, ...]:
+        r"""Dispatch sizes for a width: the tail shape exists only above the narrowest band."""
+        if self.tail_batch and width > self.widths[0]:
+            return (self.batch, self.tail_batch)
+        return (self.batch,)
+
+    def shapes(self) -> list[tuple[int, int, int]]:
+        r"""Every ``(rows_max, w_pad, batch)`` bucket shape of the lattice."""
+        return [(r, w, b) for r in self.tiers for w in self.widths for b in self.batches_for(w)]
+
+    def width_for(self, w_needed: int) -> int | None:
+        r"""The narrowest band width of at least ``w_needed``, or None past the widest."""
+        for w in self.widths:
+            if w >= w_needed:
+                return w
+        return None
 
 
 def plan_swg_buckets(
@@ -435,6 +454,27 @@ def banded_swg_plain(
     )
 
 
+def banded_swg_cigars_plain(
+    q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+    *, gap_open: int, gap_extend: int, rows_max: int, w_pad: int, t_pad: int,
+):
+    r"""Plain PyTorch banded SWG with CIGARs: :func:`fill_band_plain` then
+    :func:`traceback_cigar_plain`, ``(SwgResult, ops, n_ops, overflow)``."""
+    tb, best, bi, bj = fill_band_plain(
+        q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
+        gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad,
+    )
+    return traceback_cigar_plain(
+        tb, q_codes, t_codes, best, bi, bj, offsets,
+        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
+    )
+
+
+# The JAX package's names of the plain forms (its XLA versions of the kernels).
+banded_swg_lax = banded_swg_plain
+banded_swg_lax_cigars = banded_swg_cigars_plain
+
+
 def banded_swg(
     q_codes: torch.Tensor,  # (B, rows_max) uint8
     q_lens: torch.Tensor,  # (B,) int32
@@ -545,11 +585,20 @@ def banded_swg_cigars(
         )
     if q_codes.device.type != "cpu":
         raise ValueError(f"banded_swg_cigars: unsupported device {q_codes.device}")
-    tb, best, bi, bj = fill_band_plain(
+    return banded_swg_cigars_plain(
         q_codes, q_lens, t_codes, t_lens, offsets, k_locals, matrix,
-        gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad,
+        gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
     )
-    return traceback_cigar_plain(
-        tb, q_codes, t_codes, best, bi, bj, offsets,
-        rows_max=rows_max, w_pad=w_pad, t_pad=t_pad,
-    )
+
+
+def pad_ragged_to_matrix(
+    seqs: np.ndarray, offsets: np.ndarray, lengths: np.ndarray, width: int, pad: int = 0
+) -> np.ndarray:
+    r"""Pack a ragged uint8 batch into a (B, width) uint8 matrix, zero-padded (``pad`` is
+    unread, as in the JAX package); a longer sequence is cut to ``width``."""
+    n = len(offsets)
+    out = np.zeros((n, width), dtype=np.uint8)
+    for i in range(n):
+        ln = min(int(lengths[i]), width)
+        out[i, :ln] = seqs[offsets[i] : offsets[i] + ln]
+    return out

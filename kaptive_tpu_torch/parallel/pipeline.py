@@ -8,8 +8,13 @@ batch before; then, by :func:`resolve_seed_mode`:
   table (the native C scan releases the GIL);
 - device seeding: the pool builds the assembly's upload form and copies it to
   the card, returning once the copy has landed (``ingest.h2d_wait``);
-- on a mesh of more than one slot the pool only parses and indexes: the
-  mapper seeds on the mesh and uploads each data row's slice itself.
+- on a mesh of more than one slot (``multi_device``) the pool only parses
+  and indexes: the mapper seeds on the mesh and uploads each data row's
+  slice itself.
+
+``prefetch_batches`` is how many batches the pool ingests ahead of the one
+the consumer holds; both functions take the JAX package's parameters in its
+positions, with its defaults.
 
 ``map_batch`` runs on one worker thread and overlaps ``finish_batch`` of the
 batch before it on the calling thread; results stream in input order.
@@ -33,7 +38,7 @@ from kaptive_tpu_torch.utils.profiling import phase_timer
 
 Ingested = tuple[GenomeAssembly, ContigIndex]
 PreSeed = Callable[[ContigIndex], tuple]
-PREFETCH_BATCHES = 2  # batches ingested ahead of the one the consumer holds
+PREFETCH_BATCHES = 2  # stream_type's default depth: batches ingested ahead of the one the consumer holds
 
 
 def _load_and_index(path: str | Path | IO[bytes], pre_seed: PreSeed | None, upload_to: torch.device | None) -> Ingested:
@@ -54,17 +59,24 @@ def _load_and_index(path: str | Path | IO[bytes], pre_seed: PreSeed | None, uplo
 
 def stream_batches(
     genomes: Iterable[str | Path | IO[bytes]],
-    batch_size: int,
-    *,
-    pre_seed: PreSeed | None = None,
-    upload_to: torch.device | None = None,
+    batch_size: int = 8,
+    prefetch_batches: int = 1,
     max_workers: int | None = None,
+    multi_device: bool = False,
+    pre_seed: PreSeed | None = None,
+    *,
+    upload_to: torch.device | None = None,
 ) -> Iterator[list[Ingested]]:
-    r"""Yield ingested ``(assembly, contig index)`` batches, prefetching ahead of
-    the consumer.  ``pre_seed(ci)`` returns the ``host_chains`` entry (host
-    seeding); ``upload_to`` is the device each assembly's upload form is
-    copied to (device seeding).  ``max_workers`` sizes the ingest pool
-    (``None``: the machine's core count, between 2 and 16)."""
+    r"""Yield ingested ``(assembly, contig index)`` batches, ``prefetch_batches``
+    batches ahead of the consumer.  ``max_workers`` sizes the ingest pool
+    (``None``: the machine's core count, between 2 and 16).  ``pre_seed(ci)``
+    returns the ``host_chains`` entry (host seeding); ``upload_to`` is the
+    device each assembly's upload form is copied to (device seeding), unless
+    ``multi_device`` says that a mesh's mapper uploads the batch itself."""
+    if prefetch_batches < 0:
+        raise ValueError(f"prefetch_batches must be >= 0, got {prefetch_batches}")
+    if multi_device:
+        upload_to = None
     genome_list = list(genomes)
     if not genome_list:
         return
@@ -81,7 +93,7 @@ def stream_batches(
     with ThreadPoolExecutor(max_workers=max_workers) as pool:
         pending = [
             [pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[gi]]
-            for gi in range(min(PREFETCH_BATCHES + 1, len(groups)))
+            for gi in range(min(prefetch_batches + 1, len(groups)))
         ]
         next_submit = len(pending)
         for _ in range(len(groups)):
@@ -101,6 +113,7 @@ def stream_type(
     serotyper,
     genomes: Iterable[str | Path | IO[bytes]],
     batch_size: int = 8,
+    prefetch_batches: int = PREFETCH_BATCHES,
     max_workers: int | None = None,
 ):
     r"""Generator of SerotypingResult over a streamed, prefetched genome list.
@@ -111,10 +124,10 @@ def stream_type(
     in host mode, and pre-uploads it to the serotyper's device in device mode;
     with a mesh of more than one slot it does neither.  ``map_batch`` stays on
     one thread on a mesh too: its launches on several cards are asynchronous.
-    ``max_workers`` sizes the ingest pool (:func:`stream_batches`).
+    ``prefetch_batches`` and ``max_workers`` are :func:`stream_batches`'s.
     """
     if sharded(getattr(serotyper, "mesh", None)):
-        batches = stream_batches(genomes, batch_size, max_workers=max_workers)
+        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, multi_device=True)
     elif resolve_seed_mode() == "host":
         gene_index = serotyper.gene_index
         mp = serotyper.mapper_params
@@ -124,9 +137,9 @@ def stream_type(
         def pre_seed(ci: ContigIndex) -> tuple:
             return gene_index, mp, host_seed_chains(gene_index, ci, mp)
 
-        batches = stream_batches(genomes, batch_size, pre_seed=pre_seed, max_workers=max_workers)
+        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, pre_seed=pre_seed)
     else:
-        batches = stream_batches(genomes, batch_size, upload_to=serotyper.device, max_workers=max_workers)
+        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, upload_to=serotyper.device)
     with ThreadPoolExecutor(max_workers=1) as device_stage:
         pending = None  # future over map_batch for the batch ahead
         for batch in batches:

@@ -12,9 +12,11 @@ the Hopper kernel for a batch on the card, the plain version on the CPU.  Its
 selection equals the flat ``minimizer_scan`` the JAX screen runs when both
 see the same stream length, so the batch keeps the JAX package's stream
 width.  A genome with a row of more than 64 minimizers (the kernel's row
-capacity) is tallied from the flat plain scan instead, on the same device,
-and counted as ``screen.overflow``: a semantic path, taken whatever the
-kernel did, and not a fallback from a failed one.
+capacity) is tallied from the flat scan instead
+(:func:`~kaptive_tpu_torch.ops.minimizer.minimizer_scan`: the flat-scan
+kernel on a card, the plain version on the CPU), on the same device, and
+counted as ``screen.overflow``: a semantic path, taken whatever the kernel
+did, and not a fallback from a failed one.
 
 :func:`sharded_locus_screen` runs the same steps on a device mesh:
 assemblies over its ``data`` axis, the gene table cut by hash runs over its
@@ -30,14 +32,15 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W, bucket_length, concat_with_sentinels, encode_dna
-from kaptive_tpu_torch.ops.scan import (
-    SLOTS,
-    add_halo,
-    as_uint32_values,
-    minimizer_scan_plain,
-    rowcompact_scan,
+from kaptive_tpu_torch.ops.minimizer import (
+    DEFAULT_K,
+    DEFAULT_W,
+    bucket_length,
+    concat_with_sentinels,
+    encode_dna,
+    minimizer_scan,
 )
+from kaptive_tpu_torch.ops.scan import SLOTS, add_halo, as_uint32_values, rowcompact_scan
 from kaptive_tpu_torch.parallel.typing import _row_slices, shard_cuts
 from kaptive_tpu_torch.utils.metrics import count
 
@@ -56,9 +59,13 @@ class ScreenTables:
     _cache: dict = field(default_factory=dict, repr=False, compare=False)
 
     @classmethod
+    def from_database(cls, db) -> ScreenTables:
+        r"""The tables of ``db`` (a :class:`~kaptive_tpu_torch.db.Database`), from its gene index."""
+        return cls.build(db, db.gene_index)
+
+    @classmethod
     def build(cls, db, gene_index) -> ScreenTables:
-        r"""The tables of ``db`` from the port's :class:`~kaptive_tpu_torch.ops.mapper.GeneIndex`
-        (``ScreenTables.from_database``'s arrays, without ``db.gene_index``, which imports jax)."""
+        r"""The tables of ``db`` from a :class:`~kaptive_tpu_torch.ops.mapper.GeneIndex` of its genes."""
         ms = gene_index.minimizers
         n_genes = len(db.genes)
         n_loci = len(db.loci)
@@ -104,21 +111,24 @@ class ScreenTables:
         return self._cache[key]
 
 
-def encode_assemblies_to_batch(assemblies) -> np.ndarray:
+def encode_assemblies_to_batch(assemblies, pad_to: int | None = None) -> np.ndarray:
     r"""Each assembly's sentinel-separated code stream as one row of a (B, W) uint8 batch.
 
-    ``W`` is ``bucket_length`` of the widest stream, the JAX package's screen
-    width: the scan's end guards depend on the stream length, so the port
-    scans at the same width to select the same minimizers.
+    ``W`` is ``pad_to`` (a longer stream is cut to it), else ``bucket_length``
+    of the widest stream, the JAX package's screen width: the scan's end
+    guards depend on the stream length, so the port scans at the same width
+    to select the same minimizers.  :func:`locus_screen_batch` takes widths
+    that are multiples of 128.
     """
     rows = []
     for ga in assemblies:
         codes = encode_dna(ga.contigs.seqs)
         flat, _ = concat_with_sentinels(codes, ga.contigs.offsets, ga.contigs.lengths, DEFAULT_K)
         rows.append(flat)
-    out = np.full((len(rows), bucket_length(max((len(r) for r in rows), default=1))), 4, dtype=np.uint8)
+    width = pad_to or bucket_length(max((len(r) for r in rows), default=1))
+    out = np.full((len(rows), width), 4, dtype=np.uint8)
     for i, r in enumerate(rows):
-        out[i, : len(r)] = r
+        out[i, : min(len(r), width)] = r[:width]
     return out
 
 
@@ -154,7 +164,7 @@ def _shard_tallies(codes: torch.Tensor, shards: list, n_genes: int) -> torch.Ten
     ``(device, tables)``, summed on the device of ``codes``.
 
     The batch is scanned once on each distinct device of ``shards``; genomes
-    with an overflowing scan row are tallied from the flat plain scan.
+    with an overflowing scan row are tallied from the flat scan.
     """
     home = codes.device
     B = codes.shape[0]
@@ -171,7 +181,7 @@ def _shard_tallies(codes: torch.Tensor, shards: list, n_genes: int) -> torch.Ten
             if over.numel():
                 if not scans:
                     count("screen.overflow", int(over.numel()))
-                sel, hashes, _ = minimizer_scan_plain(c[over], DEFAULT_K, DEFAULT_W)
+                sel, hashes, _ = minimizer_scan(c[over], DEFAULT_K, DEFAULT_W)
                 owner = torch.arange(over.numel(), device=dev)[:, None].expand_as(sel)
                 flat = (hashes[sel], owner[sel])
             scans[dev] = (as_uint32_values(h_rows[live]), genome[live], over, flat)

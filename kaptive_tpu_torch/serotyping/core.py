@@ -75,6 +75,7 @@ class Serotyper:
         allow_below_threshold: bool = False,
         mapper_params: MapperParams | None = None,
         *,
+        scoring_metric: str = "scores",
         min_gene_coverage: float = 0.20,
         partial_edge_tolerance: int = 5,
         device: str | torch.device | None = None,
@@ -92,6 +93,9 @@ class Serotyper:
         self.max_other_genes = max_other_genes
         self.min_completeness = min_completeness
         self.allow_below_threshold = allow_below_threshold
+        # Stored and never read, as in the JAX package and the reference: the
+        # scoring phase always uses the q_cov sum.
+        self.scoring_metric = scoring_metric
         self.min_gene_coverage = min_gene_coverage
         self.partial_edge_tolerance = partial_edge_tolerance
         self._gene_index = db.gene_index

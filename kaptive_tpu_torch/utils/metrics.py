@@ -9,6 +9,7 @@ Conventions used by the pipeline:
 - ``swg.cuda.{fill,traceback,traceback_cigar}`` — Hopper kernel launches, one per wrapper call
 - ``swg.plain.{fill,traceback,traceback_cigar}`` — plain PyTorch versions (CPU tensors only)
 - ``scan.cuda.rowcompact`` / ``scan.plain.rowcompact`` — the row-compact scan, likewise
+- ``scan.cuda.flat`` / ``scan.plain.flat``  — the flat scan (``minimizer_scan``), likewise
 - ``map.host_seed.{native,preseeded}``     — assemblies seeded by the C library, or ahead on the ingest pool
 - ``map.host_fallback.{row_overflow,candidates,anchors,chains}``
                                            — genomes reseeded on host in device mode, by cause

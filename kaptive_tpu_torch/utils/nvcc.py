@@ -1,12 +1,18 @@
 r"""Build-at-first-use of the port's CUDA sources (``kaptive_tpu_torch/csrc/*.cu``).
 
 Each source is compiled on its own by ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into a shared library with a plain C interface under ``build/kaptive_tpu_torch/``
-at the root of the checkout, through a temporary file and ``os.replace`` (two
-processes building at once never load a half-written library), and loaded with
-ctypes.  Nothing is compiled at import: the CPU tests import every module.
-The ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library.
+into a shared library with a plain C interface under :data:`BUILD_DIR`,
+through a temporary file and ``os.replace`` (two processes building at once
+never load a half-written library), and loaded with ctypes.  Nothing is
+compiled at import: the CPU tests import every module.  The ``-Xptxas -v``
+report (registers, shared memory, spills) is kept beside the library.
+
+The sources ship inside the package (:data:`CSRC`, package data of the
+wheel).  :data:`BUILD_DIR` is ``build/kaptive_tpu_torch/`` at the root of a
+checkout (the package's parent holds the repository's ``pyproject.toml`` and
+the JAX package beside it); an installed package builds into a per-user
+cache, ``$XDG_CACHE_HOME/kaptive_tpu_torch``, else
+``~/.cache/kaptive_tpu_torch``.
 """
 
 from __future__ import annotations
@@ -22,8 +28,22 @@ from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kaptive_tpu_torch"
+PACKAGE = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE / "csrc"
+
+
+def build_dir() -> Path:
+    r"""Where the port's libraries are built: the checkout's ``build/kaptive_tpu_torch/``,
+    else the per-user cache (``$XDG_CACHE_HOME``, else ``~/.cache``)."""
+    root = PACKAGE.parent
+    if (root / "pyproject.toml").is_file() and (root / "kaptive_tpu").is_dir():
+        return root / "build" / "kaptive_tpu_torch"
+    xdg = os.environ.get("XDG_CACHE_HOME", "")
+    cache = Path(xdg) if os.path.isabs(xdg) else Path.home() / ".cache"
+    return cache / "kaptive_tpu_torch"
+
+
+BUILD_DIR = build_dir()
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

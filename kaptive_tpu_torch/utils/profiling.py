@@ -8,7 +8,7 @@ phase dominates decides where the next kernel goes.  This module has
   one environment lookup);
 - :func:`phase_report` — one stderr line per phase (count, total, mean);
 - :func:`device_trace` — wraps ``torch.profiler`` and writes a Chrome trace
-  (``chrome://tracing`` or Perfetto) into ``$KAPTIVE_TRACE_DIR``.
+  (``chrome://tracing`` or Perfetto) into its ``trace_dir``, else ``$KAPTIVE_TRACE_DIR``.
 """
 
 from __future__ import annotations
@@ -68,14 +68,14 @@ def phase_report(stream=None) -> dict[str, tuple[int, float]]:
 
 
 @contextmanager
-def device_trace():
-    r"""Record a ``torch.profiler`` trace of the block when ``$KAPTIVE_TRACE_DIR`` is set.
+def device_trace(trace_dir: str | os.PathLike | None = None):
+    r"""Record a ``torch.profiler`` trace of the block into ``trace_dir``, else ``$KAPTIVE_TRACE_DIR``.
 
-    The variable names the directory; without it this does nothing.  CPU activity is always recorded, CUDA activity
+    Without either this does nothing.  CPU activity is always recorded, CUDA activity
     when a card is present.  The trace is written as
     ``kaptive_trace_<pid>_<time>.json``; the path is returned by the context.
     """
-    trace_dir = os.environ.get("KAPTIVE_TRACE_DIR")
+    trace_dir = trace_dir or os.environ.get("KAPTIVE_TRACE_DIR")
     if not trace_dir:
         yield None
         return

@@ -1,5 +1,5 @@
-"""Hopper kernels (banded SWG, CIGAR traceback, row-compact scan, gene and architectural Viterbi)
-vs their plain PyTorch versions, on the card.
+"""Hopper kernels (banded SWG, CIGAR traceback, row-compact and flat scan, gene and architectural
+Viterbi) vs their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  The file imports
 only torch, numpy and the port; ``tests/conftest.py`` imports jax and sets it
@@ -9,7 +9,8 @@ with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.p
 Tolerance: exact.  The DP is integer arithmetic; every SwgResult field and
 every traceback byte on rows the query reaches must be equal; the CIGAR
 traceback's whole ``ops`` buffers, ``n_ops`` and ``overflow`` too.  The scan's
-``hashes``, ``aux`` and ``counts`` must be equal.  The screen's ``best`` and
+``hashes``, ``aux`` and ``counts`` must be equal, and the flat scan's
+``selected``, ``hashes`` and ``strands``.  The screen's ``best`` and
 tallies on the card equal the CPU's exactly, its float32 ``weighted`` scores
 to ``rtol=1e-6``; the CLI on the card writes the in-process rows' bytes.
 The Viterbi kernels' states, paths and scores equal the plain forms' (run on
@@ -875,3 +876,134 @@ def test_sharded_seeding_on_four_slots_stays_within_one_slot_budget(seeding_batc
     assert peak < budget // 4
     np.testing.assert_array_equal(chains[:2], want[0])
     assert (counts[5] > 0).all()
+
+
+# The flat scan (``minimizer_scan_kernel``): every panel whole, as one stream a row.
+FLAT_CASES = ([(name, B, 15, 10) for name in SCAN_PANELS for B in (1, 3)]
+              + [(name, 2, k, w) for k, w in KW_CASES for name in ("odd-rows-1000", "poly-a-across-edges")])
+
+
+def _assert_flat_kernel_equals_plain(codes, k, w):
+    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+    from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
+
+    sel, hashes, strands = minimizer_scan_cuda(codes, k, w)
+    want = minimizer_scan_plain(codes, k, w)  # the plain form on the same card tensor
+    torch.cuda.synchronize()
+    for field, g, x in zip(("selected", "hashes", "strands"), (sel, as_uint32_values(hashes), strands), want):
+        assert g.shape == x.shape and g.dtype == x.dtype, field
+        assert torch.equal(g, x), (field, k, w)
+    return want
+
+
+@pytest.mark.parametrize("case", FLAT_CASES, ids=[f"{n}-B{b}-k{k}-w{w}" for n, b, k, w in FLAT_CASES])
+def test_flat_scan_kernel_equals_plain(scan_device, case):
+    name, B, k, w = case
+    rng = np.random.default_rng(sum(map(ord, name)) + 7 * B)
+    codes = torch.from_numpy(np.stack([SCAN_PANELS[name](rng) for _ in range(B)]))
+    sel, _, _ = _assert_flat_kernel_equals_plain(codes.to(scan_device), k, w)
+    if name == "poly-a-overflow" and (k, w) == (15, 10):
+        assert bool(sel[:, 5000:5386].all())
+
+
+@pytest.mark.parametrize("L", [15, 16, 24, 25, 1023, 1025, 4097, 200_003])
+def test_flat_scan_kernel_equals_plain_on_odd_lengths(scan_device, L):
+    """Random (3, L) streams with sprinkled sentinels, sentinel runs and a poly-A run,
+    ends that are valid bases (the k-mers near L roll over to the stream's start),
+    and every window width and k at the edges of the kernel's range."""
+    from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
+
+    rng = np.random.default_rng(L)
+    codes = rng.integers(0, 4, (3, L)).astype(np.uint8)
+    codes[rng.random((3, L)) < 0.002] = 4
+    codes[1, L // 3: L // 3 + min(40, L // 4)] = 4
+    codes[2, L // 2: L // 2 + min(400, L // 4)] = 0
+    codes[:, -3:] = rng.integers(0, 4, (3, 3))
+    cuda = torch.from_numpy(codes).to(scan_device)
+    for k, w in ((15, 10), (16, 32), (1, 1), (5, 3)):
+        _assert_flat_kernel_equals_plain(cuda, k, w)
+    for row in range(3):  # a (L,) stream is one row
+        got = minimizer_scan_cuda(cuda[row], 15, 10)
+        batched = minimizer_scan_cuda(cuda, 15, 10)
+        for g, x in zip(got, batched):
+            assert torch.equal(g, x[row])
+    with pytest.raises(ValueError, match="outside"):
+        minimizer_scan_cuda(cuda, 17, 10)
+    with pytest.raises(ValueError, match="outside"):
+        minimizer_scan_cuda(cuda, 15, 33)
+
+
+def test_flat_scan_front_door_routes_by_device(scan_device):
+    """``minimizer_scan``: a CUDA tensor reaches only the kernel, a CPU tensor only the plain form."""
+    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.ops.minimizer import build_minimizer_set, minimizer_scan
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    codes = torch.from_numpy(random_stream(np.random.default_rng(9), 300))
+    reset_metrics()
+    on_card = minimizer_scan(codes.to(scan_device))
+    assert snapshot() == {"scan.cuda.flat": 1}
+    reset_metrics()
+    on_cpu = minimizer_scan(codes)
+    assert snapshot() == {"scan.plain.flat": 1}
+    for g, x in zip(on_card, on_cpu):
+        assert g.is_cuda and g.dtype == x.dtype and torch.equal(g.cpu(), x)
+    rng = np.random.default_rng(10)
+    seqs = Sequences.from_bytes([bytes(rng.choice(list(b"ACGTN"), n, p=[.249, .249, .249, .249, .004]))
+                                 for n in (900, 14, 2500, 3000)])
+    reset_metrics()
+    on_card_set = build_minimizer_set(seqs, device=True, sort=False)
+    assert snapshot() == {"scan.cuda.flat": 1}
+    for field in ("hashes", "seq_indices", "positions", "strands"):
+        for other in (build_minimizer_set(seqs, sort=False), build_minimizer_set(seqs, device="cpu", sort=False)):
+            np.testing.assert_array_equal(getattr(on_card_set, field), getattr(other, field), err_msg=field)
+
+
+def test_screen_overflow_runs_the_flat_kernel(scan_device, tmp_path):
+    """A genome with an overflowing scan row is re-tallied by the flat-scan kernel on the card:
+    no plain form runs there, and ``best`` and the tallies equal the CPU's."""
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import make_port_typing_panel
+
+    from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
+    from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    db, genomes = make_port_typing_panel(tmp_path)
+    revcomp = dict(genomes)["revcomp"]
+    genomes.append(("poly_a", revcomp[:4] + b"A" * 400 + revcomp[4:]))
+    paths = []
+    for name, fasta in genomes:
+        (path := tmp_path / f"{name}.fasta").write_bytes(fasta)
+        paths.append(path)
+    reset_metrics()
+    assemblies, best, weighted = Serotyper(db, device="cuda").screen(paths)
+    counts = snapshot()
+    assert counts.get("screen.overflow") == 1 and counts.get("scan.cuda.flat") == 1
+    assert not any(name.startswith("scan.plain") for name in counts)
+    _, best_cpu, weighted_cpu = Serotyper(db, device="cpu").screen(paths)
+    np.testing.assert_array_equal(best, best_cpu)
+    np.testing.assert_allclose(weighted, weighted_cpu, rtol=1e-6)
+    codes = torch.from_numpy(encode_assemblies_to_batch(assemblies))
+    tables = ScreenTables.from_database(db)
+    _, _, tallies_card = locus_screen_batch(codes.to(scan_device), tables, len(db.genes))
+    _, _, tallies_cpu = locus_screen_batch(codes, tables, len(db.genes))
+    assert torch.equal(tallies_card.cpu(), tallies_cpu)
+
+
+@pytest.mark.parametrize("n_states", [3, 28])
+def test_architectural_viterbi_on_card_equals_cpu(viterbi_device, n_states):
+    """The one-contig front door: one launch of the architectural kernel, equal to the CPU's."""
+    from viterbi_panels import arch_panel
+
+    from kaptive_tpu_torch.bgc.kernels import architectural_viterbi
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    em, trans, _ = arch_panel(np.random.default_rng(40 + n_states), [2500], n_states)
+    reset_metrics()
+    path, score = architectural_viterbi(em, trans)
+    torch.cuda.synchronize()
+    assert snapshot() == {"viterbi.cuda.arch": 1}
+    assert path.is_cuda and score.is_cuda and score.dim() == 0
+    want_path, want_score = architectural_viterbi(em, trans, device="cpu")
+    assert torch.equal(path.cpu(), want_path) and torch.equal(score.cpu(), want_score)
