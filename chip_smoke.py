@@ -123,7 +123,10 @@ module of either was loaded).  Steps:
     ``minimizer_scan_plain`` on the card, exactly on ``selected``, ``hashes``
     and ``strands``: step 3's four largest assemblies as one (4, L) stream of
     ~22 M positions at full width, and the poly-A overflow panel of
-    ``tests/scan_panels.py``; timed with CUDA events beside its bound.
+    ``tests/scan_panels.py``; the kernel, the front door ``minimizer_scan``
+    (which returns the kernel's int64 hashes) and the plain form timed with
+    CUDA events beside the kernel's bound (11 bytes a position); the
+    ``-Xptxas -v`` registers and spills of the kernel's w = 10 instance.
     (d) Screen mode on four assemblies, one with a 400-base poly-A run, with
     the counts set to 0 just before and read just after: ``screen.overflow``
     must be 1, the flat-scan kernel must launch once and no plain scan run,
@@ -1112,24 +1115,24 @@ def install_phase(card: str, inputs: Path, assemblies, results) -> dict:
 
 
 def _flat_bound(n_positions: int) -> dict:
-    """The flat scan's bound: a code read, and selected, a 4-byte hash and a strand written,
-    a position (7 bytes); ~35 integer operations a position."""
-    return _bound(7 * n_positions, SCAN_OPS_PER_POSITION * n_positions)
+    """The flat scan's bound: a code read, and selected, an 8-byte hash and a strand written,
+    a position (11 bytes); ~35 integer operations a position."""
+    return _bound(11 * n_positions, SCAN_OPS_PER_POSITION * n_positions)
 
 
 def _check_flat_scan(codes) -> dict:
     """Flat-scan kernel vs plain version (both on the card) on a (B, L) batch: exact on all three
-    outputs; returns times and the largest difference."""
+    outputs; returns the kernel's, the front door's and the plain form's times and the largest
+    difference."""
     import torch
 
-    from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W
-    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+    from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W, minimizer_scan
+    from kaptive_tpu_torch.ops.scan import minimizer_scan_plain
     from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
 
-    sel, hashes, strands = minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W)
+    got = minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W)
     want = minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W)
     torch.cuda.synchronize()
-    got = (sel, as_uint32_values(hashes), strands)
     if any(g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
         raise AssertionError("flat scan: kernel and plain outputs differ in shape or dtype")
     max_err = max(int((g.long() - p.long()).abs().max()) for g, p in zip(got, want))
@@ -1138,6 +1141,7 @@ def _check_flat_scan(codes) -> dict:
     n_sel = int(want[0].sum())
     del got, want
     times = {"ms": _timed(lambda: minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W), 20),
+             "front_door_ms": _timed(lambda: minimizer_scan(codes, DEFAULT_K, DEFAULT_W), 20),
              "plain_ms": _timed(lambda: minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W), 2)}
     times.update(_flat_bound(codes.numel()))
     return {"max_abs_err": max_err, "shape": tuple(codes.shape), "selected": n_sel, **times}
@@ -1153,6 +1157,8 @@ def flat_scan_phase(card: str, db, assemblies) -> dict:
 
     from kaptive_tpu_torch.bgc.kernels import architectural_viterbi
     from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.ops import scan_cuda
+    from kaptive_tpu_torch.ops.minimizer import DEFAULT_W
     from kaptive_tpu_torch.parallel.screen import ScreenTables, encode_assemblies_to_batch, locus_screen_batch
     from kaptive_tpu_torch.serotyping import Serotyper
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
@@ -1165,9 +1171,11 @@ def flat_scan_phase(card: str, db, assemblies) -> dict:
     panel = _check_flat_scan(torch.from_numpy(poly_a(np.random.default_rng(SEED))).cuda()[None])
     print(f"# flat scan (B, L) = {flat['shape']}, {flat['shape'][0] * flat['shape'][1]:,} positions, "
           f"{flat['selected']:,} selected: kernel == plain on selected, hashes, strands; kernel {flat['ms']:.4f} ms, "
-          f"plain {flat['plain_ms']:.4f} ms (on the card); bound {flat['bound_ms']:.4f} ms by {flat['bound_by']}: "
-          f"the kernel runs at {_share(flat)} [{card}]; poly-A panel {panel['shape']}: kernel == plain, "
-          f"{panel['selected']} selected", flush=True)
+          f"front door (minimizer_scan) {flat['front_door_ms']:.4f} ms, plain {flat['plain_ms']:.4f} ms (on the "
+          f"card); bound {flat['bound_ms']:.4f} ms by {flat['bound_by']}: the kernel runs at {_share(flat)} "
+          f"[{card}]; poly-A panel {panel['shape']}: kernel == plain, {panel['selected']} selected", flush=True)
+    w10 = [e for e in scan_cuda.LIBRARY.ptxas_report().split(" | ") if e.startswith(f"minimizer_scan_kernel<{DEFAULT_W}>")]
+    print(f"# ptxas, the flat scan's w = {DEFAULT_W} instance: {w10}", flush=True)
     del codes
     torch.cuda.empty_cache()
 
@@ -1563,7 +1571,7 @@ def main() -> int:
          "replaces": "kaptive_tpu/ops/minimizer.py:146", "launches": flat["launches"],
          "max_abs_err": max(flat["max_abs_err"], flat["panel_max_abs_err"]), "ms": flat["ms"],
          "plain_ms": flat["plain_ms"], "bound_ms": flat["bound_ms"], "bound_by": flat["bound_by"],
-         "library_ms": None, "shape": flat["shape"]},
+         "library_ms": None, "front_door_ms": flat["front_door_ms"], "shape": flat["shape"]},
         {"name": "swg_traceback_cigar", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
          "replaces": "kaptive_tpu/ops/swg.py:526", "launches": cigar_launches,
          "max_abs_err": cigar_check["max_abs_err"], "ms": cigar_check["ms"], "plain_ms": cigar_check["plain_ms"],

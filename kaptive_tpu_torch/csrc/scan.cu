@@ -1,12 +1,14 @@
-// Row-compact minimizer scan for NVIDIA Hopper (sm_90a).
+// Minimizer scans for NVIDIA Hopper (sm_90a): the row-compact scan and the flat scan.
 //
-// Replaces kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel (launched by
-// rowcompact_scan_tpu).  It computes what that kernel computes, bit for bit,
+// rowcompact_scan_kernel<W> replaces kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel (launched
+// by rowcompact_scan_tpu).  It computes what that kernel computes, bit for bit,
 // on all three outputs: per 128-position row of a sentinel-padded code
 // stream, the 2-bit forward and reverse k-mers, the canonical minimum, the
 // murmur3 fmix32 hash, the w-window minimum (leftmost wins ties), minimizer
 // selection and an order-preserving compaction to 64 slots.  The plain
 // PyTorch version is kaptive_tpu_torch/ops/scan.py::rowcompact_scan_plain.
+// minimizer_scan_kernel<W> (the flat scan, described before it below) shares its first three
+// stages.
 //
 // Built by kaptive_tpu_torch/ops/scan_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -31,27 +33,18 @@
 //      (base i of the word at bits 2i, `c & 3` under an invalid base) plus a
 //      16-bit mask of invalid bases (code >= 4).  Words outside the padded
 //      stream are sentinels.
-//   2. Hash.  With its own and the next packed word in two registers, a
-//      thread gets the k bases that start at base j by one funnel shift and a
-//      mask.  In this packing that field IS the reverse-complement's
-//      complement (rev = ~field), and the forward k-mer is the field with its
-//      2-bit groups reversed: __brev of the same shift of the words with each
-//      base's two bits swapped (swapped once a word, not once a position).
-//      No loop over k.  A k-mer is valid when no invalid bit lies among its k
-//      mask bits (an OR over k bits, doubled up once a word) and it starts
-//      inside [0, length-k+1).  One hash a position, stored once as a 32-bit
-//      word (17 words a thread, so a warp's stores and loads never share a
-//      bank); valid and strand bits go to bit masks.
-//   3. Window minimum and selection.  W is a template parameter, so a
-//      thread's 16 window starts take a van Herk / Gil-Werman pass over its
-//      16 + W - 1 hashes with every index known at compile time: suffix
-//      minima of the blocks of W backwards (<=, the leftmost wins), prefix
-//      minima forwards (<), and the window's winner is the suffix part
-//      unless the prefix part is strictly smaller: ~3 comparisons a position
-//      for any W.  A valid window (minimum != 0xFFFFFFFF, start inside
-//      [0, length-k-W+2)) sets its winner's bit in a register mask, which is
-//      OR-ed into the tile's selection mask in shared memory (selection by
-//      scatter: no position reads W offsets).
+//   2. Hash (hash_word, below).  A thread gets each of its 16 k-mers from
+//      its own and the next packed word by one funnel shift: no loop over k.
+//      A k-mer is valid when no invalid bit lies among its k mask bits (an
+//      OR over k bits, doubled up once a word) and it starts inside
+//      [0, length-k+1).  One hash a position, stored once as a 32-bit word
+//      (17 words a thread, so a warp's stores and loads never share a bank);
+//      valid and strand bits go to bit masks.
+//   3. Window minimum and selection (select_winners, below): a van Herk /
+//      Gil-Werman pass with W a template parameter, ~3 comparisons a
+//      position for any W; a valid window (minimum != 0xFFFFFFFF, start
+//      inside [0, length-k-W+2)) marks its winner in the tile's selection
+//      mask in shared memory (selection by scatter).
 //   4. Ranking.  A row is four words of (selected & valid).  The thread that
 //      owns a word counts the row's set bits before it (__popc) and walks
 //      its own set bits (__ffs): the (hash, col | strand << 7) pairs of the
@@ -71,7 +64,7 @@
 // In flight.  288 threads a block: the tile's 256 words, 2 words (32
 // positions, >= w-1) before it for the windows that select its first
 // positions, and 2 + 1 after it for the last windows' reach and the last
-// k-mers'.  31-56 registers a thread over the 32 instances (48 at w = 10) and 37 KB of shared
+// k-mers'.  32-55 registers a thread over the 32 instances (47 at w = 10) and 37 KB of shared
 // memory: 4 blocks (36 warps) an SM, set by registers; forcing 5 or more made
 // it slower.  The grid is (R / 32, B) blocks: 1,408 a 5.8 Mb genome.
 //
@@ -128,9 +121,24 @@ __device__ __forceinline__ uint32_t invalid4(uint32_t x) {
     return ((y * 0x01020408u) >> 24) & 0xFu;
 }
 
+// Sixteen code bytes -> the packed word (base i at bits 2i) and its 16-bit invalid mask.
+__device__ __forceinline__ void pack_word(uint4 v, uint32_t* word, uint16_t* inv) {
+    *word = pack4(v.x) | (pack4(v.y) << 8) | (pack4(v.z) << 16) | (pack4(v.w) << 24);
+    *inv = (uint16_t)(invalid4(v.x) | (invalid4(v.y) << 4) | (invalid4(v.z) << 8) | (invalid4(v.w) << 12));
+}
+
 // The two bits of every base swapped, so that __brev puts them back in order.
 __device__ __forceinline__ uint32_t swap_pairs(uint32_t x) {
     return ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+}
+
+// A 16-bit mask spread to the odd bits: bit i -> bit 2i + 1 (the high bit of base i's pair).
+__device__ __forceinline__ uint32_t spread_hi(uint32_t x) {
+    x = (x | (x << 8)) & 0x00FF00FFu;
+    x = (x | (x << 4)) & 0x0F0F0F0Fu;
+    x = (x | (x << 2)) & 0x33333333u;
+    x = (x | (x << 1)) & 0x55555555u;
+    return x << 1;
 }
 
 // The low n bits set, for n in [0, 32].
@@ -142,6 +150,115 @@ __device__ __forceinline__ int below(long long end, long long g0) {
     return n <= 0 ? 0 : (n >= WORD ? WORD : (int)n);
 }
 
+// Bit j: an invalid base among the k that start at base j of two words' 32-bit invalid mask
+// (an OR over k mask bits, doubled up).
+__device__ __forceinline__ uint32_t kmer_bad(uint32_t inv32, int k) {
+    uint32_t bad = inv32;
+    for (int cover = 1; cover < k;) {
+        const int step = min(cover, k - cover);
+        bad |= bad >> step;
+        cover += step;
+    }
+    return bad;
+}
+
+// Stage 2 of both kernels: the hashes of a word's 16 k-mer starts to out[0..15] (0xFFFFFFFF where
+// the bit of `valid_bits` is clear) and its strand bits, from the word (w0) and the next (w1).
+// With its own and the next packed word in two registers, a thread gets the k bases that start at
+// base j by one funnel shift and a mask.  In this packing that field IS the reverse-complement's
+// complement (rev = ~field), and the forward k-mer is the field with its 2-bit groups reversed:
+// __brev of the same shift of the words with each base's two bits swapped (swapped once a word,
+// not once a position).  No loop over k.
+//
+// A strand compares the JAX package's packings of the raw codes, in which a sentinel (code 4)
+// ORs 4 << 2(k-1-i) into fwd and 3 - 4 = 0xFFFFFFFF << 2i into rev.  With REBUILD, a k-mer that
+// holds sentinels gets those words back from the packed field and the invalid mask (inv32):
+// fwd | (the mask spread to base pairs, in forward order) << 2, bits past 31 dropped, and
+// rev | 0xFFFFFFFF << 2 j_min, j_min its first sentinel.  Without it the strands are those of the
+// packed fields, which the row-compact scan reads only where the k-mer is valid.
+template <bool REBUILD>
+__device__ __forceinline__ uint32_t hash_word(uint32_t w0, uint32_t w1, uint32_t inv32, uint32_t valid_bits,
+                                              int k, uint32_t* out) {
+    const uint32_t x0 = swap_pairs(w0), x1 = swap_pairs(w1);
+    const uint32_t kmask = k >= 16 ? UMAX : (1u << (2 * k)) - 1u;
+    const int fwd_shift = 32 - 2 * k;
+    const uint32_t ih0 = REBUILD ? spread_hi(inv32 & 0xFFFFu) : 0u;  // already pair-swapped: high bits
+    const uint32_t ih1 = REBUILD ? spread_hi(inv32 >> 16) : 0u;
+    uint32_t strand_bits = 0;
+#pragma unroll
+    for (int j = 0; j < WORD; ++j) {
+        // Bases j .. j+k-1 at bits 2i of the funnel-shifted words: that field is the reverse
+        // complement's complement, (3 - c) << 2i = ~field; the forward k-mer, c << 2(k-1-i), is
+        // the field with its 2-bit groups in reverse order: __brev of the pair-swapped words.
+        uint32_t rev = ~__funnelshift_r(w0, w1, 2 * j) & kmask;
+        uint32_t fwd = __brev(__funnelshift_r(x0, x1, 2 * j)) >> fwd_shift;
+        out[j] = (valid_bits >> j) & 1u ? mix32(min(fwd, rev)) : UMAX;
+        if (REBUILD) {
+            const uint32_t m = (inv32 >> j) & low_bits(k);
+            if (m) {
+                rev |= UMAX << (2 * (__ffs(m) - 1));
+                fwd |= (__brev(__funnelshift_r(ih0, ih1, 2 * j)) >> fwd_shift) << 2;
+            }
+        }
+        strand_bits |= (fwd <= rev ? 1u : 0u) << j;
+    }
+    return strand_bits;
+}
+
+// Stage 3 of both kernels: the winner of each of a word's 16 W-windows, marked in the tile's
+// selection mask (selection by scatter: no position reads W offsets).  W is a template parameter,
+// so the van Herk / Gil-Werman pass over the word's run of 16 + W - 1 hashes (hash i at
+// h[i + i / 16]) has every index known at compile time: suffix minima of the blocks of W
+// backwards (<=, the leftmost wins), prefix minima forwards (<), and the window's winner is the
+// suffix part unless the prefix part is strictly smaller: ~3 comparisons a position for any W.
+// A window marks its winner when its start bit is set in `starts` and its minimum is not
+// 0xFFFFFFFF; a winner's hash is then not 0xFFFFFFFF, so its k-mer is valid.
+template <int W>
+__device__ __forceinline__ void select_winners(const uint32_t* h, uint32_t starts, int word, uint32_t* s_sel) {
+    static_assert(W >= 1 && W <= MAX_W, "the halo covers w - 1 positions");
+    constexpr int LAST = (WORD - 1) / W * W + W - 1;  // end of the block of W that holds start 15
+    uint32_t suffix_h[WORD];
+    int suffix_p[WORD];
+    uint32_t cur_h = 0;
+    int cur_p = 0;
+#pragma unroll
+    for (int i = LAST; i >= 0; --i) {  // suffix minima inside blocks of W: <=, the leftmost wins
+        const uint32_t x = h[i + (i >> 4)];
+        if (i % W == W - 1 || x <= cur_h) {
+            cur_h = x;
+            cur_p = i;
+        }
+        if (i < WORD) {
+            suffix_h[i] = cur_h;
+            suffix_p[i] = cur_p;
+        }
+    }
+    uint32_t marks_lo = 0;           // bit i: position i of the run is some window's winner
+    unsigned long long marks_hi = 0;  // the same, for the windows that reach past position 31
+#pragma unroll
+    for (int i = 0; i < WORD + W - 1; ++i) {  // prefix minima inside blocks of W: strict <
+        const uint32_t x = h[i + (i >> 4)];
+        if (i % W == 0 || x < cur_h) {
+            cur_h = x;
+            cur_p = i;
+        }
+        if (i >= W - 1) {  // the window that starts at j ends here
+            const int j = i - (W - 1);
+            const bool right = cur_h < suffix_h[j];  // the left part wins ties
+            const uint32_t best = right ? cur_h : suffix_h[j];
+            const int win = right ? cur_p : suffix_p[j];
+            if (best != UMAX && (starts & (1u << j))) {
+                if (i < 32) marks_lo |= 1u << win;
+                else marks_hi |= 1ull << win;
+            }
+        }
+    }
+    const unsigned long long marks = (marks_hi | marks_lo) << ((word & 1) * WORD);
+    const uint32_t m0 = (uint32_t)marks, m1 = (uint32_t)(marks >> 32);
+    if (m0) atomicOr(&s_sel[word >> 1], m0);
+    if (m1) atomicOr(&s_sel[(word >> 1) + 1], m1);
+}
+
 template <int W>
 __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
     const uint8_t* __restrict__ codes,  // (B, R + 2*halo_rows, 128)
@@ -149,7 +266,6 @@ __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
     uint32_t* __restrict__ hashes,      // out (B, R, 64)
     int32_t* __restrict__ aux,          // out (B, R, 64)
     int32_t* __restrict__ counts) {     // out (B, R)
-    static_assert(W >= 1 && W <= MAX_W, "the halo covers w - 1 positions");
     __shared__ uint32_t s_word[CODE_WORDS];               // 16 bases a word, 2 bits each
     __shared__ uint16_t s_inv[CODE_WORDS];                // their invalid bits
     __shared__ uint32_t s_hash[HASH_WORDS * HASH_STRIDE];
@@ -174,95 +290,30 @@ __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
         const long long p = (long long)halo_rows * ROW + g0;  // index into the padded stream
         uint4 v = make_uint4(SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD);
         if (p >= 0 && p + WORD <= padded_len) v = *reinterpret_cast<const uint4*>(g + p);
-        s_word[tid] = pack4(v.x) | (pack4(v.y) << 8) | (pack4(v.z) << 16) | (pack4(v.w) << 24);
-        s_inv[tid] = (uint16_t)(invalid4(v.x) | (invalid4(v.y) << 4) | (invalid4(v.z) << 8)
-                                | (invalid4(v.w) << 12));
+        pack_word(v, &s_word[tid], &s_inv[tid]);
     }
     if (tid < MASK_WORDS) s_sel[tid] = 0;
     __syncthreads();
 
-    // 2. Hash, strand and validity of the word's 16 k-mer starts.
+    // 2. Hash, strand and validity of the word's 16 k-mer starts.  A k-mer is valid when no
+    //    invalid base lies among its k and it starts inside [0, length-k+1).
     if (tid < HASH_WORDS) {
-        const uint32_t w0 = s_word[tid], w1 = s_word[tid + 1];
-        const uint32_t x0 = swap_pairs(w0), x1 = swap_pairs(w1);
-        const uint32_t kmask = k >= 16 ? UMAX : (1u << (2 * k)) - 1u;
-        const int fwd_shift = 32 - 2 * k;
-        // Bit j of `bad`: an invalid base among the k that start at base j (an OR over k mask bits,
-        // doubled up).  Starts inside [0, length-k+1): nothing before 0, no k-mer over the stream's end.
-        uint32_t bad = (uint32_t)s_inv[tid] | ((uint32_t)s_inv[tid + 1] << 16);
-        for (int cover = 1; cover < k;) {
-            const int step = min(cover, k - cover);
-            bad |= bad >> step;
-            cover += step;
-        }
+        const uint32_t inv32 = (uint32_t)s_inv[tid] | ((uint32_t)s_inv[tid + 1] << 16);
         const uint32_t inside = low_bits(below(length - k + 1, g0)) & ~low_bits(below(0, g0));
-        const uint32_t valid_bits = ~bad & inside;
-        uint32_t strand_bits = 0;
-        uint32_t* out = s_hash + tid * HASH_STRIDE;
-#pragma unroll
-        for (int j = 0; j < WORD; ++j) {
-            // Bases j .. j+k-1 at bits 2i of the funnel-shifted words: that field is the reverse
-            // complement's complement, (3 - c) << 2i = ~field; the forward k-mer, c << 2(k-1-i), is
-            // the field with its 2-bit groups in reverse order: __brev of the pair-swapped words.
-            const uint32_t rev = ~__funnelshift_r(w0, w1, 2 * j) & kmask;
-            const uint32_t fwd = __brev(__funnelshift_r(x0, x1, 2 * j)) >> fwd_shift;
-            out[j] = (valid_bits >> j) & 1u ? mix32(min(fwd, rev)) : UMAX;
-            strand_bits |= (fwd <= rev ? 1u : 0u) << j;
-        }
+        const uint32_t valid_bits = ~kmer_bad(inv32, k) & inside;
+        s_strand[tid] = (uint16_t)hash_word<false>(s_word[tid], s_word[tid + 1], inv32, valid_bits, k,
+                                                   s_hash + tid * HASH_STRIDE);
         s_valid[tid] = (uint16_t)valid_bits;
-        s_strand[tid] = (uint16_t)strand_bits;
     }
     __syncthreads();
 
-    // 3. The winner of each of the word's 16 windows, marked in the tile's mask.
+    // 3. The winner of each of the word's 16 windows, marked in the tile's mask.  Window starts
+    //    inside [0, length-k-W+2).
     if (tid < START_WORDS) {
-        const uint32_t* h = s_hash + tid * HASH_STRIDE;  // hash i of the run at h[i + i / 16]
-        // Window starts inside [0, length-k-W+2).
         const uint32_t starts = low_bits(below(length - k - W + 2, g0)) & ~low_bits(below(0, g0));
-        constexpr int LAST = (WORD - 1) / W * W + W - 1;  // end of the block of W that holds start 15
-        uint32_t suffix_h[WORD];
-        int suffix_p[WORD];
-        uint32_t cur_h = 0;
-        int cur_p = 0;
-#pragma unroll
-        for (int i = LAST; i >= 0; --i) {  // suffix minima inside blocks of W: <=, the leftmost wins
-            const uint32_t x = h[i + (i >> 4)];
-            if (i % W == W - 1 || x <= cur_h) {
-                cur_h = x;
-                cur_p = i;
-            }
-            if (i < WORD) {
-                suffix_h[i] = cur_h;
-                suffix_p[i] = cur_p;
-            }
-        }
-        uint32_t marks_lo = 0;           // bit i: position i of the run is some window's winner
-        unsigned long long marks_hi = 0;  // the same, for the windows that reach past position 31
-#pragma unroll
-        for (int i = 0; i < WORD + W - 1; ++i) {  // prefix minima inside blocks of W: strict <
-            const uint32_t x = h[i + (i >> 4)];
-            if (i % W == 0 || x < cur_h) {
-                cur_h = x;
-                cur_p = i;
-            }
-            if (i >= W - 1) {  // the window that starts at j ends here
-                const int j = i - (W - 1);
-                const bool right = cur_h < suffix_h[j];  // the left part wins ties
-                const uint32_t best = right ? cur_h : suffix_h[j];
-                const int win = right ? cur_p : suffix_p[j];
-                if (best != UMAX && (starts & (1u << j))) {
-                    if (i < 32) marks_lo |= 1u << win;
-                    else marks_hi |= 1ull << win;
-                }
-            }
-        }
-        const unsigned long long marks = (marks_hi | marks_lo) << ((tid & 1) * WORD);
-        const uint32_t m0 = (uint32_t)marks, m1 = (uint32_t)(marks >> 32);
-        if (m0) atomicOr(&s_sel[tid >> 1], m0);
-        if (m1) atomicOr(&s_sel[(tid >> 1) + 1], m1);
+        select_winners<W>(s_hash + tid * HASH_STRIDE, starts, tid, s_sel);
     }
     __syncthreads();
-
     // 4. Ranking: a thread of the tile counts the row's selected positions before its word,
     //    then stages the (hash, aux) pair of each of its own.
     const uint32_t* valid32 = reinterpret_cast<const uint32_t*>(s_valid);
@@ -322,120 +373,166 @@ cudaError_t launch(const uint8_t* codes, int B, int R, int halo_rows, int k, uin
 // Replaces the XLA program kaptive_tpu/ops/minimizer.py::minimizer_scan.  For each position of
 // a (B, L) uint8 code stream (each row its own stream) it writes what that function returns:
 // `selected` (the position starts the w-window minimum of some window, the leftmost winning
-// ties), the canonical k-mer's murmur3 hash (0xFFFFFFFF where no valid k-mer starts) and the
-// strand (forward packing <= reverse packing).  The plain PyTorch version is
+// ties), the canonical k-mer's murmur3 hash as an int64 value in [0, 2^32) (0xFFFFFFFF where no
+// valid k-mer starts; the values callers receive, so no pass converts them) and the strand
+// (forward packing <= reverse packing).  The plain PyTorch version is
 // kaptive_tpu_torch/ops/scan.py::minimizer_scan_plain.
 //
 // The semantics are the JAX function's, rolls included: the k-mer at position i reads the codes
 // at (i + j) mod L, packed raw (a code >= 4 ORs its high bits into the word, and 3 - c wraps),
 // so `strands` agree at every position, also where no valid k-mer starts.  A k-mer is valid
 // when none of its codes is >= 4 and i < L-k+1; a window starting at s is valid when its
-// minimum is not 0xFFFFFFFF and s < L-k-w+2.  The end guards sit at the row's length L.  No
-// compaction and no halo rows: each row is one stream.
+// minimum is not 0xFFFFFFFF and s < L-k-w+2.  The end guards sit at the row's length L.
 //
-// What bounds it.  A position reads 1 byte and writes 6 (selected, the 4-byte hash, strand):
-// 7 bytes, and a k-mer, a hash and a window minimum need ~35 integer operations whatever the
-// design.  For four 5.3 Mb genomes (~21 M positions) that is 0.044 ms of bytes at 3.35 TB/s and
-// 0.044 ms of operations at 16.75 T/s.  This first kernel is the simple one: one block a tile of
-// FLAT_TILE positions, a thread a position in each stage, k and w read at run time.  Its k-mer
-// loop (~8 operations a base) and its window and selection loops (~3 a step) cost ~160
-// operations a position, so it stays several times above that bound; the packed-word k-mers
-// and the van Herk window of rowcompact_scan_kernel are the way down.
+// What bounds it.  A position reads 1 byte and writes 10 (selected, the 8-byte hash, strand):
+// 11 bytes, and a k-mer, a hash and a window minimum need ~35 integer operations whatever the
+// design.  For four 5.3 Mb genomes of 5,767,168 padded positions (23.07 M) that is 0.0757 ms of
+// bytes at 3.35 TB/s and 0.0482 ms of operations at 16.75 T/s: the stores bound it.  The w = 10
+// instance compiles to 54 registers without spills (4 blocks an SM, set by registers) and scans
+// that stream in 0.096 ms, 79% of the bound (NVIDIA H100 80GB HBM3, 700 W; the first kernel, a
+// thread a position with k and w read at run time, took 0.42 ms).  w = 32 needs 72 registers and
+// spills 4 bytes: 0.121 ms.
 //
-// Stages, a block barrier between them (x is a position's index in the block's smem arrays,
-// position t0 - (w-1) + x of the stream):
-//   1. Codes of [t0 - (w-1), t0 + FLAT_TILE + w - 1 + k - 1), read at index mod L past the end.
-//   2. Hash, valid and strand of each position in [t0 - (w-1), t0 + FLAT_TILE + w - 1).
-//   3. Each window starting in [t0 - (w-1), t0 + FLAT_TILE): its winner's x, or -1.
-//   4. Each tile position is selected when it is valid and some window of the w before it chose
-//      it; the three outputs are stored, neighbouring threads on neighbouring positions.
+// Design: the row-compact kernel's first three stages over tiles of TILE = 4,096 positions of a
+// row, one block a (tile, row), 288 threads, a thread a word of 16 positions; W a template
+// parameter, k a run-time mask.  What differs:
+//   1. Pack.  One 16-byte load a word where the row is 16-byte aligned (L % 16 == 0 and the
+//      pointers aligned: every main-path width is a multiple of 128).  A word that crosses the
+//      row's edge (the last tile's, or every word of an unaligned row) is read a byte at a time:
+//      the sentinel before 0, the code at g mod L past L, as jnp.roll does; a word from
+//      L + 15 on is all sentinels (no output reads it).  A flag marks a word with a code > 4.
+//   2. Hash, and strands at every position.  The packed words keep `c & 3` and an invalid mask,
+//      not the raw codes; for codes 0-4 (all the encoder emits) the raw packings are rebuilt from
+//      the two (hash_word<true>, only in words whose k-mers reach a sentinel: the pad tail and
+//      contig edges).  A word whose k-mers reach a code > 4 takes its strands from a loop over
+//      its raw codes (raw_strands), exact and never run on encoder output.
+//   3. Windows: select_winners<W>, as in the row-compact scan.
+//   4. Store the tile as whole lines: a thread writes its word's 16 `selected` and 16 `strands`
+//      bytes as one 16-byte store each (from the bit masks), and the hashes leave from the
+//      shared run as 16-byte pairs of int64, consecutive threads on consecutive pairs, so a warp
+//      writes 512 contiguous bytes a store.  An unaligned row stores a position at a time.
 // ---------------------------------------------------------------------------------------------
 
-constexpr int FLAT_TILE = 1024;                       // positions a block
-constexpr int FLAT_THREADS = 256;
-constexpr int FLAT_SPAN = FLAT_TILE + 2 * (MAX_W - 1);  // positions hashed: the windows' reach on both sides
-constexpr int FLAT_CODES = FLAT_SPAN + MAX_K - 1;       // codes read: the last k-mer's reach
+// The code at position g of a row of L codes, as the JAX scan's rolls read it.
+__device__ __forceinline__ uint32_t code_at(const uint8_t* row, long long L, long long g) {
+    return g < 0 ? 4u : row[g < L ? g : g % L];
+}
 
-__global__ void __launch_bounds__(FLAT_THREADS) minimizer_scan_kernel(
+// The strand bits of the word that starts at g0, from the raw codes: the JAX packing itself.
+__device__ __noinline__ uint32_t raw_strands(const uint8_t* row, long long L, long long g0, int k) {
+    uint32_t bits = 0;
+    for (int j = 0; j < WORD; ++j) {
+        uint32_t fwd = 0, rev = 0;
+        for (int i = 0; i < k; ++i) {
+            const uint32_t c = code_at(row, L, g0 + j + i);
+            fwd |= c << (2 * (k - 1 - i));
+            rev |= (3u - c) << (2 * i);
+        }
+        bits |= (fwd <= rev ? 1u : 0u) << j;
+    }
+    return bits;
+}
+
+// Four bits -> four bytes of 0 / 1, bit i to byte i.
+__device__ __forceinline__ uint32_t bytes4(uint32_t b) { return (b * 0x00204081u) & 0x01010101u; }
+
+__device__ __forceinline__ uint4 bytes16(uint32_t b) {
+    return make_uint4(bytes4(b & 15u), bytes4((b >> 4) & 15u), bytes4((b >> 8) & 15u), bytes4((b >> 12) & 15u));
+}
+
+template <int W>
+__global__ void __launch_bounds__(THREADS) minimizer_scan_kernel(
     const uint8_t* __restrict__ codes,  // (B, L)
-    long long L, int k, int w,
+    long long L, int k, bool aligned,   // aligned: L % 16 == 0 and every pointer 16-byte aligned
     uint8_t* __restrict__ selected,     // out (B, L): 0 or 1
-    uint32_t* __restrict__ hashes,      // out (B, L)
+    long long* __restrict__ hashes,     // out (B, L): values in [0, 2^32)
     uint8_t* __restrict__ strands) {    // out (B, L): 0 or 1
-    __shared__ uint8_t s_code[FLAT_CODES];
-    __shared__ uint32_t s_hash[FLAT_SPAN];
-    __shared__ uint8_t s_valid[FLAT_SPAN];
-    __shared__ uint8_t s_strand[FLAT_SPAN];
-    __shared__ int16_t s_win[FLAT_TILE + MAX_W - 1];
+    __shared__ uint32_t s_word[CODE_WORDS];
+    __shared__ uint16_t s_inv[CODE_WORDS];
+    __shared__ uint8_t s_odd[CODE_WORDS];                 // a code > 4 in the word
+    __shared__ uint32_t s_hash[HASH_WORDS * HASH_STRIDE];
+    __shared__ uint16_t s_strand[HASH_WORDS];
+    __shared__ uint32_t s_sel[MASK_WORDS];
 
     const int tid = threadIdx.x;
-    const long long row = (long long)blockIdx.y * L;
-    const long long t0 = (long long)blockIdx.x * FLAT_TILE;
-    const long long first = t0 - (w - 1);               // stream position of x = 0
-    const int span = FLAT_TILE + 2 * (w - 1);
-    const int n_codes = span + k - 1;
-    const int n_windows = FLAT_TILE + w - 1;
+    const long long tile0 = (long long)blockIdx.x * TILE;
+    const long long g0 = tile0 - HALO + (long long)tid * WORD;  // stream position of this thread's word
+    const uint8_t* row = codes + (long long)blockIdx.y * L;
 
-    // 1. Codes, rolled past the row's end as jnp.roll does; nothing reads a code before 0.
-    for (int x = tid; x < n_codes; x += FLAT_THREADS) {
-        long long g = first + x;
-        uint8_t c = 4;
-        if (g >= 0) {
-            if (g >= L) g %= L;
-            c = codes[row + g];
+    // 1. Pack.
+    if (tid < CODE_WORDS) {
+        uint4 v = make_uint4(SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD);
+        if (aligned && g0 >= 0 && g0 + WORD <= L) {
+            v = *reinterpret_cast<const uint4*>(row + g0);
+        } else if (g0 + WORD > 0 && g0 < L + MAX_K - 1) {
+            uint32_t part[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+            for (int i = 0; i < WORD; ++i) part[i >> 2] |= code_at(row, L, g0 + i) << (8 * (i & 3));
+            v = make_uint4(part[0], part[1], part[2], part[3]);
         }
-        s_code[x] = c;
+        pack_word(v, &s_word[tid], &s_inv[tid]);
+        s_odd[tid] = (__vcmpgtu4(v.x, SENTINEL_WORD) | __vcmpgtu4(v.y, SENTINEL_WORD)
+                      | __vcmpgtu4(v.z, SENTINEL_WORD) | __vcmpgtu4(v.w, SENTINEL_WORD)) != 0u;
+    }
+    if (tid < MASK_WORDS) s_sel[tid] = 0;
+    __syncthreads();
+
+    // 2. Hash and strand of the word's 16 k-mer starts; the strands of the tile's words only.
+    if (tid < HASH_WORDS) {
+        const uint32_t w0 = s_word[tid], w1 = s_word[tid + 1];
+        const uint32_t inv32 = (uint32_t)s_inv[tid] | ((uint32_t)s_inv[tid + 1] << 16);
+        const uint32_t inside = low_bits(below(L - k + 1, g0)) & ~low_bits(below(0, g0));
+        const uint32_t valid_bits = ~kmer_bad(inv32, k) & inside;
+        const bool stored = tid >= HALO / WORD && tid < START_WORDS;
+        uint32_t* out = s_hash + tid * HASH_STRIDE;
+        const uint32_t strand_bits = stored && (inv32 & low_bits(WORD + k - 1))
+                                         ? hash_word<true>(w0, w1, inv32, valid_bits, k, out)
+                                         : hash_word<false>(w0, w1, inv32, valid_bits, k, out);
+        if (stored) s_strand[tid] = (uint16_t)(s_odd[tid] | s_odd[tid + 1] ? raw_strands(row, L, g0, k) : strand_bits);
     }
     __syncthreads();
 
-    // 2. Raw forward and reverse packings, the canonical hash, validity and strand.
-    const long long kmer_end = L - k + 1;  // a valid k-mer starts before this
-    for (int x = tid; x < span; x += FLAT_THREADS) {
-        const long long i = first + x;
-        uint32_t fwd = 0, rev = 0;
-        bool bad = false;
-        for (int j = 0; j < k; ++j) {
-            const uint32_t c = s_code[x + j];
-            bad |= c >= 4u;
-            fwd |= c << (2 * (k - 1 - j));
-            rev |= (3u - c) << (2 * j);
-        }
-        const bool valid = !bad && i >= 0 && i < kmer_end;
-        s_hash[x] = valid ? mix32(min(fwd, rev)) : UMAX;
-        s_valid[x] = valid;
-        s_strand[x] = fwd <= rev;
+    // 3. The winner of each of the word's 16 windows, marked in the tile's mask.
+    if (tid < START_WORDS) {
+        const uint32_t starts = low_bits(below(L - k - W + 2, g0)) & ~low_bits(below(0, g0));
+        select_winners<W>(s_hash + tid * HASH_STRIDE, starts, tid, s_sel);
     }
     __syncthreads();
 
-    // 3. The winner of each window that can select in the tile (strict <: the leftmost wins).
-    const long long window_end = L - k - w + 2;  // a valid window starts before this
-    for (int y = tid; y < n_windows; y += FLAT_THREADS) {
-        const long long s = first + y;
-        uint32_t best = s_hash[y];
-        int win = y;
-        for (int j = 1; j < w; ++j) {
-            const uint32_t h = s_hash[y + j];
-            if (h < best) {
-                best = h;
-                win = y + j;
-            }
+    // 4. Store the tile's positions inside the row (position q of the tile is x = HALO + q of the run).
+    const int n = (int)min((long long)TILE, L - tile0);
+    const long long out0 = (long long)blockIdx.y * L + tile0;
+    if (aligned) {  // n is a multiple of 16
+        for (int v = tid; 2 * v < n; v += THREADS) {
+            const int x = HALO + 2 * v;  // even: x and x + 1 lie in one word of the run
+            const uint32_t* h = s_hash + x + (x >> 4);
+            *reinterpret_cast<longlong2*>(hashes + out0 + 2 * v) = make_longlong2(h[0], h[1]);
         }
-        s_win[y] = (int16_t)(s >= 0 && s < window_end && best != UMAX ? win : -1);
-    }
-    __syncthreads();
-
-    // 4. Selection and the stores.
-    for (int t = tid; t < FLAT_TILE; t += FLAT_THREADS) {
-        const long long p = t0 + t;
-        if (p >= L) break;
-        const int x = t + (w - 1);
-        bool sel = false;
-        for (int d = 0; d < w; ++d) sel |= s_win[x - d] == x;
-        selected[row + p] = sel && s_valid[x];
-        hashes[row + p] = s_hash[x];
-        strands[row + p] = s_strand[x];
+        if (tid * WORD < n) {
+            const int wd = HALO / WORD + tid;
+            const uint32_t sel = (s_sel[wd >> 1] >> ((wd & 1) * WORD)) & 0xFFFFu;
+            *reinterpret_cast<uint4*>(selected + out0 + tid * WORD) = bytes16(sel);
+            *reinterpret_cast<uint4*>(strands + out0 + tid * WORD) = bytes16(s_strand[wd]);
+        }
+    } else {
+        for (int q = tid; q < n; q += THREADS) {
+            const int x = HALO + q;
+            selected[out0 + q] = (uint8_t)((s_sel[x >> 5] >> (x & 31)) & 1u);
+            hashes[out0 + q] = s_hash[x + (x >> 4)];
+            strands[out0 + q] = (uint8_t)((s_strand[x >> 4] >> (x & 15)) & 1u);
+        }
     }
 }
+
+template <int W>
+cudaError_t launch_flat(const uint8_t* codes, int B, long long L, int k, bool aligned, uint8_t* selected,
+                        long long* hashes, uint8_t* strands, cudaStream_t stream) {
+    const dim3 grid((unsigned)((L + TILE - 1) / TILE), (unsigned)B);
+    minimizer_scan_kernel<W><<<grid, THREADS, 0, stream>>>(codes, L, k, aligned, selected, hashes, strands);
+    return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -443,6 +540,11 @@ extern "C" {
 
 int kts_rowcompact_max_k() { return MAX_K; }
 int kts_rowcompact_max_w() { return MAX_W; }
+
+// One case a window width: both scans take w = 1 .. MAX_W as a template argument.
+#define KTS_WIDTHS(X)                                                                                \
+    X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15) X(16) X(17)    \
+    X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25) X(26) X(27) X(28) X(29) X(30) X(31) X(32)
 
 // Launches the scan on `stream`; returns the CUDA error of the launch (0 = ok).
 int kts_rowcompact_scan(const void* codes, int B, int R, int halo_rows, int k, int w,
@@ -454,13 +556,7 @@ int kts_rowcompact_scan(const void* codes, int B, int R, int halo_rows, int k, i
         return (int)launch<W>(static_cast<const uint8_t*>(codes), B, R, halo_rows, k,           \
                               static_cast<uint32_t*>(hashes), static_cast<int32_t*>(aux),       \
                               static_cast<int32_t*>(counts), static_cast<cudaStream_t>(stream));
-    switch (w) {
-        KTS_SCAN(1) KTS_SCAN(2) KTS_SCAN(3) KTS_SCAN(4) KTS_SCAN(5) KTS_SCAN(6) KTS_SCAN(7) KTS_SCAN(8)
-        KTS_SCAN(9) KTS_SCAN(10) KTS_SCAN(11) KTS_SCAN(12) KTS_SCAN(13) KTS_SCAN(14) KTS_SCAN(15)
-        KTS_SCAN(16) KTS_SCAN(17) KTS_SCAN(18) KTS_SCAN(19) KTS_SCAN(20) KTS_SCAN(21) KTS_SCAN(22)
-        KTS_SCAN(23) KTS_SCAN(24) KTS_SCAN(25) KTS_SCAN(26) KTS_SCAN(27) KTS_SCAN(28) KTS_SCAN(29)
-        KTS_SCAN(30) KTS_SCAN(31) KTS_SCAN(32)
-    }
+    switch (w) { KTS_WIDTHS(KTS_SCAN) }
 #undef KTS_SCAN
     return (int)cudaErrorInvalidValue;
 }
@@ -470,13 +566,19 @@ int kts_minimizer_scan(const void* codes, int B, long long L, int k, int w,
                        void* selected, void* hashes, void* strands, void* stream) {
     if (B <= 0 || L <= 0) return 0;
     if (k < 1 || k > MAX_K || w < 1 || w > MAX_W) return (int)cudaErrorInvalidValue;
-    const long long tiles = (L + FLAT_TILE - 1) / FLAT_TILE;
-    if (tiles > 0x7FFFFFFFLL || B > 65535) return (int)cudaErrorInvalidValue;
-    const dim3 grid((unsigned)tiles, (unsigned)B);
-    minimizer_scan_kernel<<<grid, FLAT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(codes), L, k, w, static_cast<uint8_t*>(selected),
-        static_cast<uint32_t*>(hashes), static_cast<uint8_t*>(strands));
-    return (int)cudaGetLastError();
+    if ((L + TILE - 1) / TILE > 0x7FFFFFFFLL || B > 65535) return (int)cudaErrorInvalidValue;
+    const bool aligned = L % WORD == 0 && aligned16(codes) && aligned16(selected) && aligned16(hashes)
+                         && aligned16(strands);
+#define KTS_FLAT(W)                                                                                  \
+    case W:                                                                                          \
+        return (int)launch_flat<W>(static_cast<const uint8_t*>(codes), B, L, k, aligned,             \
+                                   static_cast<uint8_t*>(selected), static_cast<long long*>(hashes), \
+                                   static_cast<uint8_t*>(strands), static_cast<cudaStream_t>(stream));
+    switch (w) { KTS_WIDTHS(KTS_FLAT) }
+#undef KTS_FLAT
+    return (int)cudaErrorInvalidValue;
 }
+
+#undef KTS_WIDTHS
 
 }  // extern "C"

@@ -130,14 +130,13 @@ def minimizer_scan(codes, k: int = DEFAULT_K, w: int = DEFAULT_W):
     tensor (or a numpy array) the plain version; another device, or a CUDA
     tensor the kernel cannot take, raises.
     """
-    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+    from kaptive_tpu_torch.ops.scan import minimizer_scan_plain
 
     x = codes if isinstance(codes, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(codes))
     if x.is_cuda:
         from kaptive_tpu_torch.ops import scan_cuda
 
-        selected, hashes, strands = scan_cuda.minimizer_scan_cuda(x.to(torch.uint8).contiguous(), k, w)
-        return selected, as_uint32_values(hashes), strands
+        return scan_cuda.minimizer_scan_cuda(x.to(torch.uint8).contiguous(), k, w)
     if x.device.type != "cpu":
         raise ValueError(f"minimizer_scan: unsupported device {x.device}")
     return minimizer_scan_plain(x, k, w)

@@ -2,19 +2,19 @@ r"""ctypes binding of the Hopper minimizer scans (``csrc/scan.cu``).
 
 :func:`rowcompact_scan_cuda` replaces ``kaptive_tpu/ops/scan_pallas.py::_rowcompact_kernel``;
 :func:`minimizer_scan_cuda` replaces the XLA program
-``kaptive_tpu/ops/minimizer.py::minimizer_scan`` (the flat scan, one thread a
-position; see ``minimizer_scan_kernel`` in the source).  The library
+``kaptive_tpu/ops/minimizer.py::minimizer_scan`` (the flat scan).  The library
 is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`) and loaded with
 ctypes; nothing is compiled at import.
 
-One block scans a 32-row tile of one genome; a thread owns 16 consecutive
-positions, whose k-mers come from two packed 2-bit words by a funnel shift
-and whose window minima come from one prefix/suffix pass with the window
-width known at compile time (the library holds one instance of the kernel per
-``w`` in ``1 .. kts_rowcompact_max_w()``; ``k`` is a run-time argument).
-Selected positions are marked in a bit mask of the tile, ranked inside their
-row by the threads that own them, and each row is stored as whole lines.  The
-design notes are at the head of the source.
+Both kernels scan tiles of 4,096 positions of one genome in a block; a thread
+owns 16 consecutive positions, whose k-mers come from two packed 2-bit words
+by a funnel shift and whose window minima come from one prefix/suffix pass
+with the window width known at compile time (the library holds one instance
+of each kernel per ``w`` in ``1 .. kts_rowcompact_max_w()``; ``k`` is a
+run-time argument).  Selected positions are marked in a bit mask of the tile.
+The row-compact kernel ranks them inside their row and stores each row as
+whole lines; the flat kernel stores every position's ``selected``, int64
+hash and strand as whole lines.  The design notes are in the source.
 
 The wrappers check device, dtype, shape and contiguity, allocate the outputs
 with ``torch.empty``, launch on the current stream, raise if the launch
@@ -93,10 +93,10 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
 def minimizer_scan_cuda(codes: torch.Tensor, k: int, w: int):
     r"""Flat minimizer scan on the card over a contiguous (B, L) or (L,) uint8 CUDA tensor.
 
-    Returns ``(selected bool, hashes int32, strands bool)`` of the input's
-    shape: ``hashes`` holds the uint32 hash bits (:func:`~kaptive_tpu_torch.ops.scan.as_uint32_values`
-    reads them as :func:`~kaptive_tpu_torch.ops.scan.minimizer_scan_plain`'s values).
-    Each row is its own stream, its end guards at ``L``.
+    Returns ``(selected bool, hashes int64, strands bool)`` of the input's
+    shape, as :func:`~kaptive_tpu_torch.ops.scan.minimizer_scan_plain` returns
+    them: the kernel writes each hash as a value in ``[0, 2^32)``.  Each row is
+    its own stream, its end guards at ``L``.
     """
     device = codes.device
     if device.type != "cuda":
@@ -111,7 +111,7 @@ def minimizer_scan_cuda(codes: torch.Tensor, k: int, w: int):
         raise ValueError(f"k={k}, w={w} outside the scan kernel's range "
                          f"(k <= {lib.kts_rowcompact_max_k()}, w <= {lib.kts_rowcompact_max_w()})")
     selected = torch.empty((B, L), dtype=torch.bool, device=device)
-    hashes = torch.empty((B, L), dtype=torch.int32, device=device)
+    hashes = torch.empty((B, L), dtype=torch.int64, device=device)
     strands = torch.empty((B, L), dtype=torch.bool, device=device)
     if B and L:
         with torch.cuda.device(device):

@@ -25,6 +25,8 @@ and screen equal one card's exactly, ``sharded_banded_swg`` equals
 budget of one slot.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -884,13 +886,13 @@ FLAT_CASES = ([(name, B, 15, 10) for name in SCAN_PANELS for B in (1, 3)]
 
 
 def _assert_flat_kernel_equals_plain(codes, k, w):
-    from kaptive_tpu_torch.ops.scan import as_uint32_values, minimizer_scan_plain
+    from kaptive_tpu_torch.ops.scan import minimizer_scan_plain
     from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
 
-    sel, hashes, strands = minimizer_scan_cuda(codes, k, w)
+    got = minimizer_scan_cuda(codes, k, w)
     want = minimizer_scan_plain(codes, k, w)  # the plain form on the same card tensor
     torch.cuda.synchronize()
-    for field, g, x in zip(("selected", "hashes", "strands"), (sel, as_uint32_values(hashes), strands), want):
+    for field, g, x in zip(("selected", "hashes", "strands"), got, want):
         assert g.shape == x.shape and g.dtype == x.dtype, field
         assert torch.equal(g, x), (field, k, w)
     return want
@@ -933,6 +935,31 @@ def test_flat_scan_kernel_equals_plain_on_odd_lengths(scan_device, L):
         minimizer_scan_cuda(cuda, 15, 33)
 
 
+@pytest.mark.parametrize("w", range(1, 33))
+def test_flat_scan_kernel_equals_plain_at_every_window_width(scan_device, w):
+    """Every template instance of the kernel (k = 15), on a random stream and a poly-A run laid
+    across the tile's edges, as two rows of one batch."""
+    rng = np.random.default_rng(600 + w)
+    codes = np.stack([random_stream(rng, 72), EDGE_PANELS["poly-a-across-edges"](rng)])
+    _assert_flat_kernel_equals_plain(torch.from_numpy(codes).to(scan_device), 15, w)
+
+
+@pytest.mark.parametrize("L", [1023, 4100, 8192, 200_003])
+def test_flat_scan_kernel_equals_plain_on_raw_codes(scan_device, L):
+    """Codes 5 and 255 (a word whose k-mers reach one takes its strands from the raw codes), an
+    all-sentinel row and a row of valid bases beside them; B = 3, and L % 16 != 0 but for 8192
+    (rows that start at unaligned bytes)."""
+    rng = np.random.default_rng(L + 1)
+    codes = rng.integers(0, 4, (3, L)).astype(np.uint8)
+    codes[0, rng.random(L) < 0.01] = 5
+    codes[0, rng.random(L) < 0.01] = 255
+    codes[0, rng.random(L) < 0.01] = 4
+    codes[0, -1] = 255  # read by the k-mers that roll over the end
+    codes[1] = 4
+    for k, w in ((15, 10), (16, 32), (11, 5), (1, 1)):
+        _assert_flat_kernel_equals_plain(torch.from_numpy(codes).to(scan_device), k, w)
+
+
 def test_flat_scan_front_door_routes_by_device(scan_device):
     """``minimizer_scan``: a CUDA tensor reaches only the kernel, a CPU tensor only the plain form."""
     from kaptive_tpu_torch.core.seq import Sequences
@@ -940,9 +967,21 @@ def test_flat_scan_front_door_routes_by_device(scan_device):
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     codes = torch.from_numpy(random_stream(np.random.default_rng(9), 300))
+    from kaptive_tpu_torch.ops import scan_cuda
+
+    launched = []
+
+    def spy(*args):
+        launched.append(kernel(*args))
+        return launched[-1]
+
+    kernel = scan_cuda.minimizer_scan_cuda
     reset_metrics()
-    on_card = minimizer_scan(codes.to(scan_device))
+    with mock.patch.object(scan_cuda, "minimizer_scan_cuda", spy):
+        on_card = minimizer_scan(codes.to(scan_device))
     assert snapshot() == {"scan.cuda.flat": 1}
+    # The kernel's int64 hashes are what the caller gets: no conversion after the launch.
+    assert all(g is x for g, x in zip(on_card, launched[0])) and on_card[1].dtype == torch.int64
     reset_metrics()
     on_cpu = minimizer_scan(codes)
     assert snapshot() == {"scan.plain.flat": 1}

@@ -124,19 +124,41 @@ def test_serotyper_screen_equals_jax(panel):
     assert empty[0] == [] and empty[2].shape == (0, len(db.loci))
 
 
-@pytest.mark.parametrize("make", [lambda r: random_stream(r, 64), lambda r: multi_contig(r, 96), poly_a],
-                         ids=["random", "multi-contig", "poly-a"])
-def test_minimizer_scan_plain_equals_jax(make):
+def _raw_codes(rng, L=4100):
+    """Random bases with sentinels and codes 5 and 255, which the packing ORs in raw."""
+    codes = random_stream(rng, -(-L // 128))[:L]
+    codes[rng.random(L) < 0.01] = 5
+    codes[rng.random(L) < 0.01] = 255
+    return codes
+
+
+# (make, k, w): the panels at (15, 10), then codes > 4, odd lengths and the k / w edges.
+PLAIN_SCAN_CASES = {
+    "random": (lambda r: random_stream(r, 64), 15, 10),
+    "multi-contig": (lambda r: multi_contig(r, 96), 15, 10),
+    "poly-a": (poly_a, 15, 10),
+    "codes-5-255": (_raw_codes, 15, 10),
+    "odd-length-1023": (lambda r: random_stream(r, 8)[:1023], 15, 10),
+    "odd-length-25": (lambda r: random_stream(r, 1)[:25], 15, 10),
+    "k1-w1": (lambda r: _raw_codes(r, 1025), 1, 1),
+    "k16-w32": (lambda r: _raw_codes(r, 1025), 16, 32),
+    "k11-w5": (lambda r: _raw_codes(r, 1025), 11, 5),
+}
+
+
+@pytest.mark.parametrize("case", PLAIN_SCAN_CASES.values(), ids=PLAIN_SCAN_CASES.keys())
+def test_minimizer_scan_plain_equals_jax(case):
     from kaptive_tpu.ops.minimizer import minimizer_scan
 
     from kaptive_tpu_torch.ops.scan import minimizer_scan_plain
 
+    make, k, w = case
     codes = make(np.random.default_rng(4))
     codes[-3:] = np.random.default_rng(5).integers(0, 4, 3)  # valid bases up to the stream's end
-    want = [np.asarray(x) for x in minimizer_scan(codes, 15, 10)]
-    got = minimizer_scan_plain(torch.from_numpy(codes), 15, 10)
-    for name, g, w in zip(("selected", "hashes", "strands"), got, want):
-        np.testing.assert_array_equal(g.numpy(), w.astype(np.int64) if name == "hashes" else w, err_msg=name)
-    batched = minimizer_scan_plain(torch.from_numpy(np.stack([codes, codes[::-1].copy()])), 15, 10)
+    want = [np.asarray(x) for x in minimizer_scan(codes, k, w)]
+    got = minimizer_scan_plain(torch.from_numpy(codes), k, w)
+    for name, g, x in zip(("selected", "hashes", "strands"), got, want):
+        np.testing.assert_array_equal(g.numpy(), x.astype(np.int64) if name == "hashes" else x, err_msg=name)
+    batched = minimizer_scan_plain(torch.from_numpy(np.stack([codes, codes[::-1].copy()])), k, w)
     for g, single in zip(batched, got):
         assert torch.equal(g[0], single)
