@@ -132,7 +132,22 @@ module of either was loaded).  Steps:
     must be 1, the flat-scan kernel must launch once and no plain scan run,
     and ``best`` and the tallies must equal the CPU's.  (e) The one-contig
     ``architectural_viterbi`` (24,438 rows x 28 states) launches the
-    architectural kernel once and equals its plain form.
+    architectural kernel once and equals its plain form.  (f) The input
+    range: the kernel forms for the inputs the main path's forms refuse, each
+    driven through a public entry point with the counts set to 0 just before
+    and read just after, then held to its plain form on the card and timed
+    beside its bound.  The unseeded 150-versus-4,300 protein pair through the
+    default ``PairwiseAligner`` (the fill's segmented form at ``w_pad``
+    32,768: score 849, 150 matches, q_start 0, t_start 1,000) and through
+    ``batched_swg_align_cigars`` (one 150M run); ``batched_swg_align`` with
+    BLOSUM62 x 20 (scores outside int8, the segmented form at the planner's
+    widths), equal to its CPU path; ``map_genes_batch`` device-seeded with a
+    k = 17, w = 40 ``GeneIndex`` on two assemblies and ``build_minimizer_set``
+    at (17, 40) (both scans' run-time form), the recorded scan batch and the
+    four-assembly flat stream held to the plain forms, and both scans at w =
+    1,100 on a 1 Mb stream; an ``ArchitecturalPredictor`` of 254 archetypes
+    (257 states: the architectural decode's block-a-contig form) on the draft
+    assembly's annotation, equal to its CPU path.
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
@@ -304,18 +319,18 @@ def _check_scan(codes, k: int, w: int) -> dict:
 
 
 def _check_bucket(label: str, args, kw, form: str) -> dict:
-    """Kernel vs plain version on one bucket, which must take the fill's ``form``;
-    returns times, bounds and the largest difference."""
+    """Kernel vs plain version on one bucket, which must take the fill's ``form``, comparing the
+    traceback bits of the rows the queries reach (a 16,384-row bucket's are 8 GB); returns
+    times, bounds and the largest difference."""
     import torch
 
     from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_plain
     from kaptive_tpu_torch.ops.swg_cuda import fill_form, swg_fill_cuda, swg_traceback_cuda
 
-    if fill_form(kw["w_pad"]) != form:
-        raise AssertionError(f"{label} bucket: w_pad {kw['w_pad']} takes the fill's {fill_form(kw['w_pad'])} form, "
-                             f"not the {form} form")
-
     q, q_lens, t, t_lens, offsets, k_locals, matrix = args
+    if fill_form(kw["w_pad"], matrix.dtype) != form:
+        raise AssertionError(f"{label} bucket: w_pad {kw['w_pad']} takes the fill's "
+                             f"{fill_form(kw['w_pad'], matrix.dtype)} form, not the {form} form")
     fill_kw = {k: kw[k] for k in ("gap_open", "gap_extend", "rows_max", "w_pad")}
     tb_kw = {k: kw[k] for k in ("rows_max", "w_pad", "t_pad")}
     fill_in = (q, q_lens, t, t_lens, offsets, k_locals, matrix)
@@ -325,8 +340,9 @@ def _check_bucket(label: str, args, kw, form: str) -> dict:
     res_k = swg_traceback_cuda(tb_k, q, t, *best_k, offsets, **tb_kw)
     res_p = torch.stack(tuple(traceback_plain(tb_p, q, t, *best_p, offsets, **tb_kw)))
     torch.cuda.synchronize()
-    reached = torch.arange(kw["rows_max"], device=q.device)[None, :, None] < q_lens.long()[:, None, None]
-    tb_diff = (torch.where(reached, tb_k, 0).int() - torch.where(reached, tb_p, 0).int()).abs()
+    rows = int(q_lens.max())
+    reached = torch.arange(rows, device=q.device)[None, :, None] < q_lens.long()[:, None, None]
+    tb_diff = (torch.where(reached, tb_k[:, :rows], 0).int() - torch.where(reached, tb_p[:, :rows], 0).int()).abs()
     max_err = max(int((res_k - res_p).abs().max()), int(tb_diff.max()),
                   *(int((a - b).abs().max()) for a, b in zip(best_k, best_p)))
     if max_err != 0:
@@ -830,7 +846,8 @@ def bgc_phase(card: str, db, assemblies) -> dict:
     print(f"# BGC phase: {wall:.1f} s wall (training {train_s:.1f} s, annotate "
           f"{' + '.join(f'{a:.2f}' for a, _ in walls)} s, predict {' + '.join(f'{p:.2f}' for _, p in walls)} s) "
           f"[{card}]", flush=True)
-    return {"gene": gene, "arch": arch, "launches": counts, "wall_s": wall}
+    return {"gene": gene, "arch": arch, "launches": counts, "wall_s": wall,
+            "draft_annotation": results[1][0]}
 
 
 MESH_SHAPES = ((2, 2), (1, 4))  # (data, model) over four slots
@@ -1120,18 +1137,18 @@ def _flat_bound(n_positions: int) -> dict:
     return _bound(11 * n_positions, SCAN_OPS_PER_POSITION * n_positions)
 
 
-def _check_flat_scan(codes) -> dict:
+def _check_flat_scan(codes, k: int = 15, w: int = 10) -> dict:
     """Flat-scan kernel vs plain version (both on the card) on a (B, L) batch: exact on all three
     outputs; returns the kernel's, the front door's and the plain form's times and the largest
     difference."""
     import torch
 
-    from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W, minimizer_scan
+    from kaptive_tpu_torch.ops.minimizer import minimizer_scan
     from kaptive_tpu_torch.ops.scan import minimizer_scan_plain
     from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
 
-    got = minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W)
-    want = minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W)
+    got = minimizer_scan_cuda(codes, k, w)
+    want = minimizer_scan_plain(codes, k, w)
     torch.cuda.synchronize()
     if any(g.shape != p.shape or g.dtype != p.dtype for g, p in zip(got, want)):
         raise AssertionError("flat scan: kernel and plain outputs differ in shape or dtype")
@@ -1140,9 +1157,9 @@ def _check_flat_scan(codes) -> dict:
         raise AssertionError(f"flat scan: kernel and plain version differ (max |diff| {max_err})")
     n_sel = int(want[0].sum())
     del got, want
-    times = {"ms": _timed(lambda: minimizer_scan_cuda(codes, DEFAULT_K, DEFAULT_W), 20),
-             "front_door_ms": _timed(lambda: minimizer_scan(codes, DEFAULT_K, DEFAULT_W), 20),
-             "plain_ms": _timed(lambda: minimizer_scan_plain(codes, DEFAULT_K, DEFAULT_W), 2)}
+    times = {"ms": _timed(lambda: minimizer_scan_cuda(codes, k, w), 20),
+             "front_door_ms": _timed(lambda: minimizer_scan(codes, k, w), 20),
+             "plain_ms": _timed(lambda: minimizer_scan_plain(codes, k, w), 2)}
     times.update(_flat_bound(codes.numel()))
     return {"max_abs_err": max_err, "shape": tuple(codes.shape), "selected": n_sel, **times}
 
@@ -1220,6 +1237,172 @@ def flat_scan_phase(card: str, db, assemblies) -> dict:
     print(f"# architectural_viterbi, one contig of {em.shape[0]} rows x {em.shape[1]} states: one "
           f"arch_viterbi_kernel launch, path and score == the plain form's (score {score.item():.4f})", flush=True)
     return {**flat, "launches": launches, "panel_max_abs_err": panel["max_abs_err"]}
+
+
+def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
+    """Step 12 (f): the kernel forms of the inputs the main path's forms refuse: the fill's
+    segmented form (w_pad 32,768, int32 scores), both scans' run-time form (k > 16, w > 32) and
+    the architectural decode's block-a-contig form (257 states), each through a public entry
+    point, then held to its plain form on the card and timed."""
+    import numpy as np
+    import torch
+    from range_panels import F7_EXPECTED, f7_pair, scaled_blosum, scan_stream
+    from swg_panels import AA
+
+    from kaptive_tpu_torch.bgc import ArchitecturalPredictor, ArchitecturalTrainer
+    from kaptive_tpu_torch.bgc import kernels as bgc_kernels
+    from kaptive_tpu_torch.core import pairwise
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.core.pairwise import PairwiseAligner, batched_swg_align, batched_swg_align_cigars
+    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.ops import mapper
+    from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
+    from kaptive_tpu_torch.ops.minimizer import build_minimizer_set
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
+    from kaptive_tpu_torch.parallel.screen import encode_assemblies_to_batch
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def drive(label: str, fn, want: dict):
+        """``fn()`` with the counts set to 0 just before and read just after; every counter of
+        ``want`` must have launched, and no plain form may run."""
+        reset_metrics()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = snapshot()
+        if any(counts.get(k, 0) < 1 for k in want) or any(".plain." in k for k in counts):
+            raise AssertionError(f"{label} did not run on the kernels {sorted(want)} alone: {counts}")
+        for k in want:
+            launches[k] = launches.get(k, 0) + counts[k]
+        return out, counts
+
+    # F7: the unseeded 150-versus-4,300 pair through the default aligner (the w_pad 32,768 bucket).
+    query, target = f7_pair()
+    recorder = _CallRecorder(pairwise.banded_swg)
+    pairwise.banded_swg = recorder
+    try:
+        res, counts = drive("the F7 pair", lambda: PairwiseAligner()(Sequences.from_bytes([query]),
+                                                                     Sequences.from_bytes([target])),
+                            {"swg.cuda.fill_segmented", "swg.cuda.traceback"})
+    finally:
+        pairwise.banded_swg = recorder.inner
+    got = {field: int(getattr(res, field)[0]) for field in F7_EXPECTED}
+    if got != F7_EXPECTED:
+        raise AssertionError(f"the F7 pair on the card: {got}, the JAX package gives {F7_EXPECTED}")
+    seqs = [np.frombuffer(x, np.uint8) for x in (query, target)]
+    (_, cigars), _ = drive("the F7 pair's CIGAR", lambda: batched_swg_align_cigars(
+        seqs[0], np.zeros(1, np.int64), np.array([len(query)], np.int32), seqs[1], np.zeros(1, np.int64),
+        np.array([len(target)], np.int32), np.zeros(1, np.int32), np.array([len(target) - len(query) + 1], np.int32),
+        np.asarray(pairwise.blosum62_matrix(), np.int32), 11, 1), {"swg.cuda.fill_segmented", "swg.cuda.traceback_cigar"})
+    if cigars.data.tolist() != [len(query) << 4]:
+        raise AssertionError(f"the F7 pair's CIGAR on the card: {cigars.data.tolist()}, not one {len(query)}M run")
+    print(f"# input range, F7: PairwiseAligner() on the card, the unseeded {len(query)}-versus-{len(target)} protein "
+          f"pair: {got} (the JAX package's values), CIGAR {len(query)}M; counts {dict(sorted(counts.items()))}",
+          flush=True)
+    f7 = _check_bucket("input range, F7", *recorder.calls[0], "segmented")
+
+    # F8: scores outside int8 (BLOSUM62 x 20, gap 220 + 20) through batched_swg_align, card == CPU.
+    rng = np.random.default_rng(SEED)
+    alpha = np.frombuffer(AA, np.uint8)
+    qs = [alpha[rng.integers(0, 20, int(rng.integers(80, 400)))] for _ in range(48)]
+    ts = []
+    for q_seq in qs:
+        t_seq = q_seq.copy()
+        t_seq[rng.random(len(t_seq)) < 0.1] = alpha[rng.integers(0, 20)]
+        ts.append(np.concatenate([alpha[rng.integers(0, 20, int(rng.integers(0, 60)))], t_seq]))
+
+    def ragged(xs):
+        lengths = np.array([len(x) for x in xs], np.int32)
+        return np.concatenate(xs), np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64), lengths
+
+    q_r, t_r = ragged(qs), ragged(ts)
+    k_locals = np.maximum(20, np.abs(q_r[2] - t_r[2]) + 1).astype(np.int32)
+    align_args = (*q_r, *t_r, np.zeros(48, np.int32), k_locals, scaled_blosum(20), 220, 20)
+    recorder = _CallRecorder(pairwise.banded_swg)
+    pairwise.banded_swg = recorder
+    try:
+        on_card, _ = drive("BLOSUM62 x 20", lambda: batched_swg_align(*align_args),
+                           {"swg.cuda.fill_segmented", "swg.cuda.traceback"})
+    finally:
+        pairwise.banded_swg = recorder.inner
+    on_cpu = batched_swg_align(*align_args, device="cpu")
+    for field in ("scores", "matches", "mismatches", "gaps", "q_starts", "q_ends", "t_starts", "t_ends"):
+        if not np.array_equal(getattr(on_card, field), getattr(on_cpu, field)):
+            raise AssertionError(f"BLOSUM62 x 20: {field} differs between the card and the CPU")
+    print(f"# input range, F8: batched_swg_align with BLOSUM62 x 20 (scores {int(scaled_blosum().min())} .. "
+          f"{int(scaled_blosum().max())}), 48 unseeded protein pairs in {len(recorder.calls)} buckets: card == CPU "
+          f"(every field; best score {int(on_card.scores.max())})", flush=True)
+    int32 = _check_bucket("input range, F8 (BLOSUM62 x 20)", *recorder.largest_bucket(), "segmented")
+
+    # F5 + F9: device seeding with a k = 17, w = 40 index (the row-compact scan's run-time form).
+    index = GeneIndex.build(db.genes, k=17, w=40)
+    names = tuple(str(i) for i in range(len(db.genes)))
+    genomes = [GenomeAssembly.from_stream(_named_stream(a[0], a[3]), a[0]) for a in assemblies[:2]]
+    scans = _CallRecorder(mapper.rowcompact_scan)
+    mapper.rowcompact_scan = scans
+    try:
+        mapped, _ = drive("device seeding at (17, 40)", lambda: map_genes_batch(
+            index, genomes, names, seed_mode="device", device="cuda"), {"scan.cuda.rowcompact_any", "swg.cuda.fill"})
+    finally:
+        mapper.rowcompact_scan = scans.inner
+    if sum(len(a) for a in mapped) == 0:
+        raise AssertionError("device seeding at (17, 40) mapped no gene")
+    _, counts = drive("build_minimizer_set at (17, 40)", lambda: build_minimizer_set(
+        db.genes, k=17, w=40, device=True), {"scan.cuda.flat_any"})
+    print(f"# input range, F5 + F9: map_genes_batch device-seeded with a k = 17, w = 40 GeneIndex on "
+          f"{len(genomes)} assemblies: {[len(a) for a in mapped]} alignments; build_minimizer_set(k=17, w=40, "
+          f"device=True): {counts}", flush=True)
+    rowcompact = _check_scan(*max((args for args, _ in scans.calls), key=lambda args: args[0].numel()))
+    largest = sorted(assemblies, key=lambda a: -len(a[3]))[:4]
+    stream = torch.from_numpy(encode_assemblies_to_batch(
+        [GenomeAssembly.from_stream(_named_stream(a[0], a[3]), a[0]) for a in largest])).cuda()
+    flat = _check_flat_scan(stream, 17, 40)
+    del stream
+    print(f"# input range, flat scan at (17, 40) on (B, L) = {flat['shape']}: kernel == plain; kernel "
+          f"{flat['ms']:.4f} ms, front door {flat['front_door_ms']:.4f} ms, plain {flat['plain_ms']:.4f} ms; bound "
+          f"{flat['bound_ms']:.4f} ms by {flat['bound_by']}: {_share(flat)} [{card}]", flush=True)
+    mb = scan_stream(np.random.default_rng(SEED), 8192 * 128)
+    far = [_check_scan(torch.from_numpy(pad_codes_for_scan_any(mb))[None].cuda(), 15, 1100),
+           _check_flat_scan(torch.from_numpy(mb)[None].cuda(), 15, 1100)]
+    print(f"# input range, both scans at (15, 1100) on a {len(mb):,}-position stream (windows past the "
+          f"1,024-position halo): kernel == plain; row-compact {far[0]['ms']:.4f} ms, flat {far[1]['ms']:.4f} ms "
+          f"[{card}]", flush=True)
+
+    # F6: a 254-archetype model (257 states) on the draft assembly's annotation, card == CPU.
+    t0 = time.perf_counter()
+    loci = [db.get_locus_data(name) for name in db.loci.ids if name.startswith("KL")]
+    model = ArchitecturalTrainer(num_archetypes=254, feature_dim=64).train(loci)
+    train_s = time.perf_counter() - t0
+    arch_rec = _CallRecorder(bgc_kernels.arch_viterbi)
+    bgc_kernels.arch_viterbi = arch_rec
+    try:
+        predicted, _ = drive("the 254-archetype predictor", lambda: ArchitecturalPredictor(
+            model, device="cuda").predict(draft_annotation), {"viterbi.cuda.arch_wide"})
+    finally:
+        bgc_kernels.arch_viterbi = arch_rec.inner
+    _same_predictions(predicted, ArchitecturalPredictor(model, device="cpu").predict(draft_annotation),
+                      "the 254-archetype predictor")
+    args = max((a for a, _ in arch_rec.calls), key=lambda a: a[0].shape[0])
+    paths, scores = arch_viterbi_cuda(*args)
+    on_cpu = [x.cpu() for x in args]
+    (want_p, want_s), plain_s = _cpu_seconds(lambda: arch_viterbi_plain(*on_cpu))
+    if not (torch.equal(paths.cpu(), want_p) and torch.equal(scores.cpu(), want_s)):
+        raise AssertionError("the architectural decode's block-a-contig form differs from its plain form")
+    arch = {"max_abs_err": 0, "ms": _timed(lambda: arch_viterbi_cuda(*args), 5), "plain_ms": plain_s * 1e3,
+            **_arch_bound(args[0], args[2])}
+    print(f"# input range, F6: ArchitecturalPredictor of {model.transitions.shape[0] - 3} archetypes (trained in "
+          f"{train_s:.1f} s) on the draft assembly's annotation: {len(predicted)} predicted loci, card == CPU; "
+          f"the largest decode, {args[0].shape[0]} rows x {args[0].shape[1]} states in {len(args[2]) - 1} contigs: "
+          f"kernel == plain; kernel {arch['ms']:.4f} ms, plain (CPU, one thread) {arch['plain_ms']:.1f} ms; bound "
+          f"{arch['bound_ms']:.5f} ms by {arch['bound_by']}: {_share(arch)} [{card}]", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"# input range phase: {wall:.1f} s wall; launches {launches} [{card}]", flush=True)
+    return {"f7": f7, "int32": int32, "rowcompact": rowcompact, "flat": flat, "far": far, "arch": arch,
+            "launches": launches, "wall_s": wall}
 
 
 def build_workload(n_assemblies: int, seed: int = SEED):
@@ -1529,6 +1712,7 @@ def main() -> int:
         mesh = mesh_phase(card, db, assemblies, results, inputs)
         install_walls = install_phase(card, inputs, assemblies, results)
         flat = flat_scan_phase(card, db, assemblies)
+        ranged = input_range_phase(card, db, assemblies, bgc.pop("draft_annotation"))
 
     if opts.measure:
         measure(card)
@@ -1590,6 +1774,33 @@ def main() -> int:
          "max_abs_err": bgc["arch"]["max_abs_err"], "ms": bgc["arch"]["ms"], "plain_ms": bgc["arch"]["plain_ms"],
          "bound_ms": bgc["arch"]["bound_ms"], "bound_by": bgc["arch"]["bound_by"], "library_ms": None},
     ]
+    # Step 12 (f)'s forms: launches are the input-range phase's, ms the F7 bucket / the recorded scan
+    # batch / the four-assembly flat stream / the largest 257-state decode.
+    f7, i32, rc_any, flat_any, arch_w = ranged["f7"], ranged["int32"], ranged["rowcompact"], ranged["flat"], ranged["arch"]
+    kernels += [
+        {"name": "swg_fill_segmented", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
+         "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": ranged["launches"]["swg.cuda.fill_segmented"],
+         "max_abs_err": max(f7["max_abs_err"], i32["max_abs_err"]), "ms": f7["fill_ms"],
+         "plain_ms": f7["fill_plain_ms"], **f7["fill_bound"], "library_ms": None, "shape": f7["shape"],
+         "int32_ms": i32["fill_ms"], "int32_plain_ms": i32["fill_plain_ms"],
+         "int32_bound_ms": i32["fill_bound"]["bound_ms"], "int32_shape": i32["shape"]},
+        {"name": "rowcompact_scan_any", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
+         "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": ranged["launches"]["scan.cuda.rowcompact_any"],
+         "max_abs_err": max(rc_any["max_abs_err"], ranged["far"][0]["max_abs_err"]), "ms": rc_any["ms"],
+         "plain_ms": rc_any["plain_ms"], "bound_ms": rc_any["bound_ms"], "bound_by": rc_any["bound_by"],
+         "library_ms": None, "shape": rc_any["shape"], "kw": (17, 40), "w1100_ms": ranged["far"][0]["ms"],
+         "w1100_bound_ms": ranged["far"][0]["bound_ms"]},
+        {"name": "minimizer_scan_any", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
+         "replaces": "kaptive_tpu/ops/minimizer.py:146", "launches": ranged["launches"]["scan.cuda.flat_any"],
+         "max_abs_err": max(flat_any["max_abs_err"], ranged["far"][1]["max_abs_err"]), "ms": flat_any["ms"],
+         "plain_ms": flat_any["plain_ms"], "bound_ms": flat_any["bound_ms"], "bound_by": flat_any["bound_by"],
+         "library_ms": None, "shape": flat_any["shape"], "kw": (17, 40), "w1100_ms": ranged["far"][1]["ms"],
+         "w1100_bound_ms": ranged["far"][1]["bound_ms"]},
+        {"name": "arch_viterbi_wide", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
+         "replaces": "kaptive_tpu/bgc/kernels.py:83", "launches": ranged["launches"]["viterbi.cuda.arch_wide"],
+         "max_abs_err": arch_w["max_abs_err"], "ms": arch_w["ms"], "plain_ms": arch_w["plain_ms"],
+         "bound_ms": arch_w["bound_ms"], "bound_by": arch_w["bound_by"], "library_ms": None},
+    ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
           f"protein bucket {prot['shape']} (B, rows_max, w_pad); wide_form_ms: the fill's wide form on "
           f"{wide['shape']}; launches: host-seeded measured pass (device-seeded pass: fill {dev_swg['fill']}, "
@@ -1601,7 +1812,10 @@ def main() -> int:
           f"{MESH_SHAPES}; mesh_shape / mesh_max_abs_err: the largest extension shard and the largest data "
           f"row's scan recorded in them, held to the plain forms; minimizer_scan (and flat_scan_* on the "
           f"rowcompact_scan entry, the same library) on the (B, L) stream {flat['shape']} of step 12, launches: "
-          f"step 12's overflowing screen; {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"step 12's overflowing screen; swg_fill_segmented on the F7 bucket {f7['shape']} (int32_*: the "
+          f"BLOSUM62 x 20 bucket {i32['shape']}), rowcompact_scan_any on the (17, 40) batch {rc_any['shape']} and "
+          f"minimizer_scan_any on the (17, 40) stream {flat_any['shape']} (w1100_*: one 1 Mb stream at w = 1,100), "
+          f"arch_viterbi_wide on the 257-state draft launch, launches: step 12(f); {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded, installed CLI {install_walls['host']:.3f} / "
           f"{install_walls['device']:.3f} s; screen {screen_rate:.3f} asm/s [{card}]",

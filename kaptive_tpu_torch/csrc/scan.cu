@@ -8,7 +8,8 @@
 // selection and an order-preserving compaction to 64 slots.  The plain
 // PyTorch version is kaptive_tpu_torch/ops/scan.py::rowcompact_scan_plain.
 // minimizer_scan_kernel<W> (the flat scan, described before it below) shares its first three
-// stages.
+// stages.  Both take k <= 16 and w <= 32 (the main path's (15, 10) among them); every other
+// k >= 1 and w >= 1 takes the run-time form at the end of the file (scan_any_*_kernel).
 //
 // Built by kaptive_tpu_torch/ops/scan_cuda.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -534,12 +535,182 @@ cudaError_t launch_flat(const uint8_t* codes, int B, long long L, int k, bool al
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// ---------------------------------------------------------------------------------------------
+// The run-time form of both scans: every k >= 1 and every w >= 1.
+//
+// The tiled kernels above take k <= MAX_K (a k-mer in two packed words) and w <= MAX_W (the
+// block's halo, a template parameter).  The JAX scans set no bound on either: they pack into
+// uint32 with XLA's shifts, which give 0 for a shift of 32 or more, so for k > 16 the forward
+// word keeps the last 16 bases and the reverse word the first 16, while validity still spans all
+// k; and the window of w k-mer starts may be as wide as the stream.  This form computes the same
+// outputs, bit for bit, in four kernels over device memory, a thread a position:
+//   1. scan_any_hash_kernel: the packings of the k codes from the raw bytes (every shift below 32
+//      guarded explicitly: a shift by 32 or more is undefined in C++), validity, strand, hash; it
+//      writes each position's window key, hash << 32 | position (so the minimum key is the
+//      smallest hash and, among equals, the leftmost position), its strand, and clears selected.
+//   2. scan_any_span_kernel, a = floor(log2 w) times: the minimum key over a span of 2^(j+1)
+//      positions from two of 2^j (a sparse table, ping-pong between two buffers).
+//   3. scan_any_select_kernel: a window starting at s is the two overlapping spans [s, s + 2^a)
+//      and [s + w - 2^a, s + w); when its minimum's hash is not 0xFFFFFFFF and s < length-k-w+2,
+//      its winner's `selected` byte is set (selection by scatter; colliding writes store the same
+//      1).  A winner's hash is not 0xFFFFFFFF, so its k-mer is valid.
+//   4. (row-compact only) scan_any_compact_kernel: a warp a 128-position row ranks the selected
+//      positions (a ballot-free count of its four bytes a lane and a warp scan) and writes the
+//      first 64 (hash, col | strand << 7) pairs in order, 0xFFFFFFFF / -1 past the row's count.
+// Windows only read k-mer starts inside [0, length-k+1), so no window of either scan reads past
+// the stream, however wide: the row-compact scan's sentinel halo is read only by the k-mers.
+//
+// What bounds it.  A position moves its code in, 8-byte keys in and out of every span pass and
+// its outputs: ~(24 + 24 a) bytes, and ~4 k + 20 integer operations, so the a span passes bound
+// it for any w above a few.  It is kept for the inputs the tiled kernels refuse; the main path's
+// (k, w) = (15, 10) never reaches it.
+// ---------------------------------------------------------------------------------------------
+
+constexpr int ANY_THREADS = 256;
+
+// The JAX package's uint32 packings of the k codes that start at index p of a row of n codes
+// (an index past n wraps, as the rolls do): forward = OR c_j << 2(k-1-j), reverse = OR (3 - c_j)
+// << 2j, each term whose shift is 32 or more dropped; `bad`: a code >= 4 among the k.
+__device__ __forceinline__ void pack_any(const uint8_t* row, long long n, long long p, int k, uint32_t* fwd,
+                                         uint32_t* rev, bool* bad) {
+    uint32_t f = 0, r = 0;
+    bool b = false;
+    for (int j = 0; j < k; ++j) {
+        long long idx = p + j;
+        if (idx >= n) idx %= n;
+        const uint32_t c = row[idx];
+        b |= c >= 4u;
+        const int sf = 2 * (k - 1 - j);
+        if (sf < 32) f |= c << sf;
+        if (j < 16) r |= (3u - c) << (2 * j);
+    }
+    *fwd = f;
+    *rev = r;
+    *bad = b;
+}
+
+// Stage 1: position g of each stream (buffer index pad + g of a row of n codes), g < length.
+__global__ void __launch_bounds__(ANY_THREADS) scan_any_hash_kernel(
+    const uint8_t* __restrict__ codes,      // (B, n)
+    long long n, long long pad, long long length, int k,
+    unsigned long long* __restrict__ keys,  // out (B, length): hash << 32 | g
+    uint8_t* __restrict__ strands,          // out (B, length): 0 or 1
+    long long* __restrict__ hashes,         // out (B, length), values in [0, 2^32); may be null
+    uint8_t* __restrict__ selected) {       // out (B, length): cleared
+    const long long g = (long long)blockIdx.x * ANY_THREADS + threadIdx.x;
+    if (g >= length) return;
+    const long long b = blockIdx.y;
+    uint32_t fwd, rev;
+    bool bad;
+    pack_any(codes + b * n, n, pad + g, k, &fwd, &rev, &bad);
+    const bool valid = !bad && g < length - k + 1;
+    const uint32_t h = valid ? mix32(min(fwd, rev)) : UMAX;
+    const long long o = b * length + g;
+    keys[o] = ((unsigned long long)h << 32) | (unsigned long long)g;
+    strands[o] = fwd <= rev ? 1 : 0;
+    if (hashes) hashes[o] = (long long)h;
+    selected[o] = 0;
+}
+
+// Stage 2: out[g] = min(in[g], in[g + step]), the second only inside the stream.
+__global__ void __launch_bounds__(ANY_THREADS) scan_any_span_kernel(
+    const unsigned long long* __restrict__ in, long long length, long long step,
+    unsigned long long* __restrict__ out) {
+    const long long g = (long long)blockIdx.x * ANY_THREADS + threadIdx.x;
+    if (g >= length) return;
+    const long long o = (long long)blockIdx.y * length + g;
+    unsigned long long v = in[o];
+    if (g + step < length) v = min(v, in[o + step]);
+    out[o] = v;
+}
+
+// Stage 3: the window that starts at s (s < n_starts) takes the spans at s and s + tail.
+__global__ void __launch_bounds__(ANY_THREADS) scan_any_select_kernel(
+    const unsigned long long* __restrict__ span, long long length, long long n_starts, long long tail,
+    uint8_t* __restrict__ selected) {
+    const long long s = (long long)blockIdx.x * ANY_THREADS + threadIdx.x;
+    if (s >= n_starts) return;
+    const long long base = (long long)blockIdx.y * length;
+    const unsigned long long m = min(span[base + s], span[base + s + tail]);
+    if ((uint32_t)(m >> 32) != UMAX) selected[base + (long long)(m & 0xFFFFFFFFull)] = 1;
+}
+
+// Stage 4 of the row-compact scan: a warp a row of 128 positions, lane l its positions 4l .. 4l+3.
+__global__ void __launch_bounds__(ANY_THREADS) scan_any_compact_kernel(
+    const unsigned long long* __restrict__ keys, const uint8_t* __restrict__ strands,
+    const uint8_t* __restrict__ selected, long long R,
+    uint32_t* __restrict__ hashes,  // out (B, R, 64)
+    int32_t* __restrict__ aux,      // out (B, R, 64)
+    int32_t* __restrict__ counts) { // out (B, R)
+    const long long row = (long long)blockIdx.x * (ANY_THREADS / 32) + (threadIdx.x >> 5);
+    if (row >= R) return;  // the whole warp leaves together
+    const int lane = threadIdx.x & 31;
+    const long long r = (long long)blockIdx.y * R + row;  // the row in the batch
+    const long long p0 = r * ROW + 4 * lane;              // this lane's first position in the (B, R * 128) arrays
+    uint32_t mine = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mine |= (selected[p0 + j] ? 1u : 0u) << j;
+    const int n = __popc(mine);
+    int incl = n;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+        const int other = __shfl_up_sync(0xFFFFFFFFu, incl, s);
+        if (lane >= s) incl += other;
+    }
+    const int total = __shfl_sync(0xFFFFFFFFu, incl, 31);
+    int rank = incl - n;
+    uint32_t* h_row = hashes + r * SLOTS;
+    int32_t* a_row = aux + r * SLOTS;
+    while (mine && rank < SLOTS) {
+        const int j = __ffs(mine) - 1;
+        mine &= mine - 1;
+        h_row[rank] = (uint32_t)(keys[p0 + j] >> 32);
+        a_row[rank] = (4 * lane + j) | ((int)strands[p0 + j] << 7);
+        ++rank;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+        const int slot = 2 * lane + q;
+        if (slot >= total) {
+            h_row[slot] = UMAX;
+            a_row[slot] = -1;
+        }
+    }
+    if (lane == 0) counts[r] = total;
+}
+
+// Stages 2 and 3 over B streams of `length` k-mer starts; spans_a and spans_b are scratch of
+// B * length keys each (spans_b unread for w < 4, both for w == 1).
+cudaError_t scan_any_windows(const unsigned long long* keys, unsigned long long* spans_a,
+                             unsigned long long* spans_b, int B, long long length, int k, long long w,
+                             uint8_t* selected, cudaStream_t stream) {
+    const long long n_starts = length - k - w + 2;
+    if (n_starts <= 0) return cudaSuccess;  // no window fits: nothing is selected
+    int a = 0;
+    while ((2LL << a) <= w) ++a;  // 2^a <= w < 2^(a+1)
+    const dim3 grid((unsigned)((length + ANY_THREADS - 1) / ANY_THREADS), (unsigned)B);
+    const unsigned long long* span = keys;
+    for (int j = 0; j < a; ++j) {
+        unsigned long long* out = j % 2 == 0 ? spans_a : spans_b;
+        scan_any_span_kernel<<<grid, ANY_THREADS, 0, stream>>>(span, length, 1LL << j, out);
+        span = out;
+    }
+    const dim3 sgrid((unsigned)((n_starts + ANY_THREADS - 1) / ANY_THREADS), (unsigned)B);
+    scan_any_select_kernel<<<sgrid, ANY_THREADS, 0, stream>>>(span, length, n_starts, w - (1LL << a), selected);
+    return cudaGetLastError();
+}
+
+bool any_grid_ok(int B, long long length) {
+    return B <= 65535 && (length + ANY_THREADS - 1) / ANY_THREADS <= 0x7FFFFFFFLL && length < (1LL << 32);
+}
+
 }  // namespace
 
 extern "C" {
 
-int kts_rowcompact_max_k() { return MAX_K; }
-int kts_rowcompact_max_w() { return MAX_W; }
+// The largest k and w of the tiled kernels; every other (k, w) takes the run-time form.
+int kts_scan_tiled_max_k() { return MAX_K; }
+int kts_scan_tiled_max_w() { return MAX_W; }
 
 // One case a window width: both scans take w = 1 .. MAX_W as a template argument.
 #define KTS_WIDTHS(X)                                                                                \
@@ -580,5 +751,52 @@ int kts_minimizer_scan(const void* codes, int B, long long L, int k, int w,
 }
 
 #undef KTS_WIDTHS
+
+// The row-compact scan's run-time form (any k >= 1, w >= 1) on `stream`, with the caller's
+// scratch: keys, spans_a and spans_b (B * R * 128 eight-byte words each), strands and selected
+// (B * R * 128 bytes each).  Returns the first CUDA error of its launches.
+int kts_rowcompact_scan_any(const void* codes, int B, int R, int halo_rows, int k, long long w, void* hashes,
+                            void* aux, void* counts, void* keys, void* spans_a, void* spans_b, void* strands,
+                            void* selected, void* stream) {
+    if (B <= 0 || R <= 0) return 0;
+    const long long length = (long long)R * ROW;
+    if (k < 1 || w < 1 || halo_rows < 0 || !any_grid_ok(B, length)) return (int)cudaErrorInvalidValue;
+    const auto st = static_cast<cudaStream_t>(stream);
+    auto* key = static_cast<unsigned long long*>(keys);
+    auto* str = static_cast<uint8_t*>(strands);
+    auto* sel = static_cast<uint8_t*>(selected);
+    const dim3 grid((unsigned)((length + ANY_THREADS - 1) / ANY_THREADS), (unsigned)B);
+    scan_any_hash_kernel<<<grid, ANY_THREADS, 0, st>>>(static_cast<const uint8_t*>(codes),
+                                                       length + 2LL * halo_rows * ROW, (long long)halo_rows * ROW,
+                                                       length, k, key, str, nullptr, sel);
+    cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess)
+        err = scan_any_windows(key, static_cast<unsigned long long*>(spans_a),
+                               static_cast<unsigned long long*>(spans_b), B, length, k, w, sel, st);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 cgrid((unsigned)((R + ANY_THREADS / 32 - 1) / (ANY_THREADS / 32)), (unsigned)B);
+    scan_any_compact_kernel<<<cgrid, ANY_THREADS, 0, st>>>(key, str, sel, R, static_cast<uint32_t*>(hashes),
+                                                          static_cast<int32_t*>(aux), static_cast<int32_t*>(counts));
+    return (int)cudaGetLastError();
+}
+
+// The flat scan's run-time form (any k >= 1, w >= 1) of a (B, L) code stream on `stream`, with
+// the caller's scratch: keys, spans_a and spans_b (B * L eight-byte words each).
+int kts_minimizer_scan_any(const void* codes, int B, long long L, int k, long long w, void* selected,
+                           void* hashes, void* strands, void* keys, void* spans_a, void* spans_b, void* stream) {
+    if (B <= 0 || L <= 0) return 0;
+    if (k < 1 || w < 1 || !any_grid_ok(B, L)) return (int)cudaErrorInvalidValue;
+    const auto st = static_cast<cudaStream_t>(stream);
+    auto* key = static_cast<unsigned long long*>(keys);
+    auto* sel = static_cast<uint8_t*>(selected);
+    const dim3 grid((unsigned)((L + ANY_THREADS - 1) / ANY_THREADS), (unsigned)B);
+    scan_any_hash_kernel<<<grid, ANY_THREADS, 0, st>>>(static_cast<const uint8_t*>(codes), L, 0, L, k, key,
+                                                       static_cast<uint8_t*>(strands),
+                                                       static_cast<long long*>(hashes), sel);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return (int)scan_any_windows(key, static_cast<unsigned long long*>(spans_a),
+                                 static_cast<unsigned long long*>(spans_b), B, L, k, w, sel, st);
+}
 
 }  // extern "C"

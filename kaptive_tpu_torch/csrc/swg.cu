@@ -18,7 +18,8 @@
 // The fill.  The DP is a sequential recurrence over rows (row i needs row
 // i-1's M and D bands) and a row is only a few hundred integer operations, so
 // neither bytes nor arithmetic bound it: the chain of latencies inside one row
-// does, times the number of rows.  Two forms, chosen from w_pad alone:
+// does, times the number of rows.  Three forms, chosen from w_pad and the
+// matrix's type (int8 when every score fits, as BLOSUM62's and the mapper's do):
 // - Warp form (w_pad a multiple of 128 up to 1024, the widths the lattices
 //   produce): ONE WARP owns one pair and each thread owns w_pad / 32
 //   contiguous band lanes.  M and D stay in registers from row to row; the
@@ -44,10 +45,16 @@
 //   bands live in shared memory, threads own runs of lanes, and each row pays
 //   two block barriers (scan and per-row best).  Kept for bands a warp cannot
 //   hold in registers.
-// - Substitution scores are gathers from the full 256x256 matrix kept as
-//   int8 in shared memory (64 KB).  The Pallas kernel factored the matrix
-//   into class tables because the TPU has no vector gathers; here the gather
-//   is one shared-memory load.
+// - Segmented form (every other case: w_pad past 8192, which the planner
+//   emits as 32,768, 131,072, ..., and any matrix with a score outside int8):
+//   the wide form's arithmetic over a band kept in device scratch between
+//   rows and walked in segments of 8,192 lanes staged in shared memory (see
+//   swg_fill_segmented_kernel).
+// - Substitution scores are gathers from the full 256x256 matrix, kept as
+//   int8 in shared memory (64 KB) by the warp and wide forms and read as
+//   int32 from device memory by the segmented form.  The Pallas kernel
+//   factored the matrix into class tables because the TPU has no vector
+//   gathers; here the gather is one load.
 // - Rows past the query's length hold no filled cell and the traceback never
 //   reads them: the walk stops at min(q_len, rows_max), and those rows of the
 //   traceback output are left unwritten.
@@ -499,6 +506,223 @@ __global__ void __launch_bounds__(MAX_THREADS) swg_fill_kernel(
     }
 }
 
+// Segmented form of the fill: any band width and any int32 substitution score.
+// One block per pair, SEG_THREADS threads of SEG_LPT lanes each: the block walks
+// each row's band in segments of SEG_THREADS * SEG_LPT = 8,192 lanes (fewer
+// threads when the band is narrower).  Between rows the M and D bands live in
+// device memory, w_pad int32 each a pair (`scratch`; 256 KB a pair at w_pad
+// 32,768, which stays in L2), because the three bands pass the 227 KB a block
+// has from w_pad 16,384 on.  A segment is staged into shared memory with
+// coalesced loads (the row above's M and D at its lanes and at the lane after
+// its last, which the next segment has not yet written), filled there exactly
+// as the wide form fills its band, and written back with coalesced stores
+// while its traceback bytes leave.  What crosses segments (the same value in
+// every thread): the exclusive max-plus scan's carry (-INF at a row's lane 0,
+// then the running maximum of H(dm) + dm * gap_extend), the final M and I of
+// the segment's last lane (the left neighbour of the next segment's first),
+// and the row's best so far (strictly greater, so the lowest lane wins a tie
+// between segments).  Staged words sit at x + x / 16, so a thread's 16 lanes
+// fall in 16 banks and a warp's threads spread over all 32.  The scores are
+// read as int32 from device memory (the 1 KB row of the query byte stays in
+// L1), so one instance takes any matrix; every cell is the wide form's
+// arithmetic, in int32 as the JAX package's.
+constexpr int SEG_THREADS = 512;
+constexpr int SEG_LPT = 16;
+
+__host__ __device__ inline int seg_words(int seg) { return seg + 2 + (seg + 1) / 16; }
+__device__ __forceinline__ int seg_slot(int x) { return x + (x >> 4); }
+
+__global__ void __launch_bounds__(SEG_THREADS) swg_fill_segmented_kernel(
+    const uint8_t* __restrict__ q,         // (B, rows_max)
+    const uint8_t* __restrict__ t,         // (B, t_cols), left-padded by w_pad + 2
+    const int32_t* __restrict__ q_lens,    // (B,)
+    const int32_t* __restrict__ t_lens,    // (B,)
+    const int32_t* __restrict__ offsets,   // (B,) diagonal offsets q_pos - t_pos
+    const int32_t* __restrict__ k_locals,  // (B,) half band widths
+    const int32_t* __restrict__ matrix,    // (256, 256)
+    int rows_max, int w_pad, int t_cols, int gap_open, int gap_extend,
+    int32_t* scratch,                      // (B, 2, w_pad): the M and D bands between rows
+    uint8_t* __restrict__ tb,              // out (B, rows_max, w_pad)
+    int32_t* __restrict__ best_out,        // out (B,)
+    int32_t* __restrict__ best_i_out,      // out (B,)
+    int32_t* __restrict__ best_j_out) {    // out (B,)
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ int32_t warp_scan[SEG_THREADS / 32];
+    __shared__ int32_t warp_best[SEG_THREADS / 32];
+    __shared__ int32_t warp_lane[SEG_THREADS / 32];
+
+    const int b = blockIdx.x;
+    const int tid = threadIdx.x;
+    const int nthreads = blockDim.x;
+    const int lane_id = tid & 31;
+    const int warp = tid >> 5;
+    const int nwarps = nthreads >> 5;
+    const int seg = nthreads * SEG_LPT;  // lanes a segment
+    int32_t* sM = reinterpret_cast<int32_t*>(smem);  // the segment's M, D and I, staged
+    int32_t* sD = sM + seg_words(seg);
+    int32_t* sI = sD + seg_words(seg);
+    uint8_t* tb_part = reinterpret_cast<uint8_t*>(sI + seg_words(seg));
+
+    const int l1 = q_lens[b];
+    const int cols = t_lens[b] + 1;
+    const int off = offsets[b];
+    const int kl = k_locals[b];
+    const int k_pad = (w_pad - 3) / 2;
+    const int goe = gap_open + gap_extend;
+    const int ge = gap_extend;
+    const uint8_t* qb = q + (size_t)b * rows_max;
+    const uint8_t* tt = t + (size_t)b * t_cols;
+    uint8_t* tbb = tb + (size_t)b * rows_max * w_pad;
+    int32_t* M = scratch + (size_t)b * 2 * w_pad;
+    int32_t* D = M + w_pad;
+    // dm * gap_extend wraps as the JAX package's int32 product does (unsigned: defined in C++).
+    auto lane_ge = [&](int dm) { return (int)((unsigned)dm * (unsigned)ge); };
+
+    // Row 0: padded-band border cells get M=0, everything else -INF.
+    for (int dm = tid; dm < w_pad; dm += nthreads) {
+        const int j0 = dm - off - k_pad - 1;
+        const bool in_pad0 = abs(dm - (k_pad + 1)) <= kl + 1 && j0 >= 0 && j0 < cols;
+        M[dm] = in_pad0 ? 0 : NEG_INF;
+        D[dm] = NEG_INF;
+    }
+
+    int best = 0, best_i = 0, best_j = 0;
+    const int n_rows = min(l1, rows_max);
+    for (int i = 1; i <= n_rows; ++i) {
+        const int32_t* mrow = matrix + 256 * (int)qb[i - 1];
+        const int j_base = i - off - k_pad - 1;  // + dm: 1-based DP column of lane dm
+        const int t_base = i - off + w_pad - k_pad;  // + dm: target window index
+        int carry = NEG_INF;                     // the scan's prefix before the segment's lane 0
+        int left_m = NEG_INF, left_i = NEG_INF;  // final M and I of the lane before the segment
+        int seg_best = INT32_MIN, seg_lane = w_pad;  // the row's best so far
+        for (int s0 = 0; s0 < w_pad; s0 += seg) {
+            const int n = min(seg, w_pad - s0);  // lanes of this segment
+            __syncthreads();  // the row above is in device memory; the segment before is done with sM
+            for (int x = tid; x <= n; x += nthreads) {
+                const int dm = s0 + x;
+                sM[seg_slot(x)] = dm < w_pad ? M[dm] : NEG_INF;
+                sD[seg_slot(x)] = dm < w_pad ? D[dm] : NEG_INF;
+            }
+            __syncthreads();
+            const int lo = tid * SEG_LPT;  // this thread's lanes of the segment: [lo, lo + SEG_LPT)
+
+            // Pass 1: D, diagonal, H; this thread's share of the prefix max.
+            int h_ng[SEG_LPT], d_cur[SEG_LPT], flags[SEG_LPT];
+            int run_total = NEG_INF;
+#pragma unroll
+            for (int k = 0; k < SEG_LPT; ++k) {
+                const int x = lo + k;
+                if (x < n) {
+                    const int dm = s0 + x;
+                    const int j = j_base + dm;
+                    const int band = abs(dm - (k_pad + 1));
+                    const bool in_cols = j >= 0 && j < cols;
+                    const bool filled = band <= kl && j >= 1 && in_cols;
+                    const bool in_pad = band <= kl + 1 && in_cols;
+                    const int d_open = sM[seg_slot(x + 1)] - goe;  // -INF staged past the band's end
+                    const int d_ext = sD[seg_slot(x + 1)] - ge;
+                    d_cur[k] = max(d_open, d_ext);
+                    const int ti = min(max(t_base + dm, 0), t_cols - 1);
+                    const int diag = sM[seg_slot(x)] + __ldg(mrow + tt[ti]);
+                    h_ng[k] = max(diag, d_cur[k]);
+                    const int h_c = filled ? max(h_ng[k], 0) : (in_pad ? 0 : NEG_INF);
+                    flags[k] = (d_cur[k] > diag ? 1 : 0) | (d_open < d_ext ? 4 : 0)
+                               | (filled ? 16 : 0) | (in_pad ? 32 : 0);
+                    run_total = max(run_total, h_c + lane_ge(dm));
+                }
+            }
+
+            // Block-wide exclusive max-scan of the run totals, after the carry.
+            int incl = run_total;
+#pragma unroll
+            for (int s = 1; s < 32; s <<= 1) {
+                const int other = __shfl_up_sync(FULL_MASK, incl, s);
+                if (lane_id >= s) incl = max(incl, other);
+            }
+            int prefix = __shfl_up_sync(FULL_MASK, incl, 1);
+            if (lane_id == 0) prefix = NEG_INF;
+            if (lane_id == 31) warp_scan[warp] = incl;
+            __syncthreads();  // also: every thread's pass 1 has read the staged band
+            prefix = max(prefix, carry);
+            for (int w = 0; w < nwarps; ++w) {
+                if (w < warp) prefix = max(prefix, warp_scan[w]);
+                carry = max(carry, warp_scan[w]);
+            }
+
+            // Pass 2: I, M, the traceback's M-state bits, this thread's best in the segment.
+            int row_best = INT32_MIN, row_lane = w_pad;
+#pragma unroll
+            for (int k = 0; k < SEG_LPT; ++k) {
+                const int x = lo + k;
+                if (x < n) {
+                    const int dm = s0 + x;
+                    const bool filled = flags[k] & 16;
+                    const bool in_pad = flags[k] & 32;
+                    const int h_c = filled ? max(h_ng[k], 0) : (in_pad ? 0 : NEG_INF);
+                    const int i_cur = filled ? prefix - gap_open - lane_ge(dm) : NEG_INF;
+                    prefix = max(prefix, h_c + lane_ge(dm));
+                    const int m_cur = filled ? max(max(h_c, i_cur), 0) : (in_pad ? 0 : NEG_INF);
+                    int tb_m = flags[k] & 1;
+                    if (i_cur > h_ng[k]) tb_m = 2;
+                    if (max(h_ng[k], i_cur) <= 0 || !filled) tb_m = 3;
+                    sM[seg_slot(x)] = m_cur;
+                    sD[seg_slot(x)] = d_cur[k];
+                    sI[seg_slot(x)] = i_cur;
+                    tb_part[x] = (uint8_t)(tb_m | (flags[k] & 4));
+                    if (filled && m_cur > row_best) {
+                        row_best = m_cur;
+                        row_lane = dm;
+                    }
+                }
+            }
+#pragma unroll
+            for (int s = 16; s > 0; s >>= 1) {
+                const int v = __shfl_down_sync(FULL_MASK, row_best, s);
+                const int l = __shfl_down_sync(FULL_MASK, row_lane, s);
+                if (v > row_best || (v == row_best && l < row_lane)) {
+                    row_best = v;
+                    row_lane = l;
+                }
+            }
+            if (lane_id == 0) {
+                warp_best[warp] = row_best;
+                warp_lane[warp] = row_lane;
+            }
+            __syncthreads();  // also: the segment's M, D and I are final
+            for (int w = 0; w < nwarps; ++w) {  // strictly greater: the lowest lane keeps a tie
+                if (warp_best[w] > seg_best) {
+                    seg_best = warp_best[w];
+                    seg_lane = warp_lane[w];
+                }
+            }
+
+            // Pass 3: the I-state bit needs the left neighbour's final M and I; M and D go back.
+            uint8_t* tb_row = tbb + (size_t)(i - 1) * w_pad + s0;
+            for (int x = tid; x < n; x += nthreads) {
+                const int m_left = x > 0 ? sM[seg_slot(x - 1)] : left_m;
+                const int i_left = x > 0 ? sI[seg_slot(x - 1)] : left_i;
+                tb_row[x] = tb_part[x] | (m_left - goe < i_left - ge ? 8 : 0);
+                M[s0 + x] = sM[seg_slot(x)];
+                D[s0 + x] = sD[seg_slot(x)];
+            }
+            left_m = sM[seg_slot(n - 1)];
+            left_i = sI[seg_slot(n - 1)];
+            // The next segment (or row) stages after its first barrier, which every thread
+            // reaches after this pass.
+        }
+        if (seg_best > best) {
+            best = seg_best;
+            best_i = i;
+            best_j = j_base + seg_lane;
+        }
+    }
+    if (tid == 0) {
+        best_out[b] = best;
+        best_i_out[b] = best_i;
+        best_j_out[b] = best_j;
+    }
+}
+
 // One warp per pair replays the traceback state machine (0 = in M, 1 = in D,
 // 2 = in I) over the packed bits, from the best cell back to a
 // local-alignment start, a stretch of up to 32 steps at a time: lane l reads
@@ -698,15 +922,50 @@ cudaError_t launch_fill_warp(int n_pairs, cudaStream_t stream, const uint8_t* q,
 
 bool warp_form(int w_pad) { return w_pad % 128 == 0 && w_pad <= WARP_FORM_MAX_W_PAD; }
 
+int segmented_threads(int w_pad) {
+    const int lanes = (w_pad + SEG_LPT - 1) / SEG_LPT;
+    return lanes >= SEG_THREADS ? SEG_THREADS : (lanes + 31) / 32 * 32;
+}
+
+size_t segmented_smem_bytes(int threads) {  // the staged M, D and I words and the traceback bytes
+    const int seg = threads * SEG_LPT;
+    return 3 * sizeof(int32_t) * (size_t)seg_words(seg) + (size_t)seg;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest band the fill takes (16 lanes for each of 512 threads).
+// Largest band the fill's int8 forms take (16 lanes for each of 512 threads); the segmented
+// form takes every width.
 int kts_swg_max_w_pad() { return 16 * MAX_THREADS; }
 
-// 1 when the fill takes this band width in its warp form, 0 in its wide form.
+// 1 when the fill takes this band width in its warp form, 0 in its wide form (int8 scores).
 int kts_swg_fill_warp_form(int w_pad) { return warp_form(w_pad) ? 1 : 0; }
+
+// The fill's segmented form (any w_pad >= 3, int32 scores) on `stream`; `scratch` holds
+// n_pairs * 2 * w_pad int32.  Returns the launch's CUDA error.
+int kts_swg_fill_segmented(const void* q, const void* t, const void* q_lens, const void* t_lens,
+                           const void* offsets, const void* k_locals, const void* matrix,
+                           int n_pairs, int rows_max, int w_pad, int t_cols, int gap_open,
+                           int gap_extend, void* scratch, void* tb, void* best, void* best_i,
+                           void* best_j, void* stream) {
+    if (n_pairs == 0) return (int)cudaSuccess;
+    if (w_pad < 3 || rows_max < 1 || t_cols < 1) return (int)cudaErrorInvalidValue;
+    const int threads = segmented_threads(w_pad);
+    const size_t smem = segmented_smem_bytes(threads);
+    const cudaError_t err = cudaFuncSetAttribute(swg_fill_segmented_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    swg_fill_segmented_kernel<<<n_pairs, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(t),
+        static_cast<const int32_t*>(q_lens), static_cast<const int32_t*>(t_lens),
+        static_cast<const int32_t*>(offsets), static_cast<const int32_t*>(k_locals),
+        static_cast<const int32_t*>(matrix), rows_max, w_pad, t_cols, gap_open, gap_extend,
+        static_cast<int32_t*>(scratch), static_cast<uint8_t*>(tb), static_cast<int32_t*>(best),
+        static_cast<int32_t*>(best_i), static_cast<int32_t*>(best_j));
+    return (int)cudaGetLastError();
+}
 
 int kts_swg_fill(const void* q, const void* t, const void* q_lens, const void* t_lens,
                  const void* offsets, const void* k_locals, const void* matrix,

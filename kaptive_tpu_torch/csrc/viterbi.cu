@@ -10,7 +10,8 @@
 //     backpointers from the best last state;
 //   arch_viterbi_kernel replaces kaptive_tpu/bgc/kernels.py::architectural_viterbi:
 //     the max-plus decode over a contig's ORF emission rows with a forced end
-//     in POST (the last state).
+//     in POST (the last state), up to MAX_ARCH_STATES states; above that,
+//     arch_viterbi_wide_kernel (a block a contig, 16- or 32-bit backpointers).
 //
 // Both compute what the XLA programs compute, bit for bit: every operation is
 // a float32 add, max or subtract in the JAX package's order, and each pick
@@ -789,6 +790,77 @@ __global__ void __launch_bounds__(32) arch_viterbi_kernel(
     cp_async_wait<0>();
 }
 
+// The architectural decode above MAX_ARCH_STATES states: a block a contig.  Thread x of
+// ARCH_WIDE_THREADS takes the states x, x + ARCH_WIDE_THREADS, ...; for each it scans the
+// previous row's S scores in order, keeping the first maximum of prev[p] + transitions[p, s]
+// (the strict `take`, jnp.argmax's rule), and adds the emission.  The previous row is staged in
+// shared memory ARCH_WIDE_TILE scores at a time (every thread reads the same score, a broadcast)
+// from one of two rows of device scratch (`work`, 2 S floats a contig); the transitions are read
+// from device memory, consecutive threads on consecutive states.  Backpointers are BP: uint16 up
+// to 65,536 states, int32 beyond.  A row ends with a block barrier; thread 0 walks the path back.
+// What bounds it: S x S adds and compares a row, and the S x S transitions read a row (through
+// L2: 4.2 MB at S = 1,027).  It is kept for the state counts the warp kernel refuses; the
+// default K = 25 (S = 28) never reaches it.
+constexpr int ARCH_WIDE_THREADS = 256;
+constexpr int ARCH_WIDE_TILE = 2048;  // previous-row scores staged at once (8 KB)
+
+template <typename BP>
+__global__ void __launch_bounds__(ARCH_WIDE_THREADS) arch_viterbi_wide_kernel(
+    const float* __restrict__ emissions, const float* __restrict__ transitions, const long long* __restrict__ offsets,
+    long long rows, int S, BP* __restrict__ back, int* __restrict__ paths, float* __restrict__ scores,
+    float* work) {
+    __shared__ float s_prev[ARCH_WIDE_TILE];
+    const int tid = threadIdx.x;
+    const long long row0 = offsets[blockIdx.x];
+    const long long n = offsets[blockIdx.x + 1] - row0;
+    if (n <= 0 || row0 < 0 || row0 + n > rows) return;  // empty, or bounds outside the emissions
+    const float* em = emissions + row0 * S;
+    BP* bk = back + row0 * S;
+    float* rowbuf[2] = {work + (size_t)blockIdx.x * 2 * S, work + (size_t)blockIdx.x * 2 * S + S};
+
+    for (int s = tid; s < S; s += ARCH_WIDE_THREADS) rowbuf[0][s] = transitions[s] + em[s];
+    __syncthreads();
+    for (long long i = 1; i < n; ++i) {
+        const float* prev = rowbuf[(i - 1) & 1];
+        float* cur = rowbuf[i & 1];
+        for (int s0 = 0; s0 < S; s0 += ARCH_WIDE_THREADS) {
+            const int s = s0 + tid;
+            float best = -CUDART_INF_F;
+            uint32_t arg = 0;
+            for (int p0 = 0; p0 < S; p0 += ARCH_WIDE_TILE) {
+                const int np = min(ARCH_WIDE_TILE, S - p0);
+                __syncthreads();  // every thread is done with the tile before
+                for (int f = tid; f < np; f += ARCH_WIDE_THREADS) s_prev[f] = prev[p0 + f];
+                __syncthreads();
+                if (s < S) {
+                    const float* tcol = transitions + (size_t)p0 * S + s;
+                    if (p0 == 0) {
+                        best = s_prev[0] + tcol[0];
+                        for (int p = 1; p < np; ++p) take(s_prev[p] + tcol[(size_t)p * S], (uint32_t)p, best, arg);
+                    } else {
+                        for (int p = 0; p < np; ++p)
+                            take(s_prev[p] + tcol[(size_t)p * S], (uint32_t)(p0 + p), best, arg);
+                    }
+                }
+            }
+            if (s < S) {
+                cur[s] = best + em[i * S + s];
+                bk[i * S + s] = (BP)arg;
+            }
+        }
+        __syncthreads();  // the row is complete before it is read as the previous one
+    }
+    if (tid == 0) {
+        scores[blockIdx.x] = rowbuf[(n - 1) & 1][S - 1];
+        int state = S - 1;  // forced end in POST
+        paths[row0 + n - 1] = state;
+        for (long long i = n - 1; i > 0; --i) {
+            state = (int)bk[i * S + state];
+            paths[row0 + i - 1] = state;
+        }
+    }
+}
+
 int arch_pitch(int S) { return (S + 15) / 16 * 16; }
 
 size_t arch_smem_bytes(int S, int R) {
@@ -924,6 +996,32 @@ int kts_arch_viterbi(const void* emissions, const void* transitions, const void*
     if (S <= 64) return launch_arch<2>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
     if (S <= 128) return launch_arch<4>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
     return launch_arch<8>(em, tr, off, n_contigs, rows, S, bk, pa, sc, st);
+}
+
+// Bytes of one backpointer of the block-a-contig decode for S states: 2 up to 65,536, else 4.
+int kts_arch_wide_bp_bytes(int S) { return S <= 65536 ? 2 : 4; }
+
+// The architectural Viterbi for any S >= 1 with a block a contig (the caller takes it above
+// kts_arch_max_states()); `back` is scratch of kts_arch_wide_bp_bytes(S) * S bytes a row and
+// `work` of 2 * S floats a contig.  Same contract as kts_arch_viterbi otherwise.
+int kts_arch_viterbi_wide(const void* emissions, const void* transitions, const void* offsets, int n_contigs,
+                          long long rows, int S, void* back, void* paths, void* scores, void* work, void* stream) {
+    if (n_contigs <= 0) return 0;
+    if (S < 1) return (int)cudaErrorInvalidValue;
+    const float* em = static_cast<const float*>(emissions);
+    const float* tr = static_cast<const float*>(transitions);
+    const long long* off = static_cast<const long long*>(offsets);
+    int* pa = static_cast<int*>(paths);
+    float* sc = static_cast<float*>(scores);
+    float* wk = static_cast<float*>(work);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (kts_arch_wide_bp_bytes(S) == 2)
+        arch_viterbi_wide_kernel<uint16_t><<<n_contigs, ARCH_WIDE_THREADS, 0, st>>>(
+            em, tr, off, rows, S, static_cast<uint16_t*>(back), pa, sc, wk);
+    else
+        arch_viterbi_wide_kernel<int32_t><<<n_contigs, ARCH_WIDE_THREADS, 0, st>>>(
+            em, tr, off, rows, S, static_cast<int32_t*>(back), pa, sc, wk);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

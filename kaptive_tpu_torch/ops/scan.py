@@ -106,7 +106,7 @@ def _scan_positions(codes: torch.Tensor, pad: int, length: int, k: int, w: int):
     dev = codes.device
     i64 = torch.int64
     gpos = torch.arange(N, device=dev) - pad
-    ext = torch.cat([codes, codes[:, :k]], 1)
+    ext = codes.repeat(1, -(-(N + k) // N))[:, : N + k] if N else codes  # wraps as often as k needs
 
     fwd = torch.zeros((B, N), dtype=i64, device=dev)
     rev = torch.zeros_like(fwd)

@@ -6,20 +6,31 @@ r"""ctypes binding of the Hopper minimizer scans (``csrc/scan.cu``).
 is compiled at first use (:mod:`kaptive_tpu_torch.utils.nvcc`) and loaded with
 ctypes; nothing is compiled at import.
 
-Both kernels scan tiles of 4,096 positions of one genome in a block; a thread
-owns 16 consecutive positions, whose k-mers come from two packed 2-bit words
-by a funnel shift and whose window minima come from one prefix/suffix pass
-with the window width known at compile time (the library holds one instance
-of each kernel per ``w`` in ``1 .. kts_rowcompact_max_w()``; ``k`` is a
-run-time argument).  Selected positions are marked in a bit mask of the tile.
-The row-compact kernel ranks them inside their row and stores each row as
-whole lines; the flat kernel stores every position's ``selected``, int64
-hash and strand as whole lines.  The design notes are in the source.
+Both scans have two forms, picked from ``(k, w)`` alone (:func:`scan_form`).
+The tiled kernels take ``k <= kts_scan_tiled_max_k()`` (16) and ``w <=
+kts_scan_tiled_max_w()`` (32), the main path's (15, 10) among them: they scan
+tiles of 4,096 positions of one genome in a block; a thread owns 16
+consecutive positions, whose k-mers come from two packed 2-bit words by a
+funnel shift and whose window minima come from one prefix/suffix pass with
+the window width known at compile time (one instance of each kernel per
+``w``; ``k`` is a run-time argument).  Selected positions are marked in a bit
+mask of the tile.  The row-compact kernel ranks them inside their row and
+stores each row as whole lines; the flat kernel stores every position's
+``selected``, int64 hash and strand as whole lines.  Every other ``k >= 1``
+and ``w >= 1`` takes the run-time form: a thread a position packs its k codes
+as the JAX package's uint32 shifts do, a sparse table of (hash, position)
+keys in device scratch gives every window's leftmost minimum, the winners
+are marked by scatter, and (row-compact) a warp a row compacts them.  The
+design notes are in the source.
 
 The wrappers check device, dtype, shape and contiguity, allocate the outputs
 with ``torch.empty``, launch on the current stream, raise if the launch
 returns a CUDA error, and count each launch as ``scan.cuda.rowcompact`` or
-``scan.cuda.flat`` in :mod:`kaptive_tpu_torch.utils.metrics`.  There is no
+``scan.cuda.flat`` (the tiled kernels) or ``scan.cuda.rowcompact_any`` or
+``scan.cuda.flat_any`` (the run-time form) in
+:mod:`kaptive_tpu_torch.utils.metrics`.  The run-time form takes a batch in
+groups of at most :data:`ANY_GROUP_POSITIONS` positions, one launch a group,
+so its scratch (26 bytes a position) stays under ~0.9 GB.  There is no
 fallback.
 """
 
@@ -34,16 +45,23 @@ from kaptive_tpu_torch.utils.metrics import count
 from kaptive_tpu_torch.utils.nvcc import CudaLibrary, check_tensor
 
 
+ANY_GROUP_POSITIONS = 1 << 25  # positions a launch of the run-time form takes at most (whole rows of the batch)
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kts_rowcompact_max_k.restype = i32
-    lib.kts_rowcompact_max_k.argtypes = []
-    lib.kts_rowcompact_max_w.restype = i32
-    lib.kts_rowcompact_max_w.argtypes = []
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.kts_scan_tiled_max_k.restype = i32
+    lib.kts_scan_tiled_max_k.argtypes = []
+    lib.kts_scan_tiled_max_w.restype = i32
+    lib.kts_scan_tiled_max_w.argtypes = []
     lib.kts_rowcompact_scan.restype = i32
     lib.kts_rowcompact_scan.argtypes = [ptr] + [i32] * 5 + [ptr] * 4
     lib.kts_minimizer_scan.restype = i32
-    lib.kts_minimizer_scan.argtypes = [ptr, i32, ctypes.c_longlong, i32, i32] + [ptr] * 4
+    lib.kts_minimizer_scan.argtypes = [ptr, i32, i64, i32, i32] + [ptr] * 4
+    lib.kts_rowcompact_scan_any.restype = i32
+    lib.kts_rowcompact_scan_any.argtypes = [ptr] + [i32] * 4 + [i64] + [ptr] * 9
+    lib.kts_minimizer_scan_any.restype = i32
+    lib.kts_minimizer_scan_any.argtypes = [ptr, i32, i64, i32, i64] + [ptr] * 7
 
 
 LIBRARY = CudaLibrary("scan.cu", _declare)
@@ -52,6 +70,21 @@ LIBRARY = CudaLibrary("scan.cu", _declare)
 def build() -> ctypes.CDLL:
     r"""Compile (when the source is newer than the library) and load the kernel."""
     return LIBRARY.load()
+
+
+def scan_form(k: int, w: int) -> str:
+    r"""The form of both scan kernels that takes ``(k, w)``: ``"tiled"`` or ``"any"`` (run-time)."""
+    if k < 1 or w < 1:
+        raise ValueError(f"k={k}, w={w}: the scans need k >= 1 and w >= 1")
+    lib = build()
+    return "tiled" if k <= lib.kts_scan_tiled_max_k() and w <= lib.kts_scan_tiled_max_w() else "any"
+
+
+def _groups(B: int, per_row: int):
+    r"""Slices of a batch of ``B`` rows of ``per_row`` positions, at most
+    :data:`ANY_GROUP_POSITIONS` positions (and at least one row) each."""
+    step = max(1, ANY_GROUP_POSITIONS // max(per_row, 1))
+    return [slice(lo, min(lo + step, B)) for lo in range(0, B, step)]
 
 
 def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
@@ -69,9 +102,7 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
     check_tensor("codes_padded", codes_padded, torch.uint8, (B, r_pad, ROW), device)
     if codes_padded.data_ptr() % 16:
         raise ValueError("codes_padded: expected a 16-byte aligned tensor (the kernel loads 16 codes at once)")
-    if not 1 <= k <= lib.kts_rowcompact_max_k() or not 1 <= w <= lib.kts_rowcompact_max_w():
-        raise ValueError(f"k={k}, w={w} outside the scan kernel's range "
-                         f"(k <= {lib.kts_rowcompact_max_k()}, w <= {lib.kts_rowcompact_max_w()})")
+    form = scan_form(k, w)
     R = r_pad - 2 * HALO_ROWS
     hashes = torch.empty((B, R, SLOTS), dtype=torch.int32, device=device)
     aux = torch.empty((B, R, SLOTS), dtype=torch.int32, device=device)
@@ -80,13 +111,26 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
         return hashes, aux, counts
     with torch.cuda.device(device):  # the launch goes to the current device
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.kts_rowcompact_scan(
-            codes_padded.data_ptr(), B, R, HALO_ROWS, int(k), int(w),
-            hashes.data_ptr(), aux.data_ptr(), counts.data_ptr(), stream,
-        )
+        if form == "tiled":
+            rc = lib.kts_rowcompact_scan(
+                codes_padded.data_ptr(), B, R, HALO_ROWS, int(k), int(w),
+                hashes.data_ptr(), aux.data_ptr(), counts.data_ptr(), stream,
+            )
+        else:
+            for g in _groups(B, R * ROW):
+                n = (g.stop - g.start) * R * ROW
+                words = torch.empty((3, n), dtype=torch.int64, device=device)  # keys and two span buffers
+                bytes_ = torch.empty((2, n), dtype=torch.uint8, device=device)  # strands and selected
+                rc = lib.kts_rowcompact_scan_any(
+                    codes_padded[g].data_ptr(), g.stop - g.start, R, HALO_ROWS, int(k), int(w),
+                    hashes[g].data_ptr(), aux[g].data_ptr(), counts[g].data_ptr(),
+                    *(x.data_ptr() for x in words), *(x.data_ptr() for x in bytes_), stream,
+                )
+                if rc != 0:
+                    break
     if rc != 0:
-        raise RuntimeError(f"row-compact scan kernel launch failed: CUDA error {rc}")
-    count("scan.cuda.rowcompact")
+        raise RuntimeError(f"row-compact scan kernel launch failed ({form} form, k={k}, w={w}): CUDA error {rc}")
+    count("scan.cuda.rowcompact" if form == "tiled" else "scan.cuda.rowcompact_any")
     return hashes, aux, counts
 
 
@@ -107,20 +151,30 @@ def minimizer_scan_cuda(codes: torch.Tensor, k: int, w: int):
     flat = codes.reshape(-1, codes.shape[-1]) if codes.dim() == 2 else codes[None]
     B, L = flat.shape
     check_tensor("codes", flat, torch.uint8, (B, L), device)
-    if not 1 <= k <= lib.kts_rowcompact_max_k() or not 1 <= w <= lib.kts_rowcompact_max_w():
-        raise ValueError(f"k={k}, w={w} outside the scan kernel's range "
-                         f"(k <= {lib.kts_rowcompact_max_k()}, w <= {lib.kts_rowcompact_max_w()})")
+    form = scan_form(k, w)
     selected = torch.empty((B, L), dtype=torch.bool, device=device)
     hashes = torch.empty((B, L), dtype=torch.int64, device=device)
     strands = torch.empty((B, L), dtype=torch.bool, device=device)
     if B and L:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.kts_minimizer_scan(
-                flat.data_ptr(), B, L, int(k), int(w),
-                selected.data_ptr(), hashes.data_ptr(), strands.data_ptr(), stream,
-            )
+            if form == "tiled":
+                rc = lib.kts_minimizer_scan(
+                    flat.data_ptr(), B, L, int(k), int(w),
+                    selected.data_ptr(), hashes.data_ptr(), strands.data_ptr(), stream,
+                )
+            else:
+                for g in _groups(B, L):
+                    words = torch.empty((3, (g.stop - g.start) * L), dtype=torch.int64, device=device)
+                    rc = lib.kts_minimizer_scan_any(
+                        flat[g].data_ptr(), g.stop - g.start, L, int(k), int(w),
+                        selected[g].data_ptr(), hashes[g].data_ptr(), strands[g].data_ptr(),
+                        *(x.data_ptr() for x in words), stream,
+                    )
+                    if rc != 0:
+                        break
         if rc != 0:
-            raise RuntimeError(f"flat minimizer scan kernel launch failed: CUDA error {rc}")
-        count("scan.cuda.flat")
+            raise RuntimeError(f"flat minimizer scan kernel launch failed ({form} form, k={k}, w={w}): "
+                               f"CUDA error {rc}")
+        count("scan.cuda.flat" if form == "tiled" else "scan.cuda.flat_any")
     return tuple(x.reshape(codes.shape) for x in (selected, hashes, strands))

@@ -8,11 +8,18 @@ CIGAR runs).  The library is compiled at first use (:mod:`kaptive_tpu_torch.util
 at the root of the checkout) and loaded with ctypes; nothing is compiled at
 import.
 
-The fill has two forms and picks one from ``w_pad`` alone (:func:`fill_form`):
-the warp form (one warp per pair, the band in registers) for the widths the
+The fill has three forms and picks one from ``w_pad`` and the matrix's dtype
+(:func:`fill_form`).  With an int8 matrix (every score in int8, as
+:func:`as_kernel_matrix` gives it for BLOSUM62 and the mapper's 2/-4): the
+warp form (one warp per pair, the band in registers) for the widths the
 lattices produce, a multiple of 128 up to 1024, and the wide form (one block
 per pair, the band in shared memory) for every other width up to
-``kts_swg_max_w_pad()``.  Both tracebacks are instances of one walk: one warp
+``kts_swg_max_w_pad()`` (8,192).  Every wider band the planner emits
+(32,768, 131,072, ...), and every band with an int32 matrix (a score outside
+int8), takes the segmented form: one block per pair walks each row's band in
+segments of 8,192 lanes staged in shared memory, with the M and D bands in
+device scratch between rows and the scan's carry passed from segment to
+segment.  Both tracebacks are instances of one walk: one warp
 per pair reads up to 32 cells of the current diagonal, column or row at once.
 The CIGAR instance also records the runs, staged in shared memory, and the
 warp writes each pair's row of ``ops`` once, reversed into alignment order and
@@ -21,8 +28,8 @@ zero-filled.
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises
 if the launch returns a CUDA error, and counts its launches
-(``swg.cuda.fill`` / ``swg.cuda.traceback`` / ``swg.cuda.traceback_cigar`` in
-:mod:`kaptive_tpu_torch.utils.metrics`).
+(``swg.cuda.fill`` / ``swg.cuda.fill_segmented`` / ``swg.cuda.traceback`` /
+``swg.cuda.traceback_cigar`` in :mod:`kaptive_tpu_torch.utils.metrics`).
 There is no fallback: what the kernels cannot take raises.
 """
 
@@ -46,6 +53,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_swg_fill_warp_form.argtypes = [i32]
     lib.kts_swg_fill.restype = i32
     lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
+    lib.kts_swg_fill_segmented.restype = i32
+    lib.kts_swg_fill_segmented.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 6
     lib.kts_swg_traceback.restype = i32
     lib.kts_swg_traceback.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 2
     lib.kts_swg_traceback_cigar.restype = i32
@@ -60,9 +69,13 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
-def fill_form(w_pad: int) -> str:
-    r"""The form of the fill kernel that takes ``w_pad``: ``"warp"`` or ``"wide"``."""
-    return "warp" if build().kts_swg_fill_warp_form(int(w_pad)) else "wide"
+def fill_form(w_pad: int, dtype: torch.dtype = torch.int8) -> str:
+    r"""The form of the fill kernel that takes ``w_pad`` with a matrix of ``dtype``:
+    ``"warp"``, ``"wide"`` or ``"segmented"``."""
+    lib = build()
+    if dtype == torch.int8 and w_pad <= lib.kts_swg_max_w_pad():
+        return "warp" if lib.kts_swg_fill_warp_form(int(w_pad)) else "wide"
+    return "segmented"
 
 
 def swg_fill_cuda(
@@ -72,7 +85,7 @@ def swg_fill_cuda(
     t_lens: torch.Tensor,  # (B,) int32
     offsets: torch.Tensor,  # (B,) int32
     k_locals: torch.Tensor,  # (B,) int32
-    matrix: torch.Tensor,  # (256, 256) int8
+    matrix: torch.Tensor,  # (256, 256) int8 or int32
     *,
     gap_open: int,
     gap_extend: int,
@@ -81,6 +94,8 @@ def swg_fill_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     r"""Band fill on the card: ``(tb, best, best_i, best_j)`` as :func:`fill_band_plain`.
 
+    ``matrix`` is int8 (the warp and wide forms up to ``w_pad`` 8,192) or int32
+    (the segmented form, which also takes an int8 matrix's wider bands).
     Rows of ``tb`` at or past each pair's query length are left unwritten.
     """
     device = q_codes.device
@@ -93,13 +108,14 @@ def swg_fill_cuda(
     check_tensor("t_codes", t_codes, torch.uint8, (B, T), device)
     for name, x in (("q_lens", q_lens), ("t_lens", t_lens), ("offsets", offsets), ("k_locals", k_locals)):
         check_tensor(name, x, torch.int32, (B,), device)
-    check_tensor("matrix", matrix, torch.int8, (256, 256), device)
+    check_tensor("matrix", matrix, matrix.dtype if matrix.dtype == torch.int32 else torch.int8, (256, 256), device)
     if matrix.data_ptr() % 16:
         raise ValueError("matrix: expected a 16-byte aligned tensor")
-    if not 3 <= w_pad <= lib.kts_swg_max_w_pad():
-        raise ValueError(f"w_pad={w_pad} outside the fill kernel's range [3, {lib.kts_swg_max_w_pad()}]")
+    if w_pad < 3:
+        raise ValueError(f"w_pad={w_pad}: a band needs at least 3 lanes (w_pad = 2 k_pad + 3)")
     if rows_max < 1 or T < 1:
         raise ValueError(f"empty bucket geometry (rows_max={rows_max}, T={T})")
+    form = fill_form(w_pad, matrix.dtype)
 
     tb = torch.empty((B, rows_max, w_pad), dtype=torch.uint8, device=device)
     best = torch.empty(B, dtype=torch.int32, device=device)
@@ -107,15 +123,25 @@ def swg_fill_cuda(
     best_j = torch.empty(B, dtype=torch.int32, device=device)
     with torch.cuda.device(device):  # the launch goes to the current device
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.kts_swg_fill(
-            q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
-            offsets.data_ptr(), k_locals.data_ptr(), matrix.data_ptr(),
-            B, rows_max, w_pad, T, int(gap_open), int(gap_extend),
-            tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
-        )
+        if form == "segmented":
+            scores = matrix.to(torch.int32).contiguous()
+            scratch = torch.empty((B, 2, w_pad), dtype=torch.int32, device=device)  # the M and D bands
+            rc = lib.kts_swg_fill_segmented(
+                q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
+                offsets.data_ptr(), k_locals.data_ptr(), scores.data_ptr(),
+                B, rows_max, w_pad, T, int(gap_open), int(gap_extend), scratch.data_ptr(),
+                tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
+            )
+        else:
+            rc = lib.kts_swg_fill(
+                q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
+                offsets.data_ptr(), k_locals.data_ptr(), matrix.data_ptr(),
+                B, rows_max, w_pad, T, int(gap_open), int(gap_extend),
+                tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
+            )
     if rc != 0:
-        raise RuntimeError(f"swg fill kernel launch failed: CUDA error {rc}")
-    count("swg.cuda.fill")
+        raise RuntimeError(f"swg fill kernel launch failed ({form} form, w_pad={w_pad}): CUDA error {rc}")
+    count("swg.cuda.fill_segmented" if form == "segmented" else "swg.cuda.fill")
     return tb, best, best_i, best_j
 
 
@@ -206,16 +232,13 @@ def swg_traceback_cigar_cuda(
 
 
 def as_kernel_matrix(matrix: torch.Tensor | object, device: torch.device) -> torch.Tensor:
-    r"""A (256, 256) substitution matrix as the kernels' contiguous int8 tensor on ``device``.
-
-    Raises when a score does not fit in int8 (the fill keeps the matrix as
-    int8 in shared memory).
-    """
+    r"""A (256, 256) substitution matrix as the fill takes it: a contiguous tensor on ``device``,
+    int8 when every score fits in int8 (the warp and wide forms keep it in shared memory),
+    else int32 (the segmented form reads it from device memory), as the JAX package casts it."""
     m = matrix if isinstance(matrix, torch.Tensor) else torch.from_numpy(np.array(matrix))
     if m.dtype != torch.int8:
-        if int(m.min()) < -128 or int(m.max()) > 127:
-            raise ValueError("substitution scores must fit in int8 for the CUDA kernels")
-        m = m.to(torch.int8)
+        fits = int(m.min()) >= -128 and int(m.max()) <= 127
+        m = m.to(torch.int8 if fits else torch.int32)
     return m.to(device).contiguous()
 
 

@@ -15,13 +15,15 @@ before, and fill runs of one repeated input (a strand's pad tail) from a
 three-step pattern; the backtrace composes each chunk's map of end states.
 :func:`gene_chunk_table` cuts the strands here, on the host.  The
 architectural decode runs one warp a contig, one lane a state, with a tree
-pick and no block barrier.  The design notes are at the head of the source.
+pick and no block barrier, up to ``kts_arch_max_states()`` (256) states; above
+that, a block a contig with 16-bit backpointers (32-bit past 65,536 states).
+The design notes are in the source.
 
 Each wrapper checks device, dtype, shape and contiguity, reads the chain
 offsets on the host and checks them as the plain forms do, allocates its
 outputs and scratch with ``torch.empty``, launches on the current stream,
 raises if a launch returns a CUDA error, and counts the decode as
-``viterbi.cuda.gene`` / ``viterbi.cuda.arch`` in
+``viterbi.cuda.gene`` / ``viterbi.cuda.arch`` / ``viterbi.cuda.arch_wide`` in
 :mod:`kaptive_tpu_torch.utils.metrics`.  The gene decode waits on the stream
 once a fix-up round (it reads how many chunks differ).  There is no fallback.
 """
@@ -52,6 +54,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_gene_viterbi.argtypes = [ptr] * 5 + [i32] * 4 + [f32, f32] + [ptr] * 3 + [ctypes.POINTER(i64), ptr]
     lib.kts_arch_viterbi.restype = i32
     lib.kts_arch_viterbi.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 4
+    lib.kts_arch_wide_bp_bytes.restype = i32
+    lib.kts_arch_wide_bp_bytes.argtypes = [i32]
+    lib.kts_arch_viterbi_wide.restype = i32
+    lib.kts_arch_viterbi_wide.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 5
 
 
 LIBRARY = CudaLibrary("viterbi.cu", _declare)
@@ -177,19 +183,27 @@ def arch_viterbi_cuda(
         raise ValueError("arch_viterbi: every contig needs at least one emission row")
     n_contigs = len(lengths)
     check_tensor("transitions", transitions, torch.float32, (S, S), device)
-    if not 1 <= S <= lib.kts_arch_max_states():
-        raise ValueError(f"{S} states outside the kernel's range [1, {lib.kts_arch_max_states()}]")
     paths = torch.empty(rows, dtype=torch.int32, device=device)
     scores = torch.empty(n_contigs, dtype=torch.float32, device=device)
     if n_contigs == 0:
         return paths, scores
-    back = torch.empty((rows, lib.kts_arch_pitch(S)), dtype=torch.uint8, device=device)  # backpointers, scratch
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.kts_arch_viterbi(
-        emissions.data_ptr(), transitions.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,
-        back.data_ptr(), paths.data_ptr(), scores.data_ptr(), stream,
-    )
+    warp = S <= lib.kts_arch_max_states()
+    if warp:
+        back = torch.empty((rows, lib.kts_arch_pitch(S)), dtype=torch.uint8, device=device)  # backpointers, scratch
+        rc = lib.kts_arch_viterbi(
+            emissions.data_ptr(), transitions.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,
+            back.data_ptr(), paths.data_ptr(), scores.data_ptr(), stream,
+        )
+    else:
+        bp = torch.int16 if lib.kts_arch_wide_bp_bytes(S) == 2 else torch.int32
+        back = torch.empty((rows, S), dtype=bp, device=device)  # backpointers, scratch
+        work = torch.empty((n_contigs, 2, S), dtype=torch.float32, device=device)  # two rows of scores a contig
+        rc = lib.kts_arch_viterbi_wide(
+            emissions.data_ptr(), transitions.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,
+            back.data_ptr(), paths.data_ptr(), scores.data_ptr(), work.data_ptr(), stream,
+        )
     if rc != 0:
-        raise RuntimeError(f"architectural Viterbi kernel launch failed: CUDA error {rc}")
-    count("viterbi.cuda.arch")
+        raise RuntimeError(f"architectural Viterbi kernel launch failed ({S} states): CUDA error {rc}")
+    count("viterbi.cuda.arch" if warp else "viterbi.cuda.arch_wide")
     return paths, scores

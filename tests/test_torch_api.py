@@ -99,7 +99,7 @@ EXCEPTIONS = {
         f"{DEVICE_PROGRAM} (the Pallas launch)",
     ),
     "ops/swg_pallas.py:pallas_compatible": (
-        "none: the Hopper fill takes every band width (a warp form and a wide form)",
+        "none: the Hopper fill takes every band width and every int32 matrix (warp, wide and segmented forms)",
         f"{NOT_TO_PORT}: the Pallas -> XLA degrade",
     ),
     "ops/swg_pallas.py:pairs_for": (
@@ -107,7 +107,7 @@ EXCEPTIONS = {
         f"{NOT_TO_PORT}: jit-key padding (pairs a Pallas grid step)",
     ),
     "ops/swg_pallas.py:compress_matrix": (
-        "ops/swg_cuda.py::as_kernel_matrix (the full int32 matrix in shared memory)",
+        "ops/swg_cuda.py::as_kernel_matrix (the full matrix: int8 in shared memory, or int32 in device memory)",
         f"{DEVICE_PROGRAM} (the Pallas kernel's compressed VMEM score table)",
     ),
     "ops/swg_pallas.py:compress_matrix_cached": (

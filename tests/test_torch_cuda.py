@@ -25,6 +25,7 @@ and screen equal one card's exactly, ``sharded_banded_swg`` equals
 budget of one slot.
 """
 
+import io
 from unittest import mock
 
 import numpy as np
@@ -82,9 +83,12 @@ def _assert_kernels_equal_plain(device, arrays, matrix, go, ge, rows_max, w_pad)
     from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_plain
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form, swg_fill_cuda, swg_traceback_cuda
 
-    assert fill_form(w_pad) == ("warp" if w_pad in WARP_WIDTHS else "wide")
     q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
     mat = as_kernel_matrix(torch.from_numpy(matrix), device)
+    if mat.dtype == torch.int32 or w_pad > 8192:
+        assert fill_form(w_pad, mat.dtype) == "segmented"
+    else:
+        assert fill_form(w_pad) == ("warp" if w_pad in WARP_WIDTHS else "wide")
     kw = dict(gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
 
     tb_k, *best_k = swg_fill_cuda(q, ql, t, tl, off, kl, mat, **kw)
@@ -165,15 +169,123 @@ def test_front_door_routes_cuda_to_kernels(device):
     assert "swg.plain.fill" not in counts and "swg.plain.traceback" not in counts
 
 
-def test_fill_rejects_too_wide_band(device):
+def _assert_cigar_walk_equals_plain(device, arrays, matrix, go, ge, rows_max, w_pad):
+    """The kernel fill's bits through the CIGAR kernel and through the plain CIGAR walk: equal."""
+    from kaptive_tpu_torch.ops.swg import traceback_cigar_plain
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, swg_fill_cuda, swg_traceback_cigar_cuda
+
+    q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
+    tb, *best = swg_fill_cuda(q, ql, t, tl, off, kl, as_kernel_matrix(torch.from_numpy(matrix), device),
+                              gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
+    tr = dict(rows_max=rows_max, w_pad=w_pad, t_pad=w_pad + 2)
+    got = swg_traceback_cigar_cuda(tb, q, t, *best, off, **tr)
+    res_p, *rest_p = traceback_cigar_plain(tb, q, t, *best, off, **tr)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.stack(tuple(res_p)))
+    for g, x in zip(got[1:], rest_p):
+        assert torch.equal(g, x)
+    return got
+
+
+@pytest.mark.parametrize("w_pad", [16384, 32768])
+def test_fill_rejects_too_wide_band(device, w_pad):
+    """No band is too wide any more: past 8,192 the fill takes its segmented form, equal to the
+    plain fill with both walks; unseeded pairs whose bands span most of the width, and the
+    sharded front door on four slots."""
+    from kaptive_tpu_torch.ops.swg import banded_swg
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form
+    from kaptive_tpu_torch.parallel.typing import sharded_banded_swg
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    assert fill_form(w_pad) == "segmented"
+    rng = np.random.default_rng(4)
+    arrays = random_swg_batch(rng, NT, 4, 96, w_pad, seeded=False, max_len=96)
+    arrays[5][:] = np.minimum(arrays[5] + (w_pad - 3) // 2 - 200, (w_pad - 3) // 2)  # bands across segments
+    reset_metrics()
+    res = _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 96, w_pad)
+    assert snapshot().get("swg.cuda.fill_segmented") == 1 and "swg.cuda.fill" not in snapshot()
+    assert int(res[0].max()) > 0
+    _assert_cigar_walk_equals_plain(device, arrays, nt_matrix(), 4, 2, 96, w_pad)
+    args = [torch.from_numpy(a).to(device) for a in arrays]
+    matrix = as_kernel_matrix(torch.from_numpy(nt_matrix()), device)
+    statics = dict(gap_open=4, gap_extend=2, rows_max=96, w_pad=w_pad, t_pad=w_pad + 2)
+    want = banded_swg(*args, matrix, **statics)
+    got = sharded_banded_swg(_card_mesh((2, 2)), *args, matrix, **statics)
+    for field, g, w in zip(want._fields, got, want, strict=True):
+        assert torch.equal(g, w), field
+
+
+def test_f7_pair_on_card_equals_plain_and_jax_values(device):
+    """The unseeded 150-versus-4,300 protein pair through the default PairwiseAligner on the card
+    (its bucket: 16 pairs, 16,384 rows, w_pad 32,768): the JAX package's values, the plain
+    form's, with the count-only and the CIGAR walk."""
+    from range_panels import F7_EXPECTED, F7_W_PAD, f7_bucket, f7_pair
+
+    from kaptive_tpu_torch.core.pairwise import PairwiseAligner, batched_swg_align_cigars, blosum62_matrix
+    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    query, target = f7_pair()
+    reset_metrics()
+    res = PairwiseAligner()(Sequences.from_bytes([query]), Sequences.from_bytes([target]))
+    counts = snapshot()
+    assert counts.get("swg.cuda.fill_segmented") == 1 and counts.get("swg.cuda.traceback") == 1
+    assert not any(".plain." in name for name in counts)
+    for field, value in F7_EXPECTED.items():
+        assert int(getattr(res, field)[0]) == value, field
+    seqs = [np.frombuffer(x, np.uint8) for x in (query, target)]
+    _, cigars = batched_swg_align_cigars(seqs[0], np.zeros(1, np.int64), np.array([150], np.int32),
+                                         seqs[1], np.zeros(1, np.int64), np.array([4300], np.int32),
+                                         np.zeros(1, np.int32), np.array([4151], np.int32),
+                                         blosum62_matrix().astype(np.int32), 11, 1)
+    assert cigars.data.tolist() == [150 << 4]
+    arrays = f7_bucket(rows_max=256, n_pairs=3)
+    matrix = blosum62_matrix().astype(np.int32)
+    out = _assert_kernels_equal_plain(device, arrays, matrix, 11, 1, 256, F7_W_PAD)
+    assert int(out[0, 0]) == F7_EXPECTED["scores"]
+    _assert_cigar_walk_equals_plain(device, arrays, matrix, 11, 1, 256, F7_W_PAD)
+
+
+@pytest.mark.parametrize("name", ["blosum62-x20", "nt-100000"])
+@pytest.mark.parametrize("w_pad", [128, 1152, 32768])
+def test_int32_matrix_fill_equals_plain(device, name, w_pad):
+    """Scores outside int8 take the segmented form at every width, equal to the plain fill with
+    both walks; the front doors keep the int32 matrix."""
+    from range_panels import WIDE_MATRICES
+
+    from kaptive_tpu_torch.ops.swg import banded_swg, banded_swg_cigars, device_matrix
+    from kaptive_tpu_torch.ops.swg_cuda import fill_form
+
+    alphabet, matrix_fn, go, ge = WIDE_MATRICES[name]
+    matrix = matrix_fn()
+    assert device_matrix(matrix, device).dtype == torch.int32 and fill_form(w_pad, torch.int32) == "segmented"
+    arrays = random_swg_batch(np.random.default_rng(8), alphabet, 6, 64, w_pad, seeded=False)
+    _assert_kernels_equal_plain(device, arrays, matrix, go, ge, 64, w_pad)
+    _assert_cigar_walk_equals_plain(device, arrays, matrix, go, ge, 64, w_pad)
+    args = [torch.from_numpy(a) for a in (*arrays, matrix)]
+    kw = dict(gap_open=go, gap_extend=ge, rows_max=64, w_pad=w_pad, t_pad=w_pad + 2)
+    for got, want in ((banded_swg(*(a.to(device) for a in args), **kw), banded_swg(*args, **kw)),
+                      (banded_swg_cigars(*(a.to(device) for a in args), **kw)[0], banded_swg_cigars(*args, **kw)[0])):
+        for field, g, w in zip(want._fields, got, want):
+            assert torch.equal(g.cpu(), w), field
+
+
+def test_bounds_that_stay_name_themselves(device, scan_device, viterbi_device):
+    """What no kernel form takes raises with a message that names the bound: a band of fewer
+    than 3 lanes, a k-mer of no base, a window of no k-mer."""
+    from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda, rowcompact_scan_cuda
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, swg_fill_cuda
 
-    rng = np.random.default_rng(4)
-    arrays = random_swg_batch(rng, NT, 2, 64, 16384, seeded=True)
+    arrays = random_swg_batch(np.random.default_rng(4), NT, 2, 16, 3, seeded=True)
     args = [torch.from_numpy(a).to(device) for a in arrays]
-    with pytest.raises(ValueError, match="w_pad"):
-        swg_fill_cuda(*args, as_kernel_matrix(nt_matrix(), device),
-                      gap_open=4, gap_extend=2, rows_max=64, w_pad=16384)
+    with pytest.raises(ValueError, match="w_pad=2"):
+        swg_fill_cuda(*args, as_kernel_matrix(nt_matrix(), device), gap_open=4, gap_extend=2, rows_max=16, w_pad=2)
+    codes = torch.full((1, 40, 128), 4, dtype=torch.uint8, device=scan_device)
+    for k, w in ((0, 10), (15, 0)):
+        with pytest.raises(ValueError, match=f"k={k}, w={w}"):
+            rowcompact_scan_cuda(codes, k, w)
+        with pytest.raises(ValueError, match=f"k={k}, w={w}"):
+            minimizer_scan_cuda(codes[0, 0], k, w)
 
 
 @pytest.fixture(scope="module")
@@ -223,10 +335,9 @@ def test_scan_kernel_equals_plain(scan_device, case):
 
 
 def test_scan_kernel_equals_plain_at_every_window_width(scan_device):
-    """Every instance of the kernel (w = 1 .. 32), at the largest and at a small k, on ties
-    and sentinels laid across the tile, row and word edges."""
+    """Every instance of the tiled kernel (w = 1 .. 32), at the largest and at a small k, on ties
+    and sentinels laid across the tile, row and word edges; past them, the run-time form."""
     from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
-    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_scan_cuda
 
     rng = np.random.default_rng(77)
     codes = torch.from_numpy(np.stack([
@@ -236,10 +347,37 @@ def test_scan_kernel_equals_plain_at_every_window_width(scan_device):
     for w in range(1, 33):
         for k in (16, 15, 5, 1):
             _assert_scan_kernel_equals_plain(scan_device, codes, k, w)
-    with pytest.raises(ValueError, match="outside"):
-        rowcompact_scan_cuda(codes, 15, 33)
-    with pytest.raises(ValueError, match="outside"):
-        rowcompact_scan_cuda(codes, 17, 10)
+    _assert_scan_kernel_equals_plain(scan_device, codes, 15, 33)  # the run-time form
+    _assert_scan_kernel_equals_plain(scan_device, codes, 17, 10)
+
+
+# (k, w) past the tiled kernels' 16 and 32: the run-time form of both scans.
+WIDE_KW = [(15, w) for w in (33, 64, 200, 1000, 1100)] + [(k, w) for k in (17, 20, 31) for w in (10, 40)] + [(32, 5)]
+
+
+@pytest.mark.parametrize("kw", WIDE_KW, ids=[f"k{k}-w{w}" for k, w in WIDE_KW])
+def test_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
+    """The run-time form of the row-compact scan (one launch, the counter ``scan.cuda.rowcompact_any``)
+    on sentinels, ties two apart and poly-A across tile edges, a 24-row panel with a sentinel
+    run, poly-A and a period-2 repeat, and an all-sentinel genome, as one batch."""
+    from range_panels import rowcompact_panel
+
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
+    from kaptive_tpu_torch.ops.scan_cuda import scan_form
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    k, w = kw
+    assert scan_form(k, w) == "any"
+    rng = np.random.default_rng(31 * k + w)
+    streams = [EDGE_PANELS[name](rng) for name in ("sentinels-across-edges", "period-2-across-edges",
+                                                   "poly-a-across-edges")]
+    streams.append(np.full(72 * 128, 4, np.uint8))
+    streams += [s[8:-8].reshape(-1) for s in rowcompact_panel(rows=72)]
+    codes = torch.from_numpy(np.stack([pad_codes_for_scan_any(s[: 72 * 128]) for s in streams]))
+    reset_metrics()
+    got = _assert_scan_kernel_equals_plain(scan_device, codes.to(scan_device), k, w)
+    assert snapshot().get("scan.cuda.rowcompact_any") == 1
+    assert int(got[2].sum()) > 0 and int(got[2][3].sum()) == 0
 
 
 def test_scan_front_door_routes_by_device(scan_device):
@@ -626,10 +764,11 @@ def test_gene_kernel_equals_plain_on_ragged_chunks(viterbi_device, layout):
         assert set(offsets[1:].tolist()) <= ends and offsets[1] == C
 
 
-@pytest.mark.parametrize("n_states", [1, 2, 28, 32, 33, 64, 256])
+@pytest.mark.parametrize("n_states", [1, 2, 28, 32, 33, 64, 256, 257, 300, 1027])
 def test_arch_kernel_equals_plain_with_ties(viterbi_device, n_states):
-    """One launch of 200 contigs of 1 to 3 rows beside one of 24,000 rows: ties, -inf
-    transitions and -inf emissions; paths and scores equal."""
+    """One launch of 200 contigs of 1 to 3 rows beside one of 24,000 rows (2,000 past 256
+    states, the block-a-contig form with 16-bit backpointers, whose plain form on the CPU takes
+    S x S a row): ties, -inf transitions and -inf emissions; paths and scores equal."""
     from viterbi_panels import arch_tie_panel
 
     from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
@@ -637,7 +776,7 @@ def test_arch_kernel_equals_plain_with_ties(viterbi_device, n_states):
 
     rng = np.random.default_rng(n_states)
     n_rows = rng.integers(1, 4, 200).tolist()
-    n_rows.insert(100, 24_000)
+    n_rows.insert(100, 24_000 if n_states <= 256 else 2_000)
     em, trans, offsets = arch_tie_panel(rng, n_rows, n_states)
     args = [torch.from_numpy(a) for a in (em, trans, offsets)]
     paths, scores = arch_viterbi_cuda(*(a.to(viterbi_device) for a in args))
@@ -668,6 +807,35 @@ def test_viterbi_kernels_refuse_bad_offsets(viterbi_device, bad):
         arch_viterbi_cuda(em, trans, off)
     with pytest.raises(ValueError, match="at least one emission row"):
         arch_viterbi_cuda(em, trans, torch.tensor([0, 0, 100], dtype=torch.int64, device=viterbi_device))
+
+
+def test_predictor_with_254_archetypes_on_card_equals_cpu(viterbi_device, tmp_path):
+    """``ArchitecturalPredictor`` from a 254-archetype model (257 states: the architectural
+    decode's block-a-contig form) on the card equals the CPU path."""
+    import io
+
+    from torch_synthetic import make_synthetic_db, random_dna
+
+    from kaptive_tpu_torch.bgc import Annotator, ArchitecturalPredictor, ArchitecturalTrainer
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.db import Database
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    rng = np.random.default_rng(254)
+    gbk, truth = make_synthetic_db(tmp_path, rng, n_loci=20, genes_per_locus=16)  # 320 proteins to cluster
+    db = Database.from_genbank(gbk)
+    fasta = b">c1\n%s\n" % (random_dna(rng, 3000) + truth["loci"]["KL2"]["seq"] + random_dna(rng, 3000))
+    model = ArchitecturalTrainer(num_archetypes=254, feature_dim=64).train(
+        [db.get_locus_data(n) for n in db.loci.ids])
+    annotation = Annotator(db, align=False, device="cpu")(GenomeAssembly.from_stream(io.BytesIO(fasta), "g"))
+    reset_metrics()
+    on_card = ArchitecturalPredictor(model, device="cuda").predict(annotation)
+    counts = snapshot()
+    assert counts.get("viterbi.cuda.arch_wide", 0) > 0 and "viterbi.cuda.arch" not in counts
+    on_cpu = ArchitecturalPredictor(model, device="cpu").predict(annotation)
+    for name in ("contig_names", "offsets", "lengths", "member_orfs", "member_states"):
+        np.testing.assert_array_equal(getattr(on_card, name), getattr(on_cpu, name))
+    np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=1e-5)
 
 
 def test_bgc_annotate_and_predict_on_card_equal_cpu(viterbi_device, tmp_path):
@@ -929,10 +1097,64 @@ def test_flat_scan_kernel_equals_plain_on_odd_lengths(scan_device, L):
         batched = minimizer_scan_cuda(cuda, 15, 10)
         for g, x in zip(got, batched):
             assert torch.equal(g, x[row])
-    with pytest.raises(ValueError, match="outside"):
-        minimizer_scan_cuda(cuda, 17, 10)
-    with pytest.raises(ValueError, match="outside"):
-        minimizer_scan_cuda(cuda, 15, 33)
+    _assert_flat_kernel_equals_plain(cuda, 17, 10)  # the run-time form
+    _assert_flat_kernel_equals_plain(cuda, 15, 33)
+
+
+@pytest.mark.parametrize("kw", WIDE_KW, ids=[f"k{k}-w{w}" for k, w in WIDE_KW])
+def test_flat_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
+    """The run-time form of the flat scan (counter ``scan.cuda.flat_any``): random rows with
+    sentinel runs, poly-A and valid bases to the end, codes 5 and 255, an all-sentinel row; an
+    odd length, and a (L,) stream equal to its row of the batch."""
+    from range_panels import scan_stream
+
+    from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    k, w = kw
+    rng = np.random.default_rng(97 * k + w)
+    L = 9_001
+    codes = np.stack([scan_stream(rng, L) for _ in range(3)] + [np.full(L, 4, np.uint8)])
+    codes[0, -3:] = (1, 2, 3)  # k-mers that roll over the end
+    codes[1, rng.random(L) < 0.01] = 5
+    codes[1, -1] = 255
+    cuda = torch.from_numpy(codes).to(scan_device)
+    reset_metrics()
+    sel, _, _ = _assert_flat_kernel_equals_plain(cuda, k, w)
+    assert snapshot() == {"scan.cuda.flat_any": 1, "scan.plain.flat": 1}
+    assert bool(sel[0].any()) and not bool(sel[3].any())
+    for g, x in zip(minimizer_scan_cuda(cuda[2], k, w), minimizer_scan_cuda(cuda, k, w)):
+        assert torch.equal(g, x[2])
+
+
+MAPPED_FIELDS = ("q_starts", "q_ends", "t_starts", "t_ends", "scores", "matches", "mismatches", "strands",
+                 "q_name_ids", "t_name_ids", "qualities", "is_primary", "divergence")
+
+
+def test_device_seeded_mapping_with_a_wide_index_on_card_equals_cpu(scan_device, tmp_path):
+    """``map_genes_batch`` device-seeded on the card with a k = 17, w = 40 ``GeneIndex`` (the
+    row-compact scan's run-time form) equals the same call on the CPU, every field."""
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from typing_panel import make_port_typing_panel
+
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    db, genomes = make_port_typing_panel(tmp_path)
+    index = GeneIndex.build(db.genes, k=17, w=40)
+    names = tuple(str(i) for i in range(len(db.genes)))
+    assemblies = [GenomeAssembly.from_stream(io.BytesIO(f), n) for n, f in genomes]
+    reset_metrics()
+    on_card = map_genes_batch(index, assemblies, names, seed_mode="device", device="cuda")
+    counts = snapshot()
+    assert counts.get("scan.cuda.rowcompact_any", 0) > 0 and "scan.cuda.rowcompact" not in counts
+    assert not any(name.startswith("scan.plain") for name in counts)
+    on_cpu = map_genes_batch(index, assemblies, names, seed_mode="device", device="cpu")
+    assert len(on_card) == len(on_cpu) and sum(len(a) for a in on_cpu) > 0
+    for got, want in zip(on_card, on_cpu):
+        for field in MAPPED_FIELDS:
+            np.testing.assert_array_equal(getattr(got, field), getattr(want, field), err_msg=field)
 
 
 @pytest.mark.parametrize("w", range(1, 33))
