@@ -137,17 +137,21 @@ module of either was loaded).  Steps:
     driven through a public entry point with the counts set to 0 just before
     and read just after, then held to its plain form on the card and timed
     beside its bound.  The unseeded 150-versus-4,300 protein pair through the
-    default ``PairwiseAligner`` (the fill's segmented form at ``w_pad``
+    default ``PairwiseAligner`` (the fill's cluster form at ``w_pad``
     32,768: score 849, 150 matches, q_start 0, t_start 1,000) and through
     ``batched_swg_align_cigars`` (one 150M run); ``batched_swg_align`` with
-    BLOSUM62 x 20 (scores outside int8, the segmented form at the planner's
-    widths), equal to its CPU path; ``map_genes_batch`` device-seeded with a
+    BLOSUM62 x 20 (scores outside int8, the cluster form at the planner's
+    widths), equal to its CPU path; ``banded_swg`` on a bucket at ``w_pad``
+    131,075 (past the largest cluster: the segmented form); ``map_genes_batch`` device-seeded with a
     k = 17, w = 40 ``GeneIndex`` on two assemblies and ``build_minimizer_set``
     at (17, 40) (both scans' run-time form), the recorded scan batch and the
     four-assembly flat stream held to the plain forms, and both scans at w =
     1,100 on a 1 Mb stream; an ``ArchitecturalPredictor`` of 254 archetypes
-    (257 states: the architectural decode's block-a-contig form) on the draft
-    assembly's annotation, equal to its CPU path.
+    (257 states: the architectural decode's block-a-contig form, a warp a
+    state) on the draft assembly's annotation, equal to its CPU path.  Each
+    redesigned form's time is printed beside its bound and share;
+    ``measure_input_range.py --parent DIR`` times them beside a parent
+    checkout's kernels.
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
@@ -1239,28 +1243,100 @@ def flat_scan_phase(card: str, db, assemblies) -> dict:
     return {**flat, "launches": launches, "panel_max_abs_err": panel["max_abs_err"]}
 
 
-def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
-    """Step 12 (f): the kernel forms of the inputs the main path's forms refuse: the fill's
-    segmented form (w_pad 32,768, int32 scores), both scans' run-time form (k > 16, w > 32) and
-    the architectural decode's block-a-contig form (257 states), each through a public entry
-    point, then held to its plain form on the card and timed."""
+def blosum_x20_align_args(n_pairs: int = 48, seed: int = SEED) -> tuple:
+    """``batched_swg_align``'s arguments for step 12(f)'s F8: ``n_pairs`` unseeded protein pairs of
+    80-400 residues (targets: the query with 10% substitutions behind up to 60 random residues)
+    scored with BLOSUM62 x 20 and gaps 220 + 20."""
     import numpy as np
-    import torch
-    from range_panels import F7_EXPECTED, f7_pair, scaled_blosum, scan_stream
+    from range_panels import scaled_blosum
     from swg_panels import AA
 
-    from kaptive_tpu_torch.bgc import ArchitecturalPredictor, ArchitecturalTrainer
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(AA, np.uint8)
+    qs = [alpha[rng.integers(0, 20, int(rng.integers(80, 400)))] for _ in range(n_pairs)]
+    ts = []
+    for q_seq in qs:
+        t_seq = q_seq.copy()
+        t_seq[rng.random(len(t_seq)) < 0.1] = alpha[rng.integers(0, 20)]
+        ts.append(np.concatenate([alpha[rng.integers(0, 20, int(rng.integers(0, 60)))], t_seq]))
+
+    def ragged(xs):
+        lengths = np.array([len(x) for x in xs], np.int32)
+        return np.concatenate(xs), np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64), lengths
+
+    q_r, t_r = ragged(qs), ragged(ts)
+    k_locals = np.maximum(20, np.abs(q_r[2] - t_r[2]) + 1).astype(np.int32)
+    return (*q_r, *t_r, np.zeros(n_pairs, np.int32), k_locals, scaled_blosum(20), 220, 20)
+
+
+def record_f7_bucket():
+    """The unseeded F7 pair through the default ``PairwiseAligner`` with the fill's front door
+    recorded: ``(SwgResult, counts, (args, kw) of its one bucket)``."""
+    from range_panels import f7_pair
+
+    from kaptive_tpu_torch.core import pairwise
+    from kaptive_tpu_torch.core.pairwise import PairwiseAligner
+    from kaptive_tpu_torch.core.seq import Sequences
+
+    query, target = f7_pair()
+    recorder = _CallRecorder(pairwise.banded_swg)
+    pairwise.banded_swg = recorder
+    try:
+        res = PairwiseAligner()(Sequences.from_bytes([query]), Sequences.from_bytes([target]))
+    finally:
+        pairwise.banded_swg = recorder.inner
+    return res, recorder.calls[0]
+
+
+def train_arch_257(db):
+    """A 254-archetype model (257 states) trained on the database's KL loci: ``(model, seconds)``."""
+    from kaptive_tpu_torch.bgc import ArchitecturalTrainer
+
+    t0 = time.perf_counter()
+    loci = [db.get_locus_data(name) for name in db.loci.ids if name.startswith("KL")]
+    model = ArchitecturalTrainer(num_archetypes=254, feature_dim=64).train(loci)
+    return model, time.perf_counter() - t0
+
+
+def record_arch_predict(model, annotation):
+    """``ArchitecturalPredictor(model).predict(annotation)`` on the card with the decode's front
+    door recorded: ``(predicted, [(args, kw)] of its launches)``."""
+    from kaptive_tpu_torch.bgc import ArchitecturalPredictor
     from kaptive_tpu_torch.bgc import kernels as bgc_kernels
+
+    arch_rec = _CallRecorder(bgc_kernels.arch_viterbi)
+    bgc_kernels.arch_viterbi = arch_rec
+    try:
+        predicted = ArchitecturalPredictor(model, device="cuda").predict(annotation)
+    finally:
+        bgc_kernels.arch_viterbi = arch_rec.inner
+    return predicted, arch_rec.calls
+
+
+def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
+    """Step 12 (f): the kernel forms of the inputs the main path's forms refuse: the fill's
+    cluster form (w_pad 32,768, int32 scores) and segmented form (past the largest cluster), both
+    scans' run-time form (k > 16, w > 32) and the architectural decode's block-a-contig form
+    (257 states), each through a public entry point, then held to its plain form on the card and
+    timed beside its bound."""
+    import numpy as np
+    import torch
+    from range_panels import F7_EXPECTED, f7_pair, scaled_blosum, scan_stream, wide_band_panel
+    from swg_panels import NT, nt_matrix
+
+    from kaptive_tpu_torch.bgc import ArchitecturalPredictor
     from kaptive_tpu_torch.core import pairwise
     from kaptive_tpu_torch.core.genome import GenomeAssembly
-    from kaptive_tpu_torch.core.pairwise import PairwiseAligner, batched_swg_align, batched_swg_align_cigars
-    from kaptive_tpu_torch.core.seq import Sequences
+    from kaptive_tpu_torch.core.pairwise import batched_swg_align, batched_swg_align_cigars
     from kaptive_tpu_torch.ops import mapper
+    from kaptive_tpu_torch.ops.swg import banded_swg
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, cluster_plan
     from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
     from kaptive_tpu_torch.ops.minimizer import build_minimizer_set
     from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
     from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
     from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
+    from kaptive_tpu_torch.ops.viterbi_cuda import build as viterbi_build
     from kaptive_tpu_torch.parallel.screen import encode_assemblies_to_batch
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
@@ -1282,14 +1358,7 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
 
     # F7: the unseeded 150-versus-4,300 pair through the default aligner (the w_pad 32,768 bucket).
     query, target = f7_pair()
-    recorder = _CallRecorder(pairwise.banded_swg)
-    pairwise.banded_swg = recorder
-    try:
-        res, counts = drive("the F7 pair", lambda: PairwiseAligner()(Sequences.from_bytes([query]),
-                                                                     Sequences.from_bytes([target])),
-                            {"swg.cuda.fill_segmented", "swg.cuda.traceback"})
-    finally:
-        pairwise.banded_swg = recorder.inner
+    (res, f7_call), counts = drive("the F7 pair", record_f7_bucket, {"swg.cuda.fill_cluster", "swg.cuda.traceback"})
     got = {field: int(getattr(res, field)[0]) for field in F7_EXPECTED}
     if got != F7_EXPECTED:
         raise AssertionError(f"the F7 pair on the card: {got}, the JAX package gives {F7_EXPECTED}")
@@ -1297,36 +1366,24 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
     (_, cigars), _ = drive("the F7 pair's CIGAR", lambda: batched_swg_align_cigars(
         seqs[0], np.zeros(1, np.int64), np.array([len(query)], np.int32), seqs[1], np.zeros(1, np.int64),
         np.array([len(target)], np.int32), np.zeros(1, np.int32), np.array([len(target) - len(query) + 1], np.int32),
-        np.asarray(pairwise.blosum62_matrix(), np.int32), 11, 1), {"swg.cuda.fill_segmented", "swg.cuda.traceback_cigar"})
+        np.asarray(pairwise.blosum62_matrix(), np.int32), 11, 1), {"swg.cuda.fill_cluster", "swg.cuda.traceback_cigar"})
     if cigars.data.tolist() != [len(query) << 4]:
         raise AssertionError(f"the F7 pair's CIGAR on the card: {cigars.data.tolist()}, not one {len(query)}M run")
     print(f"# input range, F7: PairwiseAligner() on the card, the unseeded {len(query)}-versus-{len(target)} protein "
           f"pair: {got} (the JAX package's values), CIGAR {len(query)}M; counts {dict(sorted(counts.items()))}",
           flush=True)
-    f7 = _check_bucket("input range, F7", *recorder.calls[0], "segmented")
+    f7 = _check_bucket("input range, F7", *f7_call, "cluster")
+    print(f"# input range, F7 bucket {f7['shape']} in the cluster form {cluster_plan(f7['shape'][2])} (CTAs, lanes a "
+          f"CTA, lanes a thread, threads): fill {f7['fill_ms']:.4f} ms, bound {f7['fill_bound']['bound_ms']:.5f} ms: "
+          f"{_share({'ms': f7['fill_ms'], **f7['fill_bound']})} [{card}]", flush=True)
 
     # F8: scores outside int8 (BLOSUM62 x 20, gap 220 + 20) through batched_swg_align, card == CPU.
-    rng = np.random.default_rng(SEED)
-    alpha = np.frombuffer(AA, np.uint8)
-    qs = [alpha[rng.integers(0, 20, int(rng.integers(80, 400)))] for _ in range(48)]
-    ts = []
-    for q_seq in qs:
-        t_seq = q_seq.copy()
-        t_seq[rng.random(len(t_seq)) < 0.1] = alpha[rng.integers(0, 20)]
-        ts.append(np.concatenate([alpha[rng.integers(0, 20, int(rng.integers(0, 60)))], t_seq]))
-
-    def ragged(xs):
-        lengths = np.array([len(x) for x in xs], np.int32)
-        return np.concatenate(xs), np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64), lengths
-
-    q_r, t_r = ragged(qs), ragged(ts)
-    k_locals = np.maximum(20, np.abs(q_r[2] - t_r[2]) + 1).astype(np.int32)
-    align_args = (*q_r, *t_r, np.zeros(48, np.int32), k_locals, scaled_blosum(20), 220, 20)
+    align_args = blosum_x20_align_args()
     recorder = _CallRecorder(pairwise.banded_swg)
     pairwise.banded_swg = recorder
     try:
         on_card, _ = drive("BLOSUM62 x 20", lambda: batched_swg_align(*align_args),
-                           {"swg.cuda.fill_segmented", "swg.cuda.traceback"})
+                           {"swg.cuda.fill_cluster", "swg.cuda.traceback"})
     finally:
         pairwise.banded_swg = recorder.inner
     on_cpu = batched_swg_align(*align_args, device="cpu")
@@ -1336,7 +1393,21 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
     print(f"# input range, F8: batched_swg_align with BLOSUM62 x 20 (scores {int(scaled_blosum().min())} .. "
           f"{int(scaled_blosum().max())}), 48 unseeded protein pairs in {len(recorder.calls)} buckets: card == CPU "
           f"(every field; best score {int(on_card.scores.max())})", flush=True)
-    int32 = _check_bucket("input range, F8 (BLOSUM62 x 20)", *recorder.largest_bucket(), "segmented")
+    int32 = _check_bucket("input range, F8 (BLOSUM62 x 20)", *recorder.largest_bucket(), "cluster")
+    print(f"# input range, F8 bucket {int32['shape']} in the cluster form {cluster_plan(int32['shape'][2])}: fill "
+          f"{int32['fill_ms']:.4f} ms, bound {int32['fill_bound']['bound_ms']:.5f} ms: "
+          f"{_share({'ms': int32['fill_ms'], **int32['fill_bound']})} [{card}]", flush=True)
+
+    # F11: a band past the cluster form's largest (16 CTAs of 8,192 lanes) takes the segmented form.
+    w_pad = 131075
+    seg_arrays = [torch.from_numpy(a).cuda() for a in wide_band_panel(7, NT, 2, 24, w_pad)]
+    seg_kw = dict(gap_open=4, gap_extend=2, rows_max=24, w_pad=w_pad, t_pad=w_pad + 2)
+    seg_args = (*seg_arrays, as_kernel_matrix(nt_matrix(), torch.device("cuda")))
+    seg_res, _ = drive("a band past the largest cluster", lambda: banded_swg(*seg_args, **seg_kw),
+                       {"swg.cuda.fill_segmented", "swg.cuda.traceback"})
+    if int(seg_res.scores.max()) <= 0:
+        raise AssertionError("the band past the largest cluster aligned nothing")
+    segmented = _check_bucket("input range, F11 (past the largest cluster)", seg_args, seg_kw, "segmented")
 
     # F5 + F9: device seeding with a k = 17, w = 40 index (the row-compact scan's run-time form).
     index = GeneIndex.build(db.genes, k=17, w=40)
@@ -1373,20 +1444,13 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
           f"[{card}]", flush=True)
 
     # F6: a 254-archetype model (257 states) on the draft assembly's annotation, card == CPU.
-    t0 = time.perf_counter()
-    loci = [db.get_locus_data(name) for name in db.loci.ids if name.startswith("KL")]
-    model = ArchitecturalTrainer(num_archetypes=254, feature_dim=64).train(loci)
-    train_s = time.perf_counter() - t0
-    arch_rec = _CallRecorder(bgc_kernels.arch_viterbi)
-    bgc_kernels.arch_viterbi = arch_rec
-    try:
-        predicted, _ = drive("the 254-archetype predictor", lambda: ArchitecturalPredictor(
-            model, device="cuda").predict(draft_annotation), {"viterbi.cuda.arch_wide"})
-    finally:
-        bgc_kernels.arch_viterbi = arch_rec.inner
+    model, train_s = train_arch_257(db)
+    (predicted, arch_calls), _ = drive("the 254-archetype predictor", lambda: record_arch_predict(
+        model, draft_annotation), {"viterbi.cuda.arch_wide"})
     _same_predictions(predicted, ArchitecturalPredictor(model, device="cpu").predict(draft_annotation),
                       "the 254-archetype predictor")
-    args = max((a for a, _ in arch_rec.calls), key=lambda a: a[0].shape[0])
+    args = max((a for a, _ in arch_calls), key=lambda a: a[0].shape[0])
+    longest = int(torch.diff(args[2]).max())
     paths, scores = arch_viterbi_cuda(*args)
     on_cpu = [x.cpu() for x in args]
     (want_p, want_s), plain_s = _cpu_seconds(lambda: arch_viterbi_plain(*on_cpu))
@@ -1394,15 +1458,18 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
         raise AssertionError("the architectural decode's block-a-contig form differs from its plain form")
     arch = {"max_abs_err": 0, "ms": _timed(lambda: arch_viterbi_cuda(*args), 5), "plain_ms": plain_s * 1e3,
             **_arch_bound(args[0], args[2])}
+    ctas = viterbi_build().kts_arch_wide_cluster(args[0].shape[1], len(args[2]) - 1)
     print(f"# input range, F6: ArchitecturalPredictor of {model.transitions.shape[0] - 3} archetypes (trained in "
           f"{train_s:.1f} s) on the draft assembly's annotation: {len(predicted)} predicted loci, card == CPU; "
-          f"the largest decode, {args[0].shape[0]} rows x {args[0].shape[1]} states in {len(args[2]) - 1} contigs: "
-          f"kernel == plain; kernel {arch['ms']:.4f} ms, plain (CPU, one thread) {arch['plain_ms']:.1f} ms; bound "
-          f"{arch['bound_ms']:.5f} ms by {arch['bound_by']}: {_share(arch)} [{card}]", flush=True)
+          f"the largest decode, {args[0].shape[0]} rows x {args[0].shape[1]} states in {len(args[2]) - 1} contigs "
+          f"(the longest {longest} rows; {ctas} CTAs a contig): kernel == plain; kernel {arch['ms']:.4f} ms "
+          f"({arch['ms'] * 1e3 / longest:.3f} us a row of the longest), plain (CPU, one thread) "
+          f"{arch['plain_ms']:.1f} ms; bound {arch['bound_ms']:.5f} ms by {arch['bound_by']}: {_share(arch)} [{card}]",
+          flush=True)
     wall = time.perf_counter() - t_phase
     print(f"# input range phase: {wall:.1f} s wall; launches {launches} [{card}]", flush=True)
-    return {"f7": f7, "int32": int32, "rowcompact": rowcompact, "flat": flat, "far": far, "arch": arch,
-            "launches": launches, "wall_s": wall}
+    return {"f7": f7, "int32": int32, "segmented": segmented, "rowcompact": rowcompact, "flat": flat, "far": far,
+            "arch": {**arch, "longest_rows": longest}, "launches": launches, "wall_s": wall}
 
 
 def build_workload(n_assemblies: int, seed: int = SEED):
@@ -1777,13 +1844,18 @@ def main() -> int:
     # Step 12 (f)'s forms: launches are the input-range phase's, ms the F7 bucket / the recorded scan
     # batch / the four-assembly flat stream / the largest 257-state decode.
     f7, i32, rc_any, flat_any, arch_w = ranged["f7"], ranged["int32"], ranged["rowcompact"], ranged["flat"], ranged["arch"]
+    seg = ranged["segmented"]
     kernels += [
-        {"name": "swg_fill_segmented", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
-         "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": ranged["launches"]["swg.cuda.fill_segmented"],
+        {"name": "swg_fill_cluster", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
+         "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": ranged["launches"]["swg.cuda.fill_cluster"],
          "max_abs_err": max(f7["max_abs_err"], i32["max_abs_err"]), "ms": f7["fill_ms"],
          "plain_ms": f7["fill_plain_ms"], **f7["fill_bound"], "library_ms": None, "shape": f7["shape"],
          "int32_ms": i32["fill_ms"], "int32_plain_ms": i32["fill_plain_ms"],
          "int32_bound_ms": i32["fill_bound"]["bound_ms"], "int32_shape": i32["shape"]},
+        {"name": "swg_fill_segmented", "route": "cuda", "source": "kaptive_tpu_torch/csrc/swg.cu",
+         "replaces": "kaptive_tpu/ops/swg_pallas.py:91", "launches": ranged["launches"]["swg.cuda.fill_segmented"],
+         "max_abs_err": seg["max_abs_err"], "ms": seg["fill_ms"], "plain_ms": seg["fill_plain_ms"],
+         **seg["fill_bound"], "library_ms": None, "shape": seg["shape"]},
         {"name": "rowcompact_scan_any", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
          "replaces": "kaptive_tpu/ops/scan_pallas.py:230", "launches": ranged["launches"]["scan.cuda.rowcompact_any"],
          "max_abs_err": max(rc_any["max_abs_err"], ranged["far"][0]["max_abs_err"]), "ms": rc_any["ms"],
@@ -1799,7 +1871,8 @@ def main() -> int:
         {"name": "arch_viterbi_wide", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
          "replaces": "kaptive_tpu/bgc/kernels.py:83", "launches": ranged["launches"]["viterbi.cuda.arch_wide"],
          "max_abs_err": arch_w["max_abs_err"], "ms": arch_w["ms"], "plain_ms": arch_w["plain_ms"],
-         "bound_ms": arch_w["bound_ms"], "bound_by": arch_w["bound_by"], "library_ms": None},
+         "bound_ms": arch_w["bound_ms"], "bound_by": arch_w["bound_by"], "library_ms": None,
+         "longest_rows": arch_w["longest_rows"]},
     ]
     print(f"# ms / plain_ms: SWG on the extension bucket {ext['shape']}; protein_ms / protein_plain_ms: "
           f"protein bucket {prot['shape']} (B, rows_max, w_pad); wide_form_ms: the fill's wide form on "
@@ -1812,10 +1885,12 @@ def main() -> int:
           f"{MESH_SHAPES}; mesh_shape / mesh_max_abs_err: the largest extension shard and the largest data "
           f"row's scan recorded in them, held to the plain forms; minimizer_scan (and flat_scan_* on the "
           f"rowcompact_scan entry, the same library) on the (B, L) stream {flat['shape']} of step 12, launches: "
-          f"step 12's overflowing screen; swg_fill_segmented on the F7 bucket {f7['shape']} (int32_*: the "
-          f"BLOSUM62 x 20 bucket {i32['shape']}), rowcompact_scan_any on the (17, 40) batch {rc_any['shape']} and "
+          f"step 12's overflowing screen; swg_fill_cluster on the F7 bucket {f7['shape']} (int32_*: the "
+          f"BLOSUM62 x 20 bucket {i32['shape']}), swg_fill_segmented on the bucket {seg['shape']} past the largest "
+          f"cluster, rowcompact_scan_any on the (17, 40) batch {rc_any['shape']} and "
           f"minimizer_scan_any on the (17, 40) stream {flat_any['shape']} (w1100_*: one 1 Mb stream at w = 1,100), "
-          f"arch_viterbi_wide on the 257-state draft launch, launches: step 12(f); {N_ASSEMBLIES / elapsed:.3f} asm/s "
+          f"arch_viterbi_wide on the 257-state draft launch (longest_rows: its longest contig), launches: step "
+          f"12(f); {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "
           f"{cli_walls['device']:.3f} s wall host / device-seeded, installed CLI {install_walls['host']:.3f} / "
           f"{install_walls['device']:.3f} s; screen {screen_rate:.3f} asm/s [{card}]",

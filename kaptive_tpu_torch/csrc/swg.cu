@@ -18,7 +18,7 @@
 // The fill.  The DP is a sequential recurrence over rows (row i needs row
 // i-1's M and D bands) and a row is only a few hundred integer operations, so
 // neither bytes nor arithmetic bound it: the chain of latencies inside one row
-// does, times the number of rows.  Three forms, chosen from w_pad and the
+// does, times the number of rows.  Four forms, chosen from w_pad and the
 // matrix's type (int8 when every score fits, as BLOSUM62's and the mapper's do):
 // - Warp form (w_pad a multiple of 128 up to 1024, the widths the lattices
 //   produce): ONE WARP owns one pair and each thread owns w_pad / 32
@@ -45,14 +45,19 @@
 //   bands live in shared memory, threads own runs of lanes, and each row pays
 //   two block barriers (scan and per-row best).  Kept for bands a warp cannot
 //   hold in registers.
-// - Segmented form (every other case: w_pad past 8192, which the planner
-//   emits as 32,768, 131,072, ..., and any matrix with a score outside int8):
-//   the wide form's arithmetic over a band kept in device scratch between
-//   rows and walked in segments of 8,192 lanes staged in shared memory (see
+// - Cluster form (w_pad past 8192, which the planner emits as 32,768 and
+//   131,072, and any matrix with a score outside int8, up to 131,072 lanes):
+//   the band stays in registers, one warp a pair up to 512 lanes, else a
+//   thread-block cluster of up to 16 CTAs a pair that exchange the scan's
+//   totals and their edge lanes through distributed shared memory, one block
+//   barrier and one cluster barrier a row (see swg_fill_cluster_kernel).
+// - Segmented form (past the largest cluster: the planner's 524,288): the
+//   wide form's arithmetic over a band kept in device scratch between rows
+//   and walked in segments of 8,192 lanes staged in shared memory (see
 //   swg_fill_segmented_kernel).
 // - Substitution scores are gathers from the full 256x256 matrix, kept as
 //   int8 in shared memory (64 KB) by the warp and wide forms and read as
-//   int32 from device memory by the segmented form.  The Pallas kernel
+//   int32 through L1 by the cluster and segmented forms.  The Pallas kernel
 //   factored the matrix into class tables because the TPU has no vector
 //   gathers; here the gather is one load.
 // - Rows past the query's length hold no filled cell and the traceback never
@@ -79,6 +84,8 @@
 // Scores stay in int32: NEG_INF = -1e9 plus the unmasked drift of the D
 // carry over a few thousand rows stays far inside the int32 range.
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -506,7 +513,8 @@ __global__ void __launch_bounds__(MAX_THREADS) swg_fill_kernel(
     }
 }
 
-// Segmented form of the fill: any band width and any int32 substitution score.
+// Segmented form of the fill: any band width and any int32 substitution score (taken past the
+// cluster form's largest band).
 // One block per pair, SEG_THREADS threads of SEG_LPT lanes each: the block walks
 // each row's band in segments of SEG_THREADS * SEG_LPT = 8,192 lanes (fewer
 // threads when the band is narrower).  Between rows the M and D bands live in
@@ -723,6 +731,380 @@ __global__ void __launch_bounds__(SEG_THREADS) swg_fill_segmented_kernel(
     }
 }
 
+// Cluster form of the fill: every band up to CL_MAX_W_PAD lanes, int32 scores (the int8 forms'
+// refusals: past 8,192 lanes, or a score outside int8), the band never leaving the SMs.  A pair
+// is owned by one warp (bands up to CL_WARP_MAX_W_PAD lanes, CL_PAIRS pairs a CTA, no barrier at
+// all), or by a cluster of C CTAs (C = 1 .. 16) that cut the band into slices of `slice` lanes,
+// CTA `rank` holding lanes [rank * slice, ...).  A thread owns LPT contiguous lanes and keeps their
+// M and D in registers from row to row, as the warp form does.  What a lane needs of a lane it
+// does not own comes by a shuffle inside a warp; across warps and CTAs it is rebuilt from what
+// the owner published for the row: a warp's total of the max-plus scan, its first lane's (H before
+// the local reset, D, flags) and its last lane's (exclusive prefix inside the CTA, H, flags).
+// From those and the scan's carry a lane's final M and I follow (cl_final), so a row needs one
+// block barrier (the warps' publications) and, with C > 1, one cluster barrier: before it each
+// CTA pushes, through distributed shared memory, its total to every CTA on its right, its first
+// lane to its left neighbour and its last lane to its right neighbour (the arrive is split from
+// the wait, and the CTA's own part of the prefix is taken in between).  Publications are
+// double-buffered by row parity: a slot written for row i is read after row i's barriers and
+// written again for row i + 2 only after row i + 1's barriers, which every reader reaches after
+// its reads.  The best cell: each thread keeps its own (strictly greater over its rows and lanes
+// in order, so its earliest row and lowest lane win), and the pair's threads reduce once at the
+// end by (highest value, lowest row, lowest lane), CTAs through rank 0's shared memory: the cell
+// the per-row rule picks.  Every cell is the wide form's arithmetic in int32, the scores read from
+// the (256, 256) int32 matrix through L1 (a query byte's 1 KB row), dm * gap_extend wrapping as
+// the JAX package's int32 product does.
+constexpr int CL_THREADS = 512;          // threads a CTA of a cluster at most
+constexpr int CL_WARPS = CL_THREADS / 32;
+constexpr int CL_PAIRS = 4;              // pairs a CTA in the warp-a-pair mode, one warp each
+constexpr int CL_MAX_CLUSTER = 16;       // CTAs a cluster at most (a non-portable size)
+constexpr int CL_SLICE = 2048;           // lanes a CTA takes while the cluster can grow
+constexpr int CL_MAX_LPT = 16;
+constexpr int CL_WARP_MAX_W_PAD = 32 * CL_MAX_LPT;                      // 512
+constexpr int CL_MAX_W_PAD = CL_MAX_CLUSTER * CL_THREADS * CL_MAX_LPT;  // 131,072
+
+__device__ __forceinline__ int cl_lane_ge(int dm, int ge) { return (int)((unsigned)dm * (unsigned)ge); }
+
+// A lane's H after the local reset, from its H before it and its flags (16 filled, 32 in_pad).
+__device__ __forceinline__ int cl_h_c(int h_ng, int flags) {
+    return (flags & 16) ? max(h_ng, 0) : ((flags & 32) ? 0 : NEG_INF);
+}
+
+// A lane's final M and I of the row, from its H, flags and the scan's exclusive prefix before it.
+__device__ __forceinline__ void cl_final(int h_ng, int flags, int prefix, int dm, int gap_open, int ge, int& m,
+                                         int& i_cur) {
+    i_cur = (flags & 16) ? prefix - gap_open - cl_lane_ge(dm, ge) : NEG_INF;
+    m = (flags & 16) ? max(max(cl_h_c(h_ng, flags), i_cur), 0) : ((flags & 32) ? 0 : NEG_INF);
+}
+
+// Row 0's M of band lane dm: 0 on the padded band's border cells, else -INF (also past the band).
+__device__ __forceinline__ int cl_row0_m(int dm, int w_pad, int off, int k_pad, int kl, int cols) {
+    const int j0 = dm - off - k_pad - 1;
+    return dm < w_pad && abs(dm - (k_pad + 1)) <= kl + 1 && j0 >= 0 && j0 < cols ? 0 : NEG_INF;
+}
+
+__device__ __forceinline__ bool cl_better(int v, int r, int l, int best, int row, int lane) {
+    return v > best || (v == best && (r < row || (r == row && l < lane)));
+}
+
+__device__ __forceinline__ void cl_cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cl_cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+
+template <int LPT, bool WARP>
+__global__ void __launch_bounds__(WARP ? CL_PAIRS * 32 : CL_THREADS) swg_fill_cluster_kernel(
+    const uint8_t* __restrict__ q,         // (B, rows_max)
+    const uint8_t* __restrict__ t,         // (B, t_cols), left-padded by w_pad + 2
+    const int32_t* __restrict__ q_lens,    // (B,)
+    const int32_t* __restrict__ t_lens,    // (B,)
+    const int32_t* __restrict__ offsets,   // (B,) diagonal offsets q_pos - t_pos
+    const int32_t* __restrict__ k_locals,  // (B,) half band widths
+    const int32_t* __restrict__ matrix,    // (256, 256)
+    int n_pairs, int rows_max, int w_pad, int t_cols, int gap_open, int gap_extend, int slice,
+    uint8_t* __restrict__ tb,              // out (B, rows_max, w_pad)
+    int32_t* __restrict__ best_out,        // out (B,)
+    int32_t* __restrict__ best_i_out,      // out (B,)
+    int32_t* __restrict__ best_j_out) {    // out (B,)
+    static_assert(LPT == 4 || LPT == 8 || LPT == 16, "LPT is 4, 8 or 16");
+    namespace cg = cooperative_groups;
+    __shared__ int s_wtot[2][CL_WARPS];          // each warp's inclusive scan total
+    __shared__ int s_wfirst[2][CL_WARPS][3];     // each warp's first lane: H before the reset, D, flags
+    __shared__ int s_wlast[2][CL_WARPS][3];      // each warp's last lane: exclusive prefix in the CTA, H, flags
+    __shared__ int s_tot_in[2][CL_MAX_CLUSTER];  // pushed: the totals of the CTAs on the left
+    __shared__ int s_right[2][3];                // pushed: the right neighbour CTA's first lane
+    __shared__ int s_left[2][3];                 // pushed: the left neighbour CTA's last lane
+    __shared__ int s_best[CL_WARPS][3];          // the warps' bests
+    __shared__ int s_cbest[CL_MAX_CLUSTER][3];   // rank 0: the CTAs' bests
+
+    const int tid = threadIdx.x;
+    const int lane_id = tid & 31;
+    const int warp = tid >> 5;
+    const int nwarps = blockDim.x >> 5;
+    int b, rank = 0, C = 1, s0 = 0, n = w_pad, lo;
+    if constexpr (WARP) {
+        b = blockIdx.x * CL_PAIRS + warp;
+        if (b >= n_pairs) return;
+        lo = lane_id * LPT;
+    } else {
+        C = (int)cg::this_cluster().num_blocks();
+        rank = (int)cg::this_cluster().block_rank();
+        b = blockIdx.x / C;
+        s0 = rank * slice;
+        n = min(slice, w_pad - s0);
+        lo = tid * LPT;
+    }
+    const int l1 = q_lens[b];
+    const int cols = t_lens[b] + 1;
+    const int off = offsets[b];
+    const int kl = k_locals[b];
+    const int k_pad = (w_pad - 3) / 2;
+    const int goe = gap_open + gap_extend;
+    const int ge = gap_extend;
+    const int n_rows = min(l1, rows_max);
+    if (n_rows <= 0) {
+        if (rank == 0 && (WARP ? lane_id : tid) == 0) best_out[b] = best_i_out[b] = best_j_out[b] = 0;
+        return;  // every CTA of the cluster leaves here, before any barrier
+    }
+    const uint8_t* qb = q + (size_t)b * rows_max;
+    const uint8_t* tt = t + (size_t)b * t_cols;
+    uint8_t* tbb = tb + (size_t)b * rows_max * w_pad + s0;
+    const int xr = lo + LPT;               // the lane after this thread's last, in the slice
+    const int wl = (n - 1) / (32 * LPT);  // the warp that holds the slice's last lane
+
+    int M[LPT], D[LPT];
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+        M[k] = lo + k < n ? cl_row0_m(s0 + lo + k, w_pad, off, k_pad, kl, cols) : NEG_INF;
+        D[k] = NEG_INF;
+    }
+    int right_m = xr <= n ? cl_row0_m(s0 + xr, w_pad, off, k_pad, kl, cols) : NEG_INF;  // lane xr, the row above
+    int right_d = NEG_INF;
+    int best = 0, best_row = 0, best_lane = 0;
+    int q_next = qb[0];
+
+    for (int i = 1; i <= n_rows; ++i) {
+        const int32_t* mrow = matrix + 256 * q_next;
+        if (i < n_rows) q_next = qb[i];
+        const int j_base = i - off - k_pad - 1;      // + dm: 1-based DP column of lane dm
+        const int t_base = i - off + w_pad - k_pad;  // + dm: target window index
+        const int par = i & 1;
+
+        // Pass 1: D, the diagonal, H; this thread's share of the prefix max.
+        int h_ng[LPT], flags[LPT];
+        int run_total = NEG_INF;
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+            const int dm = s0 + lo + k;
+            h_ng[k] = 0;
+            flags[k] = 0;
+            if (lo + k < n) {
+                const int j = j_base + dm;
+                const int band = abs(dm - (k_pad + 1));
+                const bool in_cols = j >= 0 && j < cols;
+                const bool filled = band <= kl && j >= 1 && in_cols;
+                const bool in_pad = band <= kl + 1 && in_cols;
+                const int m_up = k + 1 < LPT ? M[k + 1] : right_m;  // the row above at lane dm + 1
+                const int d_up = k + 1 < LPT ? D[k + 1] : right_d;
+                const int d_open = m_up - goe;
+                const int d_ext = d_up - ge;
+                const int d = max(d_open, d_ext);
+                const int ti = min(max(t_base + dm, 0), t_cols - 1);
+                const int diag = M[k] + __ldg(mrow + tt[ti]);
+                h_ng[k] = max(diag, d);
+                flags[k] = (d > diag ? 1 : 0) | (d_open < d_ext ? 4 : 0) | (filled ? 16 : 0) | (in_pad ? 32 : 0);
+                D[k] = d;  // lane k - 1 has read the row above's D[k] already
+                run_total = max(run_total, cl_h_c(h_ng[k], flags[k]) + cl_lane_ge(dm, ge));
+            }
+        }
+
+        // The max-plus scan: the warp's inclusive scan, then the warps and CTAs before it.
+        int incl = run_total;
+#pragma unroll
+        for (int s = 1; s < 32; s <<= 1) {
+            const int other = __shfl_up_sync(FULL_MASK, incl, s);
+            if (lane_id >= s) incl = max(incl, other);
+        }
+        int prefix = __shfl_up_sync(FULL_MASK, incl, 1);  // before this thread's first lane
+        if (lane_id == 0) prefix = NEG_INF;
+        int carry = NEG_INF, carry_left = NEG_INF;  // the totals of the CTAs before this one / before the left one
+        int wpre = NEG_INF, wpre_left = NEG_INF, wpre_incl = NEG_INF, cta_tot = NEG_INF;
+        if constexpr (!WARP) {
+            if (lane_id == 31) s_wtot[par][warp] = incl;
+            if (lane_id == 0) {  // the warp's first lane (a dead one publishes M = D = -INF)
+                s_wfirst[par][warp][0] = h_ng[0];
+                s_wfirst[par][warp][1] = lo < n ? D[0] : NEG_INF;
+                s_wfirst[par][warp][2] = flags[0];
+            }
+            const int x_last = min(n, (warp + 1) * 32 * LPT) - 1;  // the warp's last live lane
+            if (x_last >= lo && x_last < xr) {
+                int pre = prefix;
+#pragma unroll
+                for (int k = 0; k < LPT; ++k) {
+                    if (lo + k == x_last) {
+                        s_wlast[par][warp][0] = pre;
+                        s_wlast[par][warp][1] = h_ng[k];
+                        s_wlast[par][warp][2] = flags[k];
+                    }
+                    pre = max(pre, cl_h_c(h_ng[k], flags[k]) + cl_lane_ge(s0 + lo + k, ge));
+                }
+            }
+            __syncthreads();
+            for (int w = 0; w < nwarps; ++w) {
+                const int x = s_wtot[par][w];
+                if (w < warp - 1) wpre_left = max(wpre_left, x);
+                if (w < warp) wpre = max(wpre, x);
+                if (w <= warp) wpre_incl = max(wpre_incl, x);
+                cta_tot = max(cta_tot, x);
+            }
+            if (C > 1) {
+                cg::cluster_group cluster = cg::this_cluster();
+                if (warp == 0) {
+                    if (lane_id > rank && lane_id < C) *cluster.map_shared_rank(&s_tot_in[par][rank], lane_id) = cta_tot;
+                    if (lane_id == 0 && rank > 0) {
+                        int* dst = cluster.map_shared_rank(&s_right[par][0], rank - 1);
+                        dst[0] = s_wfirst[par][0][0];
+                        dst[1] = s_wfirst[par][0][1];
+                        dst[2] = s_wfirst[par][0][2];
+                    }
+                    if (lane_id == 1 && rank + 1 < C) {
+                        int pre = s_wlast[par][wl][0];
+                        for (int w = 0; w < wl; ++w) pre = max(pre, s_wtot[par][w]);
+                        int* dst = cluster.map_shared_rank(&s_left[par][0], rank + 1);
+                        dst[0] = pre;
+                        dst[1] = s_wlast[par][wl][1];
+                        dst[2] = s_wlast[par][wl][2];
+                    }
+                }
+                cl_cluster_arrive();
+                prefix = max(prefix, wpre);
+                cl_cluster_wait();
+                for (int r = 0; r < rank; ++r) {
+                    const int x = s_tot_in[par][r];
+                    carry = max(carry, x);
+                    if (r < rank - 1) carry_left = max(carry_left, x);
+                }
+            } else {
+                prefix = max(prefix, wpre);
+            }
+            prefix = max(prefix, carry);
+        }
+
+        // Pass 2: I, M, the traceback byte (its I-state bit from the lane before's final M and I),
+        // this thread's best.
+        uint32_t bytes[LPT];
+        int i_prev = NEG_INF;
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+            const int dm = s0 + lo + k;
+            bytes[k] = 0;
+            if (lo + k < n) {
+                const int f = flags[k];
+                const bool filled = f & 16;
+                const int h_c = cl_h_c(h_ng[k], f);
+                const int i_cur = filled ? prefix - gap_open - cl_lane_ge(dm, ge) : NEG_INF;
+                prefix = max(prefix, h_c + cl_lane_ge(dm, ge));
+                const int m_cur = filled ? max(max(h_c, i_cur), 0) : ((f & 32) ? 0 : NEG_INF);
+                int tb_m = f & 1;
+                if (i_cur > h_ng[k]) tb_m = 2;
+                if (max(h_ng[k], i_cur) <= 0 || !filled) tb_m = 3;
+                bytes[k] = (uint32_t)(tb_m | (f & 4));
+                if (k > 0 && M[k - 1] - goe < i_prev - ge) bytes[k] |= 8u;
+                M[k] = m_cur;
+                i_prev = i_cur;
+                if (filled && m_cur > best) {
+                    best = m_cur;
+                    best_row = i;
+                    best_lane = dm;
+                }
+            }
+        }
+
+        // The lane before this thread's first: the thread before in the warp, else rebuilt.
+        int m_left = __shfl_up_sync(FULL_MASK, M[LPT - 1], 1);
+        int i_left = __shfl_up_sync(FULL_MASK, i_prev, 1);
+        if (lane_id == 0) {
+            m_left = i_left = NEG_INF;
+            if constexpr (!WARP) {
+                if (warp > 0) {
+                    const int* e = s_wlast[par][warp - 1];
+                    cl_final(e[1], e[2], max(max(carry, wpre_left), e[0]), s0 + lo - 1, gap_open, ge, m_left, i_left);
+                } else if (rank > 0) {
+                    const int* e = s_left[par];
+                    cl_final(e[1], e[2], max(carry_left, e[0]), s0 - 1, gap_open, ge, m_left, i_left);
+                }
+            }
+        }
+        if (lo < n && m_left - goe < i_left - ge) bytes[0] |= 8u;
+
+        // The lane after this thread's last, for the next row: the thread after in the warp, else rebuilt.
+        right_m = __shfl_down_sync(FULL_MASK, M[0], 1);
+        right_d = __shfl_down_sync(FULL_MASK, D[0], 1);
+        if (xr >= n || lane_id == 31) {
+            right_m = right_d = NEG_INF;
+            if constexpr (!WARP) {
+                int i_unused;
+                if (xr == n && rank + 1 < C) {
+                    const int* e = s_right[par];
+                    cl_final(e[0], e[2], max(carry, cta_tot), s0 + n, gap_open, ge, right_m, i_unused);
+                    right_d = e[1];
+                } else if (xr < n) {
+                    const int* e = s_wfirst[par][warp + 1];
+                    cl_final(e[0], e[2], max(carry, wpre_incl), s0 + xr, gap_open, ge, right_m, i_unused);
+                    right_d = e[1];
+                }
+            }
+        }
+
+        // This thread's traceback bytes of the row: whole words when its lanes are live and aligned.
+        uint8_t* tb_row = tbb + (size_t)(i - 1) * w_pad + lo;
+        if (xr <= n && ((size_t)tb_row & 3) == 0) {
+#pragma unroll
+            for (int w = 0; w < LPT / 4; ++w)
+                reinterpret_cast<uint32_t*>(tb_row)[w] =
+                    bytes[4 * w] | bytes[4 * w + 1] << 8 | bytes[4 * w + 2] << 16 | bytes[4 * w + 3] << 24;
+        } else {
+#pragma unroll
+            for (int k = 0; k < LPT; ++k)
+                if (lo + k < n) tb_row[k] = (uint8_t)bytes[k];
+        }
+    }
+
+    // One reduction after the last row: highest value, then lowest row, then lowest lane.
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+        const int v = __shfl_down_sync(FULL_MASK, best, s);
+        const int r = __shfl_down_sync(FULL_MASK, best_row, s);
+        const int l = __shfl_down_sync(FULL_MASK, best_lane, s);
+        if (cl_better(v, r, l, best, best_row, best_lane)) {
+            best = v;
+            best_row = r;
+            best_lane = l;
+        }
+    }
+    if constexpr (!WARP) {
+        if (lane_id == 0) {
+            s_best[warp][0] = best;
+            s_best[warp][1] = best_row;
+            s_best[warp][2] = best_lane;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            for (int w = 1; w < nwarps; ++w) {
+                if (cl_better(s_best[w][0], s_best[w][1], s_best[w][2], best, best_row, best_lane)) {
+                    best = s_best[w][0];
+                    best_row = s_best[w][1];
+                    best_lane = s_best[w][2];
+                }
+            }
+        }
+        if (C > 1) {
+            cg::cluster_group cluster = cg::this_cluster();
+            if (tid == 0 && rank > 0) {
+                int* dst = cluster.map_shared_rank(&s_cbest[rank][0], 0);
+                dst[0] = best;
+                dst[1] = best_row;
+                dst[2] = best_lane;
+            }
+            cluster.sync();  // also: no CTA leaves while a neighbour may still read what it pushed
+            if (rank != 0) return;
+            if (tid == 0) {
+                for (int r = 1; r < C; ++r) {
+                    if (cl_better(s_cbest[r][0], s_cbest[r][1], s_cbest[r][2], best, best_row, best_lane)) {
+                        best = s_cbest[r][0];
+                        best_row = s_cbest[r][1];
+                        best_lane = s_cbest[r][2];
+                    }
+                }
+            }
+        }
+    }
+    if ((WARP ? lane_id : tid) == 0) {
+        best_out[b] = best;
+        best_i_out[b] = best > 0 ? best_row : 0;
+        best_j_out[b] = best > 0 ? best_row - off - k_pad - 1 + best_lane : 0;
+    }
+}
+
 // One warp per pair replays the traceback state machine (0 = in M, 1 = in D,
 // 2 = in I) over the packed bits, from the best cell back to a
 // local-alignment start, a stretch of up to 32 steps at a time: lane l reads
@@ -932,16 +1314,135 @@ size_t segmented_smem_bytes(int threads) {  // the staged M, D and I words and t
     return 3 * sizeof(int32_t) * (size_t)seg_words(seg) + (size_t)seg;
 }
 
+// The largest cluster the current device runs the cluster form's heaviest CTA in: 16 where a
+// 16-CTA cluster fits (a non-portable size), else 8.  Asked once a device.
+int cluster_max_size() {
+    static int cached[64] = {0};
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 8;
+    if (cached[device] == 0) {
+        int size = 8, active = 0;
+        cudaLaunchAttribute attr;
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.x = CL_MAX_CLUSTER;
+        attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.gridDim = dim3(CL_MAX_CLUSTER);
+        cfg.blockDim = dim3(CL_THREADS);
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+        if (cudaFuncSetAttribute(swg_fill_cluster_kernel<CL_MAX_LPT, false>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1) == cudaSuccess &&
+            cudaOccupancyMaxActiveClusters(&active, swg_fill_cluster_kernel<CL_MAX_LPT, false>, &cfg) == cudaSuccess &&
+            active >= 1)
+            size = CL_MAX_CLUSTER;
+        cudaGetLastError();  // a refused size is an answer, not an error of the next launch
+        cached[device] = size;
+    }
+    return cached[device];
+}
+
+// The cluster form's geometry for w_pad: CTAs a cluster (0: the warp-a-pair mode), lanes a slice,
+// lanes a thread and threads a CTA.  Returns false when the form does not take the band (past the
+// largest cluster's).
+struct ClusterPlan {
+    int ctas, slice, lpt, threads;
+};
+
+bool cluster_plan(int w_pad, ClusterPlan& plan) {
+    if (w_pad < 3) return false;
+    if (w_pad <= CL_WARP_MAX_W_PAD) {
+        plan = {0, w_pad, w_pad <= 128 ? 4 : (w_pad <= 256 ? 8 : 16), CL_PAIRS * 32};
+        return true;
+    }
+    const int c = std::min((w_pad + CL_SLICE - 1) / CL_SLICE, cluster_max_size());
+    int slice = (w_pad + c - 1) / c;
+    const int lpt = slice <= 4 * CL_THREADS ? 4 : (slice <= 8 * CL_THREADS ? 8 : (slice <= 16 * CL_THREADS ? 16 : 0));
+    if (lpt == 0) return false;
+    slice = (slice + lpt - 1) / lpt * lpt;
+    plan = {c, slice, lpt, (slice + 32 * lpt - 1) / (32 * lpt) * 32};
+    return true;
+}
+
+template <int LPT>
+cudaError_t launch_fill_cluster(const ClusterPlan& plan, int n_pairs, cudaStream_t stream, const uint8_t* q,
+                                const uint8_t* t, const int32_t* q_lens, const int32_t* t_lens,
+                                const int32_t* offsets, const int32_t* k_locals, const int32_t* matrix,
+                                int rows_max, int w_pad, int t_cols, int gap_open, int gap_extend, uint8_t* tb,
+                                int32_t* best, int32_t* best_i, int32_t* best_j) {
+    if (plan.ctas == 0) {
+        swg_fill_cluster_kernel<LPT, true><<<(n_pairs + CL_PAIRS - 1) / CL_PAIRS, CL_PAIRS * 32, 0, stream>>>(
+            q, t, q_lens, t_lens, offsets, k_locals, matrix, n_pairs, rows_max, w_pad, t_cols, gap_open,
+            gap_extend, plan.slice, tb, best, best_i, best_j);
+        return cudaGetLastError();
+    }
+    if (plan.ctas > 8) {
+        const cudaError_t err = cudaFuncSetAttribute(swg_fill_cluster_kernel<LPT, false>,
+                                                     cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return err;
+    }
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = plan.ctas;
+    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)n_pairs * plan.ctas);
+    cfg.blockDim = dim3(plan.threads);
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, swg_fill_cluster_kernel<LPT, false>, q, t, q_lens, t_lens,
+                                               offsets, k_locals, matrix, n_pairs, rows_max, w_pad, t_cols,
+                                               gap_open, gap_extend, plan.slice, tb, best, best_i, best_j);
+    return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Largest band the fill's int8 forms take (16 lanes for each of 512 threads); the segmented
-// form takes every width.
+// Largest band the fill's int8 forms take (16 lanes for each of 512 threads); the cluster form
+// takes every width up to 131,072 and the segmented form every width.
 int kts_swg_max_w_pad() { return 16 * MAX_THREADS; }
 
 // 1 when the fill takes this band width in its warp form, 0 in its wide form (int8 scores).
 int kts_swg_fill_warp_form(int w_pad) { return warp_form(w_pad) ? 1 : 0; }
+
+// The cluster form's geometry for w_pad on the current device into out[4]: CTAs a cluster (0: a
+// warp a pair), lanes a slice, lanes a thread, threads a CTA.  Returns 1 when the cluster form
+// takes the band, else 0 (the segmented form takes it).
+int kts_swg_fill_cluster_plan(int w_pad, int* out) {
+    ClusterPlan plan;
+    if (!cluster_plan(w_pad, plan)) return 0;
+    out[0] = plan.ctas;
+    out[1] = plan.slice;
+    out[2] = plan.lpt;
+    out[3] = plan.threads;
+    return 1;
+}
+
+// The fill's cluster form (w_pad >= 3 up to the largest cluster's band, int32 scores) on
+// `stream`, in the geometry kts_swg_fill_cluster_plan gives.  Returns the launch's CUDA error
+// (cudaErrorInvalidValue for a band the form does not take).
+int kts_swg_fill_cluster(const void* q, const void* t, const void* q_lens, const void* t_lens, const void* offsets,
+                         const void* k_locals, const void* matrix, int n_pairs, int rows_max, int w_pad, int t_cols,
+                         int gap_open, int gap_extend, void* tb, void* best, void* best_i, void* best_j,
+                         void* stream) {
+    if (n_pairs == 0) return (int)cudaSuccess;
+    ClusterPlan plan;
+    if (rows_max < 1 || t_cols < 1 || !cluster_plan(w_pad, plan)) return (int)cudaErrorInvalidValue;
+#define KTS_FILL_CLUSTER(LPT)                                                                                     \
+    launch_fill_cluster<LPT>(plan, n_pairs, static_cast<cudaStream_t>(stream), static_cast<const uint8_t*>(q),   \
+                             static_cast<const uint8_t*>(t), static_cast<const int32_t*>(q_lens),                \
+                             static_cast<const int32_t*>(t_lens), static_cast<const int32_t*>(offsets),          \
+                             static_cast<const int32_t*>(k_locals), static_cast<const int32_t*>(matrix),         \
+                             rows_max, w_pad, t_cols, gap_open, gap_extend, static_cast<uint8_t*>(tb),           \
+                             static_cast<int32_t*>(best), static_cast<int32_t*>(best_i),                         \
+                             static_cast<int32_t*>(best_j))
+    const cudaError_t err = plan.lpt == 4 ? KTS_FILL_CLUSTER(4) : (plan.lpt == 8 ? KTS_FILL_CLUSTER(8) : KTS_FILL_CLUSTER(16));
+#undef KTS_FILL_CLUSTER
+    return (int)err;
+}
 
 // The fill's segmented form (any w_pad >= 3, int32 scores) on `stream`; `scratch` holds
 // n_pairs * 2 * w_pad int32.  Returns the launch's CUDA error.

@@ -11,7 +11,8 @@
 //   arch_viterbi_kernel replaces kaptive_tpu/bgc/kernels.py::architectural_viterbi:
 //     the max-plus decode over a contig's ORF emission rows with a forced end
 //     in POST (the last state), up to MAX_ARCH_STATES states; above that,
-//     arch_viterbi_wide_kernel (a block a contig, 16- or 32-bit backpointers).
+//     arch_viterbi_wide_kernel (a block a contig and a warp a state over the
+//     transitions transposed, 16- or 32-bit backpointers).
 //
 // Both compute what the XLA programs compute, bit for bit: every operation is
 // a float32 add, max or subtract in the JAX package's order, and each pick
@@ -79,9 +80,15 @@
 // are staged a tile ahead with cp.async; backpointer bytes are stored a tile
 // at a time, and read back a tile ahead while lane 0 walks the tile before.
 
+#include <algorithm>
+#include <array>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <map>
 #include <math_constants.h>
+#include <mutex>
+#include <utility>
 
 namespace {
 
@@ -790,75 +797,325 @@ __global__ void __launch_bounds__(32) arch_viterbi_kernel(
     cp_async_wait<0>();
 }
 
-// The architectural decode above MAX_ARCH_STATES states: a block a contig.  Thread x of
-// ARCH_WIDE_THREADS takes the states x, x + ARCH_WIDE_THREADS, ...; for each it scans the
-// previous row's S scores in order, keeping the first maximum of prev[p] + transitions[p, s]
-// (the strict `take`, jnp.argmax's rule), and adds the emission.  The previous row is staged in
-// shared memory ARCH_WIDE_TILE scores at a time (every thread reads the same score, a broadcast)
-// from one of two rows of device scratch (`work`, 2 S floats a contig); the transitions are read
-// from device memory, consecutive threads on consecutive states.  Backpointers are BP: uint16 up
-// to 65,536 states, int32 beyond.  A row ends with a block barrier; thread 0 walks the path back.
-// What bounds it: S x S adds and compares a row, and the S x S transitions read a row (through
-// L2: 4.2 MB at S = 1,027).  It is kept for the state counts the warp kernel refuses; the
-// default K = 25 (S = 28) never reaches it.
-constexpr int ARCH_WIDE_THREADS = 256;
-constexpr int ARCH_WIDE_TILE = 2048;  // previous-row scores staged at once (8 KB)
+// The architectural decode above MAX_ARCH_STATES states: a thread-block cluster of C CTAs of
+// ARCH_WIDE_THREADS a contig (C up to ARCH_WIDE_MAX_CLUSTER, the most at which every contig's
+// cluster runs at once; C = 1 when the contigs fill the card), CTA `rank` holding the states
+// [rank * per, ...), and a warp a state.  Warp w of a CTA takes its states w, w + 32, ..., G at a
+// time (independent chains: G = 2 in a cluster, 4 alone).  For state s lane l scans the
+// predecessors of float4 chunks l, l + 32, ... (p = 4c .. 4c + 3), then the predecessors past the
+// last whole round of 32 chunks one at a time (p = tail + l, tail + l + 32, ...), so a lane meets
+// its predecessors in increasing order and keeps the first maximum with the strict `take`.  The
+// transitions come transposed (`tt`, S rows of `pitch` floats, -inf past S), so a state's
+// predecessor column is one contiguous row: the CTA copies its first `tt_smem` states' rows into
+// shared memory once a contig and reads the rest through L1 / L2.  The warp then reduces its 32
+// (value, index) pairs with two warp reductions: the greatest pick_key (order-preserving, -0 as
+// +0, NaN above every number), then the lowest index among the lanes that hold it; the value comes
+// from the lane that holds that index.  That is jnp.argmax's first maximum, and it is what one
+// strict `take` chain over p = 0 .. S-1 picks for every input: a chain keeps a NaN only when it
+// is the first candidate, so lane 0 takes its first candidate unconditionally and every other lane
+// starts from (-inf, its first index).  Every CTA keeps the whole previous row in shared memory
+// (two rows of `pitch` floats, -inf past S); a state's new score is stored into every CTA's copy
+// through distributed shared memory, and a row ends with one cluster barrier (release / acquire:
+// the double-buffered rows are never written while a neighbour may read them).  Each CTA's
+// emissions come through a ring of ARCH_WIDE_EM_RING rows prefetched with cp.async (STAGED; past
+// ARCH_WIDE_STAGED_PITCH the rows live in `work`, one copy a contig, and the emissions are read in
+// place).  Backpointers are BP (uint16 up to 65,536 states, int32 beyond) at `bpitch` a row; after
+// the last barrier rank 0's thread 0 walks them back from POST through tiles of `walk_rows` rows
+// staged with cp.async (tile t + 1 in flight while tile t is walked), or from device memory when
+// not even one row pair fits (`walk_rows` 0).
+// What bounds it: a contig is one chain of rows, and a row is S x S adds and compares, about five
+// instructions each, a reduction a state and a cluster barrier; the default K = 25 (S = 28) never
+// reaches it.
+constexpr int ARCH_WIDE_THREADS = 1024;
+constexpr int ARCH_WIDE_WARPS = ARCH_WIDE_THREADS / 32;
+constexpr int ARCH_WIDE_EM_RING = 8;           // emission rows in flight or in use (a ring)
+constexpr int ARCH_WIDE_WALK_ROWS = 64;        // backpointer rows a walk tile holds at most
+constexpr int ARCH_WIDE_STAGED_PITCH = 4096;   // the widest rows kept in shared memory (40 bytes a pitch float)
+constexpr int ARCH_WIDE_MAX_CLUSTER = 8;       // CTAs a contig's cluster at most (the portable size;
+                                               // measure_input_range.py times it against 4)
 
-template <typename BP>
+// An order-preserving key of a pick's value: -0 as +0, NaN above every number.
+__device__ __forceinline__ uint32_t pick_key(float v) {
+    const uint32_t u = v == 0.0f ? 0u : __float_as_uint(v);
+    const uint32_t key = u ^ ((uint32_t)((int)u >> 31) | 0x80000000u);  // ~u when negative, else u | 2^31
+    return v != v ? 0xffffffffu : key;
+}
+
+template <typename BP, bool STAGED, int G>
 __global__ void __launch_bounds__(ARCH_WIDE_THREADS) arch_viterbi_wide_kernel(
-    const float* __restrict__ emissions, const float* __restrict__ transitions, const long long* __restrict__ offsets,
-    long long rows, int S, BP* __restrict__ back, int* __restrict__ paths, float* __restrict__ scores,
-    float* work) {
-    __shared__ float s_prev[ARCH_WIDE_TILE];
-    const int tid = threadIdx.x;
-    const long long row0 = offsets[blockIdx.x];
-    const long long n = offsets[blockIdx.x + 1] - row0;
-    if (n <= 0 || row0 < 0 || row0 + n > rows) return;  // empty, or bounds outside the emissions
+    const float* __restrict__ emissions, const float* __restrict__ transitions, const float* __restrict__ tt,
+    const long long* __restrict__ offsets, long long rows, int S, int pitch, int tt_smem, BP* __restrict__ back,
+    int bpitch, int walk_rows, int* __restrict__ paths, float* __restrict__ scores, float* work) {
+    namespace cg = cooperative_groups;
+    extern __shared__ __align__(16) unsigned char smem[];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+    const int contig = blockIdx.x / C;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const long long row0 = offsets[contig];
+    const long long n = offsets[contig + 1] - row0;
+    if (n <= 0 || row0 < 0 || row0 + n > rows) return;  // empty, or bounds outside: the whole cluster leaves
+    const int per = (S + C - 1) / C;  // this CTA's states: [lo, hi)
+    const int lo = rank * per, hi = min(S, lo + per);
     const float* em = emissions + row0 * S;
-    BP* bk = back + row0 * S;
-    float* rowbuf[2] = {work + (size_t)blockIdx.x * 2 * S, work + (size_t)blockIdx.x * 2 * S + S};
+    BP* bk = back + row0 * bpitch;
+    float* rowbuf = STAGED ? reinterpret_cast<float*>(smem) : work + (size_t)contig * 2 * pitch;
+    float* s_em = reinterpret_cast<float*>(smem) + 2 * pitch;  // STAGED: a ring of emission rows
+    float* s_tt = reinterpret_cast<float*>(smem) + (STAGED ? (2 + ARCH_WIDE_EM_RING) * pitch : 0);  // tt rows lo ...
 
-    for (int s = tid; s < S; s += ARCH_WIDE_THREADS) rowbuf[0][s] = transitions[s] + em[s];
-    __syncthreads();
+    {
+        const float4* src = reinterpret_cast<const float4*>(tt + (size_t)lo * pitch);
+        float4* dst = reinterpret_cast<float4*>(s_tt);
+        const long long n4 = (long long)max(0, min(tt_smem, hi - lo)) * pitch / 4;
+        for (long long f = tid; f < n4; f += ARCH_WIDE_THREADS) dst[f] = src[f];
+    }
+    if (STAGED || rank == 0) {  // every CTA keeps its own copy of the rows in shared memory
+        for (int s = tid; s < pitch; s += ARCH_WIDE_THREADS) {
+            rowbuf[s] = s < S ? transitions[s] + em[s] : -CUDART_INF_F;  // transitions[0] + emissions[0]
+            rowbuf[pitch + s] = -CUDART_INF_F;
+        }
+    }
+    auto stage = [&](long long i) {  // this CTA's emissions of row i into its ring slot; one group a call
+        if (STAGED && i < n)
+            for (int s = lo + tid; s < hi; s += ARCH_WIDE_THREADS)
+                cp_async4(&s_em[(i % ARCH_WIDE_EM_RING) * pitch + s], em + i * S + s, true);
+        cp_async_commit();
+    };
+    for (int r = 1; r < ARCH_WIDE_EM_RING; ++r) stage(r);
+    cp_async_wait<ARCH_WIDE_EM_RING - 2>();  // row 1 is in
+    cluster.sync();  // every CTA of the cluster runs, and its row 0 is in place, before any remote store
+
+    const int n_chunks = pitch / 4;
+    const int whole = n_chunks / 32 * 32;  // chunks of the whole rounds
+    const int tail = 4 * whole;            // the first predecessor scanned one at a time
     for (long long i = 1; i < n; ++i) {
-        const float* prev = rowbuf[(i - 1) & 1];
-        float* cur = rowbuf[i & 1];
-        for (int s0 = 0; s0 < S; s0 += ARCH_WIDE_THREADS) {
-            const int s = s0 + tid;
-            float best = -CUDART_INF_F;
-            uint32_t arg = 0;
-            for (int p0 = 0; p0 < S; p0 += ARCH_WIDE_TILE) {
-                const int np = min(ARCH_WIDE_TILE, S - p0);
-                __syncthreads();  // every thread is done with the tile before
-                for (int f = tid; f < np; f += ARCH_WIDE_THREADS) s_prev[f] = prev[p0 + f];
-                __syncthreads();
-                if (s < S) {
-                    const float* tcol = transitions + (size_t)p0 * S + s;
-                    if (p0 == 0) {
-                        best = s_prev[0] + tcol[0];
-                        for (int p = 1; p < np; ++p) take(s_prev[p] + tcol[(size_t)p * S], (uint32_t)p, best, arg);
-                    } else {
-                        for (int p = 0; p < np; ++p)
-                            take(s_prev[p] + tcol[(size_t)p * S], (uint32_t)(p0 + p), best, arg);
+        const float* prev = rowbuf + ((i - 1) & 1) * pitch;
+        float* cur = rowbuf + (i & 1) * pitch;
+        const float* erow = STAGED ? s_em + (i % ARCH_WIDE_EM_RING) * pitch : em + i * S;
+        stage(i + ARCH_WIDE_EM_RING - 1);  // into the slot of row i - 1, read before the last barrier
+        const float4* prev4 = reinterpret_cast<const float4*>(prev);
+        for (int s0 = lo + warp; s0 < hi; s0 += ARCH_WIDE_WARPS * G) {
+            // The warp's next G states, s0 + 32 k, scanned together (a state past this
+            // CTA's last repeats it, and its pick is not stored).
+            const float* trow[G];
+            float best[G];
+            int arg[G];
+#pragma unroll
+            for (int k = 0; k < G; ++k) {
+                const int s = min(s0 + ARCH_WIDE_WARPS * k, hi - 1);
+                trow[k] = (s - lo < tt_smem ? s_tt + (size_t)(s - lo) * pitch : tt + (size_t)s * pitch);
+                best[k] = -CUDART_INF_F;
+                arg[k] = whole > 0 ? 4 * lane : tail + lane;
+            }
+#pragma unroll 2
+            for (int c = lane; c < whole; c += 32) {
+                const float4 p4 = prev4[c];
+#pragma unroll
+                for (int k = 0; k < G; ++k) {
+                    const float4 t4 = reinterpret_cast<const float4*>(trow[k])[c];
+                    const float a = p4.x + t4.x, b = p4.y + t4.y, d = p4.z + t4.z, e = p4.w + t4.w;
+                    if (a > best[k] || c == 0) {  // lane 0's first candidate is the chain's start
+                        best[k] = a;
+                        arg[k] = 4 * c;
+                    }
+                    if (b > best[k]) {
+                        best[k] = b;
+                        arg[k] = 4 * c + 1;
+                    }
+                    if (d > best[k]) {
+                        best[k] = d;
+                        arg[k] = 4 * c + 2;
+                    }
+                    if (e > best[k]) {
+                        best[k] = e;
+                        arg[k] = 4 * c + 3;
                     }
                 }
             }
-            if (s < S) {
-                cur[s] = best + em[i * S + s];
-                bk[i * S + s] = (BP)arg;
+            for (int p = tail + lane; p < S; p += 32) {
+                const float pv = prev[p];
+#pragma unroll
+                for (int k = 0; k < G; ++k) {
+                    const float a = pv + trow[k][p];
+                    if (a > best[k] || p == 0) {
+                        best[k] = a;
+                        arg[k] = p;
+                    }
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < G; ++k) {
+                const uint32_t key = pick_key(best[k]);
+                const uint32_t top = __reduce_max_sync(FULL, key);
+                const uint32_t win = __reduce_min_sync(FULL, key == top ? (uint32_t)arg[k] : 0xffffffffu);
+                const int holder = (int)win < tail ? (int)(win >> 2) & 31 : (int)(win - tail) & 31;
+                const float v = __shfl_sync(FULL, best[k], holder);
+                const int s = s0 + ARCH_WIDE_WARPS * k;
+                if (s < hi) {
+                    const float score = v + erow[s];
+                    if (STAGED) {
+                        if (lane < C) *cluster.map_shared_rank(&cur[s], lane) = score;  // every CTA's copy
+                    } else if (lane == 0) {
+                        cur[s] = score;
+                    }
+                    if (lane == 0) bk[i * bpitch + s] = (BP)win;
+                }
             }
         }
-        __syncthreads();  // the row is complete before it is read as the previous one
+        cp_async_wait<ARCH_WIDE_EM_RING - 2>();  // row i + 1 is in
+        cluster.sync();  // the row is complete in every copy, and the next emission row staged, before either is read
     }
-    if (tid == 0) {
-        scores[blockIdx.x] = rowbuf[(n - 1) & 1][S - 1];
-        int state = S - 1;  // forced end in POST
-        paths[row0 + n - 1] = state;
-        for (long long i = n - 1; i > 0; --i) {
-            state = (int)bk[i * S + state];
-            paths[row0 + i - 1] = state;
+    cp_async_wait<0>();
+    if (rank != 0) return;  // rank 0 walks: the cluster's backpointers are visible after the last barrier
+    if (tid == 0) scores[contig] = rowbuf[((n - 1) & 1) * pitch + S - 1];
+
+    // The walk back from POST (forced end), rows [lo, hi) a tile from the end.
+    if (walk_rows == 0) {
+        if (tid == 0) {
+            int state = S - 1;
+            paths[row0 + n - 1] = state;
+            for (long long i = n - 1; i > 0; --i) {
+                state = (int)bk[i * bpitch + state];
+                paths[row0 + i - 1] = state;
+            }
         }
+        return;
     }
+    __syncthreads();  // the score is read before the walk's tiles overwrite the rows
+    BP* w_bk = reinterpret_cast<BP*>(smem);  // two tiles of walk_rows x bpitch
+    int* w_path = reinterpret_cast<int*>(w_bk + 2 * (size_t)walk_rows * bpitch);
+    const int tile = walk_rows * bpitch;
+    const long long n_back = (n + walk_rows - 1) / walk_rows;
+    auto stage_back = [&](long long t) {  // tile t holds rows [n - (t + 1) W, n - t W) clipped at 0
+        const long long r_hi = n - t * walk_rows;
+        const long long r_lo = r_hi - walk_rows > 0 ? r_hi - walk_rows : 0;
+        const long long chunks16 = (r_hi - r_lo) * bpitch * (long long)sizeof(BP) / 16;
+        unsigned char* dst = reinterpret_cast<unsigned char*>(w_bk + (t & 1) * tile);
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(bk + r_lo * bpitch);
+        for (long long f = tid; f < chunks16; f += ARCH_WIDE_THREADS) cp_async16(dst + 16 * f, src + 16 * f);
+        cp_async_commit();
+    };
+    int state = S - 1;
+    stage_back(0);
+    for (long long t = 0; t < n_back; ++t) {
+        if (t + 1 < n_back) {
+            stage_back(t + 1);
+        } else {
+            cp_async_commit();
+        }
+        cp_async_wait<1>();
+        __syncthreads();  // tile t is in; every thread is done with the path tile before
+        const long long r_hi = n - t * walk_rows;
+        const long long r_lo = r_hi - walk_rows > 0 ? r_hi - walk_rows : 0;
+        const int rows_here = (int)(r_hi - r_lo);
+        if (tid == 0) {
+            const BP* tb = w_bk + (t & 1) * tile;
+            const int last = r_lo == 0 ? 1 : 0;  // the contig's row 0 has no predecessor
+            for (int r = rows_here - 1; r >= last; --r) {
+                w_path[r] = state;
+                state = (int)tb[r * bpitch + state];
+            }
+            if (last) w_path[0] = state;
+        }
+        __syncthreads();  // the path tile is written, and tile t walked, before tile t + 2 is staged
+        for (int f = tid; f < rows_here; f += ARCH_WIDE_THREADS) paths[row0 + r_lo + f] = w_path[f];
+    }
+    cp_async_wait<0>();
+}
+
+// The block-a-contig decode's geometry, shared by its launches.
+struct ArchWideGeometry {
+    int S, pitch, bpitch, walk_rows, budget;
+    size_t fwd, row_bytes, walk_pair;  // the forward's row bytes, one tt row, a walk row pair
+};
+
+// The rows of a CTA's transposed transitions kept in shared memory, with `ctas` CTAs a contig.
+int arch_wide_tt_smem(const ArchWideGeometry& g, int ctas) {
+    return (int)std::min<size_t>((size_t)((g.S + ctas - 1) / ctas), ((size_t)g.budget - g.fwd) / g.row_bytes);
+}
+
+// A CTA's dynamic shared memory with `ctas` CTAs a contig: the forward's rows and its transitions,
+// or the walk's tiles, whichever is more.
+size_t arch_wide_smem(const ArchWideGeometry& g, int ctas) {
+    return std::max(g.fwd + (size_t)arch_wide_tt_smem(g, ctas) * g.row_bytes, (size_t)g.walk_rows * g.walk_pair);
+}
+
+// How many clusters of c CTAs (c = 2 .. ARCH_WIDE_MAX_CLUSTER) of the paired kernel the current
+// device runs at once for g's S states, 0 where it refuses the size; asked once a (device, S), when
+// the kernels' shared-memory limit is also set.
+template <typename BP, bool STAGED>
+cudaError_t arch_wide_fit(const ArchWideGeometry& g, int active[ARCH_WIDE_MAX_CLUSTER + 1]) {
+    static std::mutex mutex;
+    static std::map<std::pair<int, int>, std::array<int, ARCH_WIDE_MAX_CLUSTER + 1>> fits;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const std::lock_guard<std::mutex> lock(mutex);
+    auto it = fits.find({device, g.S});
+    if (it == fits.end()) {
+        auto paired = arch_viterbi_wide_kernel<BP, STAGED, 2>;
+        err = cudaFuncSetAttribute(paired, cudaFuncAttributeMaxDynamicSharedMemorySize, g.budget);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(arch_viterbi_wide_kernel<BP, STAGED, 4>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, g.budget);
+        if (err != cudaSuccess) return err;
+        std::array<int, ARCH_WIDE_MAX_CLUSTER + 1> fit{};
+        cudaLaunchAttribute attr;
+        attr.id = cudaLaunchAttributeClusterDimension;
+        attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+        cudaLaunchConfig_t cfg = {};
+        cfg.blockDim = dim3(ARCH_WIDE_THREADS);
+        cfg.attrs = &attr;
+        cfg.numAttrs = 1;
+        for (int c = 2; c <= ARCH_WIDE_MAX_CLUSTER; ++c) {
+            attr.val.clusterDim.x = c;
+            cfg.gridDim = dim3(c);
+            cfg.dynamicSmemBytes = arch_wide_smem(g, c);
+            if (cudaOccupancyMaxActiveClusters(&fit[c], paired, &cfg) != cudaSuccess) fit[c] = 0;
+        }
+        cudaGetLastError();  // a refused size is an answer, not an error of the launch
+        it = fits.emplace(std::make_pair(device, g.S), fit).first;
+    }
+    std::copy(it->second.begin(), it->second.end(), active);
+    return cudaSuccess;
+}
+
+// The cluster: the most CTAs (up to ARCH_WIDE_MAX_CLUSTER, and no fewer than 32 states a CTA) at
+// which every contig's cluster runs at once on this device; one CTA a contig when none does.
+template <typename BP, bool STAGED>
+cudaError_t arch_wide_cluster(const ArchWideGeometry& g, int n_contigs, int* ctas) {
+    int active[ARCH_WIDE_MAX_CLUSTER + 1];
+    const cudaError_t err = arch_wide_fit<BP, STAGED>(g, active);
+    if (err != cudaSuccess) return err;
+    *ctas = 1;
+    for (int c = std::min(ARCH_WIDE_MAX_CLUSTER, (g.S + 31) / 32); c > 1 && *ctas == 1; --c)
+        if (active[c] >= n_contigs) *ctas = c;
+    return cudaSuccess;
+}
+
+template <typename BP, bool STAGED>
+int launch_arch_wide(const ArchWideGeometry& g, int n_contigs, long long rows, const float* em, const float* tr,
+                     const float* tt, const long long* off, BP* back, int* paths, float* scores, float* work,
+                     cudaStream_t stream) {
+    int ctas = 1;
+    cudaError_t err = arch_wide_cluster<BP, STAGED>(g, n_contigs, &ctas);
+    if (err != cudaSuccess) return (int)err;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ctas;
+    attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)n_contigs * ctas);
+    cfg.blockDim = dim3(ARCH_WIDE_THREADS);
+    cfg.dynamicSmemBytes = arch_wide_smem(g, ctas);
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    auto paired = arch_viterbi_wide_kernel<BP, STAGED, 2>;
+    auto alone = arch_viterbi_wide_kernel<BP, STAGED, 4>;  // a CTA a contig: more states a warp
+    err = cudaLaunchKernelEx(&cfg, ctas > 1 ? paired : alone, em, tr, tt, off, rows, g.S, g.pitch, arch_wide_tt_smem(g, ctas), back,
+                             g.bpitch, g.walk_rows, paths, scores, work);
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 int arch_pitch(int S) { return (S + 15) / 16 * 16; }
@@ -1001,27 +1258,76 @@ int kts_arch_viterbi(const void* emissions, const void* transitions, const void*
 // Bytes of one backpointer of the block-a-contig decode for S states: 2 up to 65,536, else 4.
 int kts_arch_wide_bp_bytes(int S) { return S <= 65536 ? 2 : 4; }
 
+// Floats a row of the transposed transitions the block-a-contig decode takes (S rounded up to 4).
+int kts_arch_wide_pitch(int S) { return (S + 3) / 4 * 4; }
+
+// Backpointers a row of its `back` scratch (16 bytes a row rounded up).
+int kts_arch_wide_bp_pitch(int S) { return kts_arch_wide_bp_bytes(S) == 2 ? (S + 7) / 8 * 8 : (S + 3) / 4 * 4; }
+
+// Floats of `work` a contig: the two rows of scores when they are too wide for shared memory (one
+// copy in device memory for the contig's cluster), else 0.
+int kts_arch_wide_work_floats(int S) {
+    const int pitch = kts_arch_wide_pitch(S);
+    return pitch <= ARCH_WIDE_STAGED_PITCH ? 0 : 2 * pitch;
+}
+
+// The block-a-contig decode's geometry for S states on the current device (not exported).
+static cudaError_t arch_wide_geometry(int S, ArchWideGeometry& g) {
+    int device = 0, budget = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&budget, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    const int pitch = kts_arch_wide_pitch(S), bpitch = kts_arch_wide_bp_pitch(S), bp_bytes = kts_arch_wide_bp_bytes(S);
+    const size_t row_bytes = 4 * (size_t)pitch;
+    const size_t fwd = pitch <= ARCH_WIDE_STAGED_PITCH ? (2 + ARCH_WIDE_EM_RING) * row_bytes : 0;  // score rows, ring
+    const size_t walk_pair = 2 * (size_t)bpitch * bp_bytes + 4;  // a row in each walk tile and its path entry
+    const int walk_rows = (int)std::min<size_t>(ARCH_WIDE_WALK_ROWS, (size_t)budget / walk_pair);
+    g = ArchWideGeometry{S, pitch, bpitch, walk_rows, budget, fwd, row_bytes, walk_pair};
+    return cudaSuccess;
+}
+
+// The CTAs a contig's cluster the block-a-contig decode launches with for S states and
+// `n_contigs` contigs on the current device (1: a CTA a contig), or minus a CUDA error.
+int kts_arch_wide_cluster(int S, int n_contigs) {
+    ArchWideGeometry g;
+    cudaError_t err = S < 1 ? cudaErrorInvalidValue : arch_wide_geometry(S, g);
+    int ctas = 1;
+    if (err == cudaSuccess)
+        err = kts_arch_wide_bp_bytes(S) == 4 ? arch_wide_cluster<int32_t, false>(g, n_contigs, &ctas)
+              : g.pitch <= ARCH_WIDE_STAGED_PITCH ? arch_wide_cluster<uint16_t, true>(g, n_contigs, &ctas)
+                                                  : arch_wide_cluster<uint16_t, false>(g, n_contigs, &ctas);
+    return err == cudaSuccess ? ctas : -(int)err;
+}
+
 // The architectural Viterbi for any S >= 1 with a block a contig (the caller takes it above
-// kts_arch_max_states()); `back` is scratch of kts_arch_wide_bp_bytes(S) * S bytes a row and
-// `work` of 2 * S floats a contig.  Same contract as kts_arch_viterbi otherwise.
-int kts_arch_viterbi_wide(const void* emissions, const void* transitions, const void* offsets, int n_contigs,
-                          long long rows, int S, void* back, void* paths, void* scores, void* work, void* stream) {
+// kts_arch_max_states()).  `tt` is the transitions transposed, S rows of kts_arch_wide_pitch(S)
+// floats padded with -inf; `back` is scratch of kts_arch_wide_bp_pitch(S) backpointers a row of
+// kts_arch_wide_bp_bytes(S) bytes; `work` holds kts_arch_wide_work_floats(S) floats a contig.  Same
+// contract as kts_arch_viterbi otherwise.
+int kts_arch_viterbi_wide(const void* emissions, const void* transitions, const void* tt, const void* offsets,
+                          int n_contigs, long long rows, int S, void* back, void* paths, void* scores, void* work,
+                          void* stream) {
     if (n_contigs <= 0) return 0;
     if (S < 1) return (int)cudaErrorInvalidValue;
+    ArchWideGeometry g;
+    const cudaError_t err = arch_wide_geometry(S, g);
+    if (err != cudaSuccess) return (int)err;
     const float* em = static_cast<const float*>(emissions);
     const float* tr = static_cast<const float*>(transitions);
+    const float* ttp = static_cast<const float*>(tt);
     const long long* off = static_cast<const long long*>(offsets);
     int* pa = static_cast<int*>(paths);
     float* sc = static_cast<float*>(scores);
     float* wk = static_cast<float*>(work);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (kts_arch_wide_bp_bytes(S) == 2)
-        arch_viterbi_wide_kernel<uint16_t><<<n_contigs, ARCH_WIDE_THREADS, 0, st>>>(
-            em, tr, off, rows, S, static_cast<uint16_t*>(back), pa, sc, wk);
-    else
-        arch_viterbi_wide_kernel<int32_t><<<n_contigs, ARCH_WIDE_THREADS, 0, st>>>(
-            em, tr, off, rows, S, static_cast<int32_t*>(back), pa, sc, wk);
-    return (int)cudaGetLastError();
+    if (kts_arch_wide_bp_bytes(S) == 4)
+        return launch_arch_wide<int32_t, false>(g, n_contigs, rows, em, tr, ttp, off, static_cast<int32_t*>(back), pa,
+                                                sc, wk, st);
+    if (g.pitch <= ARCH_WIDE_STAGED_PITCH)
+        return launch_arch_wide<uint16_t, true>(g, n_contigs, rows, em, tr, ttp, off, static_cast<uint16_t*>(back), pa,
+                                                sc, wk, st);
+    return launch_arch_wide<uint16_t, false>(g, n_contigs, rows, em, tr, ttp, off, static_cast<uint16_t*>(back), pa,
+                                             sc, wk, st);
 }
 
 }  // extern "C"

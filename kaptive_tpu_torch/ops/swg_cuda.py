@@ -8,18 +8,21 @@ CIGAR runs).  The library is compiled at first use (:mod:`kaptive_tpu_torch.util
 at the root of the checkout) and loaded with ctypes; nothing is compiled at
 import.
 
-The fill has three forms and picks one from ``w_pad`` and the matrix's dtype
+The fill has four forms and picks one from ``w_pad`` and the matrix's dtype
 (:func:`fill_form`).  With an int8 matrix (every score in int8, as
 :func:`as_kernel_matrix` gives it for BLOSUM62 and the mapper's 2/-4): the
 warp form (one warp per pair, the band in registers) for the widths the
 lattices produce, a multiple of 128 up to 1024, and the wide form (one block
 per pair, the band in shared memory) for every other width up to
-``kts_swg_max_w_pad()`` (8,192).  Every wider band the planner emits
-(32,768, 131,072, ...), and every band with an int32 matrix (a score outside
-int8), takes the segmented form: one block per pair walks each row's band in
+``kts_swg_max_w_pad()`` (8,192).  Every wider band the planner emits up to
+131,072 lanes, and every band with an int32 matrix (a score outside int8),
+takes the cluster form: int32 scores, the band in registers, one warp a pair
+up to 512 lanes, else a thread-block cluster of up to 16 CTAs a pair that
+share the scan's totals and their edge lanes through distributed shared
+memory (:func:`cluster_plan`).  Past the largest cluster (the planner's
+524,288) the segmented form: one block per pair walks each row's band in
 segments of 8,192 lanes staged in shared memory, with the M and D bands in
-device scratch between rows and the scan's carry passed from segment to
-segment.  Both tracebacks are instances of one walk: one warp
+device scratch between rows.  Both tracebacks are instances of one walk: one warp
 per pair reads up to 32 cells of the current diagonal, column or row at once.
 The CIGAR instance also records the runs, staged in shared memory, and the
 warp writes each pair's row of ``ops`` once, reversed into alignment order and
@@ -28,7 +31,8 @@ zero-filled.
 Each wrapper checks device, dtype, shape and contiguity, allocates its outputs
 with ``torch.empty``, launches on the calling thread's current stream, raises
 if the launch returns a CUDA error, and counts its launches
-(``swg.cuda.fill`` / ``swg.cuda.fill_segmented`` / ``swg.cuda.traceback`` /
+(``swg.cuda.fill`` / ``swg.cuda.fill_cluster`` / ``swg.cuda.fill_segmented`` /
+``swg.cuda.traceback`` /
 ``swg.cuda.traceback_cigar`` in :mod:`kaptive_tpu_torch.utils.metrics`).
 There is no fallback: what the kernels cannot take raises.
 """
@@ -55,6 +59,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_swg_fill.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
     lib.kts_swg_fill_segmented.restype = i32
     lib.kts_swg_fill_segmented.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 6
+    lib.kts_swg_fill_cluster_plan.restype = i32
+    lib.kts_swg_fill_cluster_plan.argtypes = [i32, ctypes.POINTER(i32)]
+    lib.kts_swg_fill_cluster.restype = i32
+    lib.kts_swg_fill_cluster.argtypes = [ptr] * 7 + [i32] * 6 + [ptr] * 5
     lib.kts_swg_traceback.restype = i32
     lib.kts_swg_traceback.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 2
     lib.kts_swg_traceback_cigar.restype = i32
@@ -69,13 +77,21 @@ def build() -> ctypes.CDLL:
     return LIBRARY.load()
 
 
+def cluster_plan(w_pad: int) -> tuple[int, int, int, int] | None:
+    r"""The cluster form's geometry for ``w_pad`` on the current device: ``(ctas, slice, lanes a
+    thread, threads a CTA)``, ``ctas`` 0 for one warp a pair.  None when the cluster form does not
+    take the band."""
+    out = (ctypes.c_int * 4)()
+    return tuple(out) if build().kts_swg_fill_cluster_plan(int(w_pad), out) else None
+
+
 def fill_form(w_pad: int, dtype: torch.dtype = torch.int8) -> str:
     r"""The form of the fill kernel that takes ``w_pad`` with a matrix of ``dtype``:
-    ``"warp"``, ``"wide"`` or ``"segmented"``."""
+    ``"warp"``, ``"wide"``, ``"cluster"`` or ``"segmented"``."""
     lib = build()
     if dtype == torch.int8 and w_pad <= lib.kts_swg_max_w_pad():
         return "warp" if lib.kts_swg_fill_warp_form(int(w_pad)) else "wide"
-    return "segmented"
+    return "cluster" if cluster_plan(w_pad) is not None else "segmented"
 
 
 def swg_fill_cuda(
@@ -95,7 +111,7 @@ def swg_fill_cuda(
     r"""Band fill on the card: ``(tb, best, best_i, best_j)`` as :func:`fill_band_plain`.
 
     ``matrix`` is int8 (the warp and wide forms up to ``w_pad`` 8,192) or int32
-    (the segmented form, which also takes an int8 matrix's wider bands).
+    (the cluster and segmented forms, which also take an int8 matrix's wider bands).
     Rows of ``tb`` at or past each pair's query length are left unwritten.
     """
     device = q_codes.device
@@ -115,15 +131,23 @@ def swg_fill_cuda(
         raise ValueError(f"w_pad={w_pad}: a band needs at least 3 lanes (w_pad = 2 k_pad + 3)")
     if rows_max < 1 or T < 1:
         raise ValueError(f"empty bucket geometry (rows_max={rows_max}, T={T})")
-    form = fill_form(w_pad, matrix.dtype)
 
     tb = torch.empty((B, rows_max, w_pad), dtype=torch.uint8, device=device)
     best = torch.empty(B, dtype=torch.int32, device=device)
     best_i = torch.empty(B, dtype=torch.int32, device=device)
     best_j = torch.empty(B, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):  # the launch goes to the current device
+    with torch.cuda.device(device):  # the launch goes to the current device, and the plan is its own
+        form = fill_form(w_pad, matrix.dtype)
         stream = torch.cuda.current_stream(device).cuda_stream
-        if form == "segmented":
+        if form == "cluster":
+            scores = matrix.to(torch.int32).contiguous()
+            rc = lib.kts_swg_fill_cluster(
+                q_codes.data_ptr(), t_codes.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(),
+                offsets.data_ptr(), k_locals.data_ptr(), scores.data_ptr(),
+                B, rows_max, w_pad, T, int(gap_open), int(gap_extend),
+                tb.data_ptr(), best.data_ptr(), best_i.data_ptr(), best_j.data_ptr(), stream,
+            )
+        elif form == "segmented":
             scores = matrix.to(torch.int32).contiguous()
             scratch = torch.empty((B, 2, w_pad), dtype=torch.int32, device=device)  # the M and D bands
             rc = lib.kts_swg_fill_segmented(
@@ -141,7 +165,7 @@ def swg_fill_cuda(
             )
     if rc != 0:
         raise RuntimeError(f"swg fill kernel launch failed ({form} form, w_pad={w_pad}): CUDA error {rc}")
-    count("swg.cuda.fill_segmented" if form == "segmented" else "swg.cuda.fill")
+    count({"cluster": "swg.cuda.fill_cluster", "segmented": "swg.cuda.fill_segmented"}.get(form, "swg.cuda.fill"))
     return tb, best, best_i, best_j
 
 
@@ -234,7 +258,7 @@ def swg_traceback_cigar_cuda(
 def as_kernel_matrix(matrix: torch.Tensor | object, device: torch.device) -> torch.Tensor:
     r"""A (256, 256) substitution matrix as the fill takes it: a contiguous tensor on ``device``,
     int8 when every score fits in int8 (the warp and wide forms keep it in shared memory),
-    else int32 (the segmented form reads it from device memory), as the JAX package casts it."""
+    else int32 (the cluster and segmented forms read it from device memory), as the JAX package casts it."""
     m = matrix if isinstance(matrix, torch.Tensor) else torch.from_numpy(np.array(matrix))
     if m.dtype != torch.int8:
         fits = int(m.min()) >= -128 and int(m.max()) <= 127

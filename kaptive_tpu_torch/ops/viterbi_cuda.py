@@ -16,8 +16,12 @@ three-step pattern; the backtrace composes each chunk's map of end states.
 :func:`gene_chunk_table` cuts the strands here, on the host.  The
 architectural decode runs one warp a contig, one lane a state, with a tree
 pick and no block barrier, up to ``kts_arch_max_states()`` (256) states; above
-that, a block a contig with 16-bit backpointers (32-bit past 65,536 states).
-The design notes are in the source.
+that, a thread-block cluster a contig (its states cut among up to 8 CTAs that
+share each row through distributed shared memory; ``kts_arch_wide_cluster``
+gives the size a launch takes) and a warp a state over the
+transitions transposed here (one contiguous predecessor row a state), with
+16-bit backpointers (32-bit past 65,536 states).  The design notes are in the
+source.
 
 Each wrapper checks device, dtype, shape and contiguity, reads the chain
 offsets on the host and checks them as the plain forms do, allocates its
@@ -54,10 +58,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kts_gene_viterbi.argtypes = [ptr] * 5 + [i32] * 4 + [f32, f32] + [ptr] * 3 + [ctypes.POINTER(i64), ptr]
     lib.kts_arch_viterbi.restype = i32
     lib.kts_arch_viterbi.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 4
-    lib.kts_arch_wide_bp_bytes.restype = i32
-    lib.kts_arch_wide_bp_bytes.argtypes = [i32]
+    for name in ("kts_arch_wide_bp_bytes", "kts_arch_wide_pitch", "kts_arch_wide_bp_pitch", "kts_arch_wide_work_floats"):
+        getattr(lib, name).restype = i32
+        getattr(lib, name).argtypes = [i32]
     lib.kts_arch_viterbi_wide.restype = i32
-    lib.kts_arch_viterbi_wide.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 5
+    lib.kts_arch_viterbi_wide.argtypes = [ptr] * 4 + [i32, i64, i32] + [ptr] * 5
+    lib.kts_arch_wide_cluster.restype = i32
+    lib.kts_arch_wide_cluster.argtypes = [i32, i32]
 
 
 LIBRARY = CudaLibrary("viterbi.cu", _declare)
@@ -197,12 +204,16 @@ def arch_viterbi_cuda(
         )
     else:
         bp = torch.int16 if lib.kts_arch_wide_bp_bytes(S) == 2 else torch.int32
-        back = torch.empty((rows, S), dtype=bp, device=device)  # backpointers, scratch
-        work = torch.empty((n_contigs, 2, S), dtype=torch.float32, device=device)  # two rows of scores a contig
-        rc = lib.kts_arch_viterbi_wide(
-            emissions.data_ptr(), transitions.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,
-            back.data_ptr(), paths.data_ptr(), scores.data_ptr(), work.data_ptr(), stream,
-        )
+        pitch = lib.kts_arch_wide_pitch(S)
+        tt = torch.full((S, pitch), float("-inf"), dtype=torch.float32, device=device)  # a state's predecessors a row
+        tt[:, :S] = transitions.t()
+        back = torch.empty((rows, lib.kts_arch_wide_bp_pitch(S)), dtype=bp, device=device)  # backpointers, scratch
+        work = torch.empty((n_contigs, lib.kts_arch_wide_work_floats(S)), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):  # the launch, and the cluster the device runs, are the tensors' device's
+            rc = lib.kts_arch_viterbi_wide(
+                emissions.data_ptr(), transitions.data_ptr(), tt.data_ptr(), offsets.data_ptr(), n_contigs, rows, S,
+                back.data_ptr(), paths.data_ptr(), scores.data_ptr(), work.data_ptr(), stream,
+            )
     if rc != 0:
         raise RuntimeError(f"architectural Viterbi kernel launch failed ({S} states): CUDA error {rc}")
     count("viterbi.cuda.arch" if warp else "viterbi.cuda.arch_wide")

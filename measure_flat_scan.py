@@ -30,12 +30,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+from measure_common import assert_no_jax, build_sources, parent_change  # noqa: E402
 REPS = 20  # calls a time is the mean of
 
 
@@ -43,21 +44,15 @@ def _build_parent(parent: Path, out: Path) -> tuple[ctypes.CDLL, str]:
     """DIR's scan.cu built with the port's nvcc flags; returns the library and its flat kernel's
     ``-Xptxas -v`` line (registers, shared memory)."""
     from kaptive_tpu_torch.ops.scan_cuda import _declare
-    from kaptive_tpu_torch.utils.nvcc import NVCC_FLAGS, _nvcc
 
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libparent_scan.so"
-    src = parent / "kaptive_tpu_torch" / "csrc" / "scan.cu"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    src = (parent / "kaptive_tpu_torch" / "csrc" / "scan.cu").read_text()
+    loaded, output = build_sources({"parent_scan": src}, out)["parent_scan"]
     report, flat = "?", False
-    for ln in (proc.stdout + proc.stderr).splitlines():
+    for ln in output.splitlines():
         if "Compiling entry function" in ln:
             flat = "minimizer_scan_kernel" in ln
         elif flat and "Used" in ln:
             report = ln.split("ptxas info    :")[-1].strip()
-    loaded = ctypes.CDLL(str(lib))
     _declare(loaded)
     return loaded, report
 
@@ -138,17 +133,11 @@ def main() -> int:
             ("front door", lambda: _parent_front_door(lib, codes, DEFAULT_K, DEFAULT_W),
              lambda: minimizer_scan(codes, DEFAULT_K, DEFAULT_W)),
         ):
-            times = {"parent": [], "change": []}
-            for who in ("parent", "change", "change", "parent"):
-                times[who].append(_timed(parent_fn if who == "parent" else change_fn, REPS))
-            print(f"# {what}, parent / change / change / parent: {times['parent'][0]:.4f} / "
-                  f"{times['change'][0]:.4f} / {times['change'][1]:.4f} / {times['parent'][1]:.4f} ms "
-                  f"[{card}]", flush=True)
+            p_ms, c_ms = parent_change(parent_fn, change_fn, lambda fn: _timed(fn, REPS))
+            print(f"# {what}, parent / change / change / parent: {p_ms[0]:.4f} / {c_ms[0]:.4f} / {c_ms[1]:.4f} / "
+                  f"{p_ms[1]:.4f} ms [{card}]", flush=True)
 
-    for roots in (("jax", "jaxlib"), ("kaptive_tpu",)):
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in roots)
-        if loaded:
-            raise AssertionError(f"modules of {roots} were imported: {loaded}")
+    assert_no_jax()
     print(card)
     return 0
 

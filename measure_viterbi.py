@@ -34,14 +34,14 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+
+from measure_common import assert_no_jax, build_sources, parent_change  # noqa: E402
 CHUNKS = (256, 512, 1024, 2048, 4096)  # gene chunk lengths swept
 WARMUPS = (0, 256, 512, 1024, 2048)  # gene warm-ups swept
 REPS = 5  # calls a time is the mean of
@@ -66,30 +66,20 @@ def _timed(fn, reps: int = REPS) -> float:
 def _build_parent(parent: Path, out: Path) -> dict[str, ctypes.CDLL]:
     """DIR's viterbi.cu as it is ("full") and with the gene kernel's reverse pass cut ("forward"),
     built in parallel with the port's nvcc flags."""
-    from kaptive_tpu_torch.utils.nvcc import NVCC_FLAGS, _nvcc
-
     src = (parent / "kaptive_tpu_torch" / "csrc" / "viterbi.cu").read_text()
     if src.count(PARENT_REVERSE_LOOP) != 1:
         raise RuntimeError(f"{parent}: not the one-warp-a-strand design (no single reverse loop to cut)")
-    out.mkdir(parents=True, exist_ok=True)
     variants = {"full": src, "forward": src.replace(PARENT_REVERSE_LOOP, "for (long long t = -1; t >= 0; --t) {")}
-
-    def build(name: str) -> ctypes.CDLL:
-        cu, lib = out / f"parent_{name}.cu", out / f"libparent_{name}.so"
-        cu.write_text(variants[name])
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(cu)], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {cu}:\n{proc.stderr}")
-        lib_ = ctypes.CDLL(str(lib))
-        ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib_.kts_gene_viterbi.restype = i32
-        lib_.kts_gene_viterbi.argtypes = [ptr] * 4 + [i32, i64, f32, f32] + [ptr] * 3
-        lib_.kts_arch_viterbi.restype = i32
-        lib_.kts_arch_viterbi.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 4
-        return lib_
-
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        return dict(zip(variants, pool.map(build, variants)))
+    built = build_sources({f"parent_{name}": text for name, text in variants.items()}, out)
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    libs = {}
+    for name in variants:
+        lib = libs[name] = built[f"parent_{name}"][0]
+        lib.kts_gene_viterbi.restype = i32
+        lib.kts_gene_viterbi.argtypes = [ptr] * 4 + [i32, i64, f32, f32] + [ptr] * 3
+        lib.kts_arch_viterbi.restype = i32
+        lib.kts_arch_viterbi.argtypes = [ptr] * 3 + [i32, i64, i32] + [ptr] * 4
+    return libs
 
 
 def _parent_gene(lib, args, kw):
@@ -217,15 +207,13 @@ def main() -> int:
             want, _ = _gene_launch(*args, kw["indel"], kw["ins_extend"])
             if not torch.equal(_parent_gene(parent["full"], args, kw), want):
                 raise AssertionError(f"the parent's gene kernel and this one differ on the {kind} launch")
-            times = {"parent": [], "change": []}
-            for who in ("parent", "change", "change", "parent"):
-                fn = ((lambda: _parent_gene(parent["full"], args, kw)) if who == "parent"
-                      else (lambda: _gene_launch(*args, kw["indel"], kw["ins_extend"])))
-                times[who].append(_timed(fn, 3))
+            p_ms, c_ms = parent_change(lambda: _parent_gene(parent["full"], args, kw),
+                                       lambda: _gene_launch(*args, kw["indel"], kw["ins_extend"]),
+                                       lambda fn: _timed(fn, 3))
             forward = _timed(lambda: _parent_gene(parent["forward"], args, kw), 3)
-            full = sum(times["parent"]) / 2
-            print(f"# gene {kind}: parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f} ms, change "
-                  f"{times['change'][0]:.4f} / {times['change'][1]:.4f} ms; the parent's forward pass alone "
+            full = sum(p_ms) / 2
+            print(f"# gene {kind}: parent {p_ms[0]:.4f} / {p_ms[1]:.4f} ms, change "
+                  f"{c_ms[0]:.4f} / {c_ms[1]:.4f} ms; the parent's forward pass alone "
                   f"{forward:.4f} ms: {forward / steps * 1e6:.2f} ns a step forward, "
                   f"{(full - forward) / steps * 1e6:.2f} ns a step reverse, over its longest strand of {steps} "
                   f"[{card}]", flush=True)
@@ -234,14 +222,12 @@ def main() -> int:
             p_paths, p_scores = _parent_arch(parent["full"], args)
             if not (torch.equal(paths, p_paths) and torch.equal(scores, p_scores)):
                 raise AssertionError(f"the parent's architectural kernel and this one differ on {kind}")
-            times = {"parent": [], "change": []}
-            for who in ("parent", "change", "change", "parent"):
-                fn = (lambda: _parent_arch(parent["full"], args)) if who == "parent" else (lambda: arch_viterbi_cuda(*args))
-                times[who].append(_timed(fn, 20))
+            p_ms, c_ms = parent_change(lambda: _parent_arch(parent["full"], args), lambda: arch_viterbi_cuda(*args),
+                                       lambda fn: _timed(fn, 20))
             rows, S = args[0].shape
             print(f"# architectural {kind} launch ({rows} rows x {S} states, {args[2].shape[0] - 1} contigs): "
-                  f"parent {times['parent'][0]:.4f} / {times['parent'][1]:.4f} ms, change {times['change'][0]:.4f} / "
-                  f"{times['change'][1]:.4f} ms [{card}]", flush=True)
+                  f"parent {p_ms[0]:.4f} / {p_ms[1]:.4f} ms, change {c_ms[0]:.4f} / {c_ms[1]:.4f} ms [{card}]",
+                  flush=True)
     else:
         for kind, (args, _) in arch.items():
             rows, S = args[0].shape
@@ -249,10 +235,7 @@ def main() -> int:
             print(f"# architectural {kind} launch ({rows} rows x {S} states, {args[2].shape[0] - 1} contigs): "
                   f"{ms:.4f} ms [{card}]", flush=True)
 
-    for roots in (("jax", "jaxlib"), ("kaptive_tpu",)):
-        loaded = sorted(m for m in sys.modules if m.split(".")[0] in roots)
-        if loaded:
-            raise AssertionError(f"modules of {roots} were imported: {loaded}")
+    assert_no_jax()
     print(card)
     return 0
 

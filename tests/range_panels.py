@@ -9,6 +9,8 @@ plain PyTorch forms and the CUDA kernels all see the same bytes:
   protein: BLOSUM62 gives score 849, 150 matches, q_start 0, t_start 1,000);
 - substitution matrices whose scores leave int8 (BLOSUM62 x 20, and a
   nucleotide matrix with match 100,000 and mismatch -200,000);
+- buckets whose filled cells span the whole band, so that they cross every
+  slice of the fill's cluster form;
 - code streams for the scans at wide windows and long k-mers: random bases
   with a sentinel run, a poly-A run (every k-mer ties) and a period-2 repeat
   (ties two apart).
@@ -66,6 +68,32 @@ WIDE_MATRICES = {
     "blosum62-x20": (AA, scaled_blosum, 220, 20),
     "nt-100000": (NT, big_nt_matrix, 400_000, 100_000),
 }
+
+
+def wide_band_panel(seed: int, alphabet, B: int, rows_max: int, w_pad: int):
+    """Pairs whose filled cells span the whole band: short repeat-rich queries (one with a stated
+    length past the bucket's rows) against targets of a quarter to a half of ``w_pad`` at diagonal
+    offset 0 (the band's upper half) or far below it (the lower half), bands nearly ``w_pad`` wide,
+    and an empty pair last: ``(q, q_lens, t, t_lens, offsets, k_locals)``."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(alphabet, np.uint8)
+    t_pad, k_pad = w_pad + 2, (w_pad - 3) // 2
+    q = np.zeros((B, rows_max), np.uint8)
+    t = np.zeros((B, rows_max + 2 * t_pad), np.uint8)
+    q_lens, t_lens, offsets, k_locals = (np.zeros(B, np.int32) for _ in range(4))
+    k_locals[-1] = 1
+    for p in range(B - 1):
+        period = alpha[rng.integers(0, len(alpha), int(rng.integers(1, 4)))]
+        n, m = int(rng.integers(rows_max // 2, rows_max + 1)), int(rng.integers(max(1, k_pad // 2), k_pad + 1))
+        a, b = np.resize(period, n), np.resize(period, m)
+        a[rng.random(n) < 0.1] = alpha[rng.integers(0, len(alpha))]
+        b[rng.random(m) < 0.1] = alpha[rng.integers(0, len(alpha))]
+        q[p, :n], t[p, t_pad: t_pad + m] = a, b
+        q_lens[p] = n + (5 if p == 1 else 0)
+        t_lens[p] = m
+        offsets[p] = 0 if p % 2 == 0 else -int(rng.integers(k_pad // 2, k_pad + 1))
+        k_locals[p] = max(1, k_pad - int(rng.integers(0, 8)))
+    return q, q_lens, t, t_lens, offsets, k_locals
 
 
 def scan_stream(rng, L: int) -> np.ndarray:

@@ -99,7 +99,7 @@ EXCEPTIONS = {
         f"{DEVICE_PROGRAM} (the Pallas launch)",
     ),
     "ops/swg_pallas.py:pallas_compatible": (
-        "none: the Hopper fill takes every band width and every int32 matrix (warp, wide and segmented forms)",
+        "none: the Hopper fill takes every band width and every int32 matrix (warp, wide, cluster and segmented forms)",
         f"{NOT_TO_PORT}: the Pallas -> XLA degrade",
     ),
     "ops/swg_pallas.py:pairs_for": (

@@ -76,6 +76,7 @@ CASES = [
     ("wide-200-odd-width", AA, blosum_matrix, 11, 1, 6, 70, 200, True, True),
 ]
 WARP_WIDTHS = tuple(range(128, 1025, 128))
+CLUSTER_MAX_W_PAD = 131072  # the widest band the fill's cluster form takes (16 CTAs of 8,192 lanes)
 
 
 def _assert_kernels_equal_plain(device, arrays, matrix, go, ge, rows_max, w_pad):
@@ -86,7 +87,7 @@ def _assert_kernels_equal_plain(device, arrays, matrix, go, ge, rows_max, w_pad)
     q, ql, t, tl, off, kl = (torch.from_numpy(a).to(device) for a in arrays)
     mat = as_kernel_matrix(torch.from_numpy(matrix), device)
     if mat.dtype == torch.int32 or w_pad > 8192:
-        assert fill_form(w_pad, mat.dtype) == "segmented"
+        assert fill_form(w_pad, mat.dtype) == ("cluster" if w_pad <= CLUSTER_MAX_W_PAD else "segmented")
     else:
         assert fill_form(w_pad) == ("warp" if w_pad in WARP_WIDTHS else "wide")
     kw = dict(gap_open=go, gap_extend=ge, rows_max=rows_max, w_pad=w_pad)
@@ -189,7 +190,7 @@ def _assert_cigar_walk_equals_plain(device, arrays, matrix, go, ge, rows_max, w_
 
 @pytest.mark.parametrize("w_pad", [16384, 32768])
 def test_fill_rejects_too_wide_band(device, w_pad):
-    """No band is too wide any more: past 8,192 the fill takes its segmented form, equal to the
+    """No band is too wide any more: past 8,192 the fill takes its cluster form, equal to the
     plain fill with both walks; unseeded pairs whose bands span most of the width, and the
     sharded front door on four slots."""
     from kaptive_tpu_torch.ops.swg import banded_swg
@@ -197,13 +198,13 @@ def test_fill_rejects_too_wide_band(device, w_pad):
     from kaptive_tpu_torch.parallel.typing import sharded_banded_swg
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
-    assert fill_form(w_pad) == "segmented"
+    assert fill_form(w_pad) == "cluster"
     rng = np.random.default_rng(4)
     arrays = random_swg_batch(rng, NT, 4, 96, w_pad, seeded=False, max_len=96)
-    arrays[5][:] = np.minimum(arrays[5] + (w_pad - 3) // 2 - 200, (w_pad - 3) // 2)  # bands across segments
+    arrays[5][:] = np.minimum(arrays[5] + (w_pad - 3) // 2 - 200, (w_pad - 3) // 2)  # bands across slices
     reset_metrics()
     res = _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 96, w_pad)
-    assert snapshot().get("swg.cuda.fill_segmented") == 1 and "swg.cuda.fill" not in snapshot()
+    assert snapshot().get("swg.cuda.fill_cluster") == 1 and "swg.cuda.fill" not in snapshot()
     assert int(res[0].max()) > 0
     _assert_cigar_walk_equals_plain(device, arrays, nt_matrix(), 4, 2, 96, w_pad)
     args = [torch.from_numpy(a).to(device) for a in arrays]
@@ -229,7 +230,7 @@ def test_f7_pair_on_card_equals_plain_and_jax_values(device):
     reset_metrics()
     res = PairwiseAligner()(Sequences.from_bytes([query]), Sequences.from_bytes([target]))
     counts = snapshot()
-    assert counts.get("swg.cuda.fill_segmented") == 1 and counts.get("swg.cuda.traceback") == 1
+    assert counts.get("swg.cuda.fill_cluster") == 1 and counts.get("swg.cuda.traceback") == 1
     assert not any(".plain." in name for name in counts)
     for field, value in F7_EXPECTED.items():
         assert int(getattr(res, field)[0]) == value, field
@@ -249,7 +250,7 @@ def test_f7_pair_on_card_equals_plain_and_jax_values(device):
 @pytest.mark.parametrize("name", ["blosum62-x20", "nt-100000"])
 @pytest.mark.parametrize("w_pad", [128, 1152, 32768])
 def test_int32_matrix_fill_equals_plain(device, name, w_pad):
-    """Scores outside int8 take the segmented form at every width, equal to the plain fill with
+    """Scores outside int8 take the cluster form at every width, equal to the plain fill with
     both walks; the front doors keep the int32 matrix."""
     from range_panels import WIDE_MATRICES
 
@@ -258,7 +259,7 @@ def test_int32_matrix_fill_equals_plain(device, name, w_pad):
 
     alphabet, matrix_fn, go, ge = WIDE_MATRICES[name]
     matrix = matrix_fn()
-    assert device_matrix(matrix, device).dtype == torch.int32 and fill_form(w_pad, torch.int32) == "segmented"
+    assert device_matrix(matrix, device).dtype == torch.int32 and fill_form(w_pad, torch.int32) == "cluster"
     arrays = random_swg_batch(np.random.default_rng(8), alphabet, 6, 64, w_pad, seeded=False)
     _assert_kernels_equal_plain(device, arrays, matrix, go, ge, 64, w_pad)
     _assert_cigar_walk_equals_plain(device, arrays, matrix, go, ge, 64, w_pad)
@@ -268,6 +269,82 @@ def test_int32_matrix_fill_equals_plain(device, name, w_pad):
                       (banded_swg_cigars(*(a.to(device) for a in args), **kw)[0], banded_swg_cigars(*args, **kw)[0])):
         for field, g, w in zip(want._fields, got, want):
             assert torch.equal(g.cpu(), w), field
+
+
+@pytest.mark.parametrize("cluster", list(range(1, 17)))
+def test_cluster_fill_equals_plain_at_every_cluster_size(device, cluster):
+    """The fill's cluster form at 1 .. 16 CTAs a cluster, each reached through swg_fill_cuda at the
+    band the cluster's own plan gives (~2,048 lanes a CTA, w_pad = 2048 C - 5) with two int32
+    matrices (BLOSUM62 x 20, the 100,000-scaled nucleotide one): every SwgResult field and
+    traceback byte equal the plain fill's."""
+    from range_panels import WIDE_MATRICES, wide_band_panel
+
+    from kaptive_tpu_torch.ops.swg_cuda import cluster_plan
+
+    w_pad = 2048 * cluster - 5
+    assert cluster_plan(w_pad)[0] == cluster
+    alphabet, matrix_fn, go, ge = WIDE_MATRICES["blosum62-x20"]
+    arrays = wide_band_panel(cluster, alphabet, 4, 48, w_pad)
+    res = _assert_kernels_equal_plain(device, arrays, matrix_fn(), go, ge, 48, w_pad)
+    assert int(res[0].max()) > 0
+    alphabet, matrix_fn, go, ge = WIDE_MATRICES["nt-100000"]
+    arrays = wide_band_panel(100 + cluster, alphabet, 3, 40, w_pad)
+    _assert_kernels_equal_plain(device, arrays, matrix_fn(), go, ge, 40, w_pad)
+
+
+@pytest.mark.parametrize("w_pad", [8193, 8195, 12001, 32768, 65536, 131072])
+def test_cluster_fill_just_past_the_int8_forms(device, w_pad):
+    """Bands just past the int8 forms' 8,192 lanes up to the cluster form's largest (16 CTAs of
+    8,192 lanes): the cluster form's own choice of cluster, equal to the plain fill, counted."""
+    from range_panels import wide_band_panel
+
+    from kaptive_tpu_torch.ops.swg_cuda import cluster_plan
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    ctas, slice_, lpt, threads = cluster_plan(w_pad)
+    print(f"w_pad {w_pad}: {ctas} CTAs of {slice_} lanes, {lpt} a thread, {threads} threads")
+    assert ctas >= 2 and (ctas - 1) * slice_ < w_pad <= ctas * slice_
+    arrays = wide_band_panel(w_pad, NT, 3, 40, w_pad)
+    reset_metrics()
+    _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 40, w_pad)
+    assert snapshot().get("swg.cuda.fill_cluster") == 1 and "swg.cuda.fill_segmented" not in snapshot()
+
+
+@pytest.mark.parametrize("name", ["blosum62-x20", "nt-100000"])
+@pytest.mark.parametrize("w_pad", [3, 100, 128, 129, 256, 300, 512, 513, 640, 2047])
+def test_cluster_fill_narrow_int32_bands(device, name, w_pad):
+    """int32 scores at the narrow widths: one warp a pair up to 512 lanes (4, 8 and 16 lanes a
+    thread), one CTA above; tie-heavy seeded and unseeded pairs, equal to the plain fill."""
+    from range_panels import WIDE_MATRICES
+
+    from kaptive_tpu_torch.ops.swg_cuda import cluster_plan
+
+    assert (cluster_plan(w_pad)[0] == 0) == (w_pad <= 512)
+    alphabet, matrix_fn, go, ge = WIDE_MATRICES[name]
+    rng = np.random.default_rng(w_pad)
+    for seeded in (True, False):
+        arrays = random_swg_batch(rng, alphabet, 9, 64, w_pad, seeded=seeded, tie_heavy=True)
+        _assert_kernels_equal_plain(device, arrays, matrix_fn(), go, ge, 64, w_pad)
+
+
+def test_segmented_fill_past_the_largest_cluster(device):
+    """A band past the cluster form's 131,072 lanes takes the segmented form through banded_swg,
+    equal to the plain fill, counted as such."""
+    from range_panels import wide_band_panel
+
+    from kaptive_tpu_torch.ops.swg import banded_swg
+    from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    w_pad = CLUSTER_MAX_W_PAD + 3
+    assert fill_form(w_pad) == "segmented"
+    arrays = wide_band_panel(7, NT, 2, 24, w_pad)
+    _assert_kernels_equal_plain(device, arrays, nt_matrix(), 4, 2, 24, w_pad)
+    args = [torch.from_numpy(a).to(device) for a in arrays]
+    reset_metrics()
+    res = banded_swg(*args, as_kernel_matrix(torch.from_numpy(nt_matrix()), device),
+                     gap_open=4, gap_extend=2, rows_max=24, w_pad=w_pad, t_pad=w_pad + 2)
+    assert snapshot().get("swg.cuda.fill_segmented") == 1 and int(res.scores.max()) > 0
 
 
 def test_bounds_that_stay_name_themselves(device, scan_device, viterbi_device):
@@ -785,6 +862,70 @@ def test_arch_kernel_equals_plain_with_ties(viterbi_device, n_states):
     assert torch.equal(paths.cpu(), want_paths)
     assert torch.equal(scores.cpu(), want_scores)
     assert np.isneginf(trans).any() or n_states == 1
+
+
+@pytest.mark.parametrize("n_states", [257, 300, 1027])
+def test_arch_wide_kernel_keeps_a_first_nan(viterbi_device, n_states):
+    """NaN candidates: the block-a-contig form keeps a NaN only when it is a state's first
+    candidate (predecessor 0), as one strict chain over the predecessors does, and skips it
+    elsewhere; held to that chain in numpy (the plain form's max propagates NaN)."""
+    from viterbi_panels import arch_chain_reference, arch_tie_panel
+
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
+
+    rng = np.random.default_rng(n_states)
+    em, trans, offsets = arch_tie_panel(rng, [1, 6, 40], n_states)
+    em[3, :5] = np.nan  # contig 1's row 2: state 0 is every state's first predecessor a row later
+    em[20, rng.integers(1, n_states, 30)] = np.nan
+    args = [torch.from_numpy(a).to(viterbi_device) for a in (em, trans, offsets)]
+    paths, scores = arch_viterbi_cuda(*args)
+    want_paths, want_scores = arch_chain_reference(em, trans, offsets)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(paths.cpu().numpy(), want_paths)
+    np.testing.assert_array_equal(scores.cpu().numpy(), want_scores)
+
+
+def test_arch_wide_kernel_with_rows_in_device_memory(viterbi_device):
+    """7,200 states: the score rows are too wide for shared memory and live in device memory;
+    paths and scores equal the plain form's."""
+    from viterbi_panels import arch_tie_panel
+
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda, build
+
+    S = 7200
+    assert build().kts_arch_wide_work_floats(S) > 0
+    em, trans, offsets = arch_tie_panel(np.random.default_rng(S), [1, 3, 9], S)
+    args = [torch.from_numpy(a) for a in (em, trans, offsets)]
+    paths, scores = arch_viterbi_cuda(*(a.to(viterbi_device) for a in args))
+    want_paths, want_scores = arch_viterbi_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(paths.cpu(), want_paths) and torch.equal(scores.cpu(), want_scores)
+
+
+def test_arch_wide_kernel_at_every_cluster_size_it_takes(viterbi_device):
+    """300 states at the fewest contigs for each cluster size the decode takes on this card (up to
+    8 CTAs a contig while every contig's cluster runs at once; one CTA once the contigs fill the
+    card): ties, -inf transitions and -inf emissions; paths and scores equal the plain form's."""
+    from viterbi_panels import arch_tie_panel
+
+    from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
+    from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda, build
+
+    S, lib = 300, build()
+    first: dict[int, int] = {}  # CTAs a contig -> the fewest contigs that take it
+    for n in range(1, 1025):
+        first.setdefault(lib.kts_arch_wide_cluster(S, n), n)
+    print(f"cluster sizes at {S} states (CTAs: fewest contigs): {first}")
+    assert max(first) == 8 and min(first) == 1 and 4 in first
+    for ctas, n_contigs in first.items():
+        rng = np.random.default_rng(ctas)
+        em, trans, offsets = arch_tie_panel(rng, rng.integers(1, 12, n_contigs).tolist(), S)
+        args = [torch.from_numpy(a) for a in (em, trans, offsets)]
+        paths, scores = arch_viterbi_cuda(*(a.to(viterbi_device) for a in args))
+        want_paths, want_scores = arch_viterbi_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(paths.cpu(), want_paths) and torch.equal(scores.cpu(), want_scores), ctas
 
 
 @pytest.mark.parametrize("bad", ["short", "past_end", "decreasing", "not_from_zero"])

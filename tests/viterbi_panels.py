@@ -100,3 +100,32 @@ def arch_tie_panel(rng, n_rows: list[int], n_states: int):
     trans[rng.random(trans.shape) < 0.2] = -np.inf
     trans[-1, :], trans[-1, -1] = -np.inf, 0.0
     return em, trans, offsets
+
+
+def arch_chain_reference(emissions, transitions, offsets):
+    """The architectural decode with each state's pick as one strict chain over its predecessors
+    p = 0 .. S-1 (the first candidate taken whatever it is, a later one only when strictly
+    greater): ``(paths, scores)``.  It equals the plain form wherever no candidate is NaN, and
+    says what a NaN does: kept when it is the first candidate, skipped elsewhere."""
+    S = transitions.shape[0]
+    paths = np.empty(int(offsets[-1]), np.int32)
+    scores = np.empty(len(offsets) - 1, np.float32)
+    for c, (lo, hi) in enumerate(zip(offsets[:-1], offsets[1:])):
+        rows = emissions[lo:hi]
+        cur = transitions[0] + rows[0]
+        back = np.zeros((len(rows), S), np.int64)
+        for i in range(1, len(rows)):
+            cand = cur[:, None] + transitions  # (p, s)
+            best, arg = cand[0].copy(), np.zeros(S, np.int64)
+            for p in range(1, S):
+                take = cand[p] > best
+                best[take], arg[take] = cand[p][take], p
+            back[i] = arg
+            cur = best + rows[i]
+        scores[c] = cur[S - 1]
+        state = S - 1
+        paths[hi - 1] = state
+        for i in range(len(rows) - 1, 0, -1):
+            state = back[i, state]
+            paths[lo + i - 1] = state
+    return paths, scores
