@@ -146,7 +146,9 @@ module of either was loaded).  Steps:
     k = 17, w = 40 ``GeneIndex`` on two assemblies and ``build_minimizer_set``
     at (17, 40) (both scans' run-time form), the recorded scan batch and the
     four-assembly flat stream held to the plain forms, and both scans at w =
-    1,100 on a 1 Mb stream; an ``ArchitecturalPredictor`` of 254 archetypes
+    1,100 on a 1 Mb stream; both scans' front doors one window past the
+    run-time form's widest (``kts_scan_any_max_w(15) + 1``: the sparse-table
+    form) on that stream; an ``ArchitecturalPredictor`` of 254 archetypes
     (257 states: the architectural decode's block-a-contig form, a warp a
     state) on the draft assembly's annotation, equal to its CPU path.  Each
     redesigned form's time is printed beside its bound and share;
@@ -178,7 +180,7 @@ this run's data needs: the larger of the bytes moved (inputs read once,
 outputs written once) over 3.35 TB/s and the integer operations over the
 card's int32 rate, taken as a quarter of its 67 TFLOP/s float32 rate (half
 the lanes, and no multiply-add counted double): 16.75 T operations/s.  No
-PyTorch call computes any of the seven functions, so ``library_ms`` is null.
+PyTorch call computes any of the functions, so ``library_ms`` is null.
 The two Viterbi kernels are float32 work: their operations are counted
 against the 67 TFLOP/s float32 rate, and their bytes are the function's own
 inputs and outputs (no scratch of the kernel).  The gene decode's time is
@@ -1332,8 +1334,9 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
     from kaptive_tpu_torch.ops.swg import banded_swg
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, cluster_plan
     from kaptive_tpu_torch.ops.mapper import GeneIndex, map_genes_batch
-    from kaptive_tpu_torch.ops.minimizer import build_minimizer_set
-    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
+    from kaptive_tpu_torch.ops.minimizer import build_minimizer_set, minimizer_scan
+    from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any, rowcompact_scan
+    from kaptive_tpu_torch.ops.scan_cuda import build as scan_build
     from kaptive_tpu_torch.ops.viterbi import arch_viterbi_plain
     from kaptive_tpu_torch.ops.viterbi_cuda import arch_viterbi_cuda
     from kaptive_tpu_torch.ops.viterbi_cuda import build as viterbi_build
@@ -1437,11 +1440,20 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
           f"{flat['ms']:.4f} ms, front door {flat['front_door_ms']:.4f} ms, plain {flat['plain_ms']:.4f} ms; bound "
           f"{flat['bound_ms']:.4f} ms by {flat['bound_by']}: {_share(flat)} [{card}]", flush=True)
     mb = scan_stream(np.random.default_rng(SEED), 8192 * 128)
-    far = [_check_scan(torch.from_numpy(pad_codes_for_scan_any(mb))[None].cuda(), 15, 1100),
-           _check_flat_scan(torch.from_numpy(mb)[None].cuda(), 15, 1100)]
+    mb_padded, mb_flat = torch.from_numpy(pad_codes_for_scan_any(mb))[None].cuda(), torch.from_numpy(mb)[None].cuda()
+    far = [_check_scan(mb_padded, 15, 1100), _check_flat_scan(mb_flat, 15, 1100)]
     print(f"# input range, both scans at (15, 1100) on a {len(mb):,}-position stream (windows past the "
           f"1,024-position halo): kernel == plain; row-compact {far[0]['ms']:.4f} ms, flat {far[1]['ms']:.4f} ms "
           f"[{card}]", flush=True)
+    # One window past the run-time form's widest: the sparse-table form, through both front doors.
+    w_sparse = int(scan_build().kts_scan_any_max_w(15)) + 1
+    _, counts = drive(f"both scans at (15, {w_sparse})", lambda: (
+        rowcompact_scan(mb_padded, 15, w_sparse), minimizer_scan(mb_flat, 15, w_sparse)),
+        {"scan.cuda.rowcompact_sparse", "scan.cuda.flat_sparse"})
+    sparse = [_check_scan(mb_padded, 15, w_sparse), _check_flat_scan(mb_flat, 15, w_sparse)]
+    print(f"# input range, both scans at (15, {w_sparse}) (one window past the run-time form's widest) on that "
+          f"stream, counts {counts}: kernel == plain; row-compact {sparse[0]['ms']:.4f} ms, flat "
+          f"{sparse[1]['ms']:.4f} ms [{card}]", flush=True)
 
     # F6: a 254-archetype model (257 states) on the draft assembly's annotation, card == CPU.
     model, train_s = train_arch_257(db)
@@ -1469,7 +1481,8 @@ def input_range_phase(card: str, db, assemblies, draft_annotation) -> dict:
     wall = time.perf_counter() - t_phase
     print(f"# input range phase: {wall:.1f} s wall; launches {launches} [{card}]", flush=True)
     return {"f7": f7, "int32": int32, "segmented": segmented, "rowcompact": rowcompact, "flat": flat, "far": far,
-            "arch": {**arch, "longest_rows": longest}, "launches": launches, "wall_s": wall}
+            "sparse": sparse, "w_sparse": w_sparse, "arch": {**arch, "longest_rows": longest}, "launches": launches,
+            "wall_s": wall}
 
 
 def build_workload(n_assemblies: int, seed: int = SEED):
@@ -1868,6 +1881,13 @@ def main() -> int:
          "plain_ms": flat_any["plain_ms"], "bound_ms": flat_any["bound_ms"], "bound_by": flat_any["bound_by"],
          "library_ms": None, "shape": flat_any["shape"], "kw": (17, 40), "w1100_ms": ranged["far"][1]["ms"],
          "w1100_bound_ms": ranged["far"][1]["bound_ms"]},
+        *({"name": f"{name}_sparse", "route": "cuda", "source": "kaptive_tpu_torch/csrc/scan.cu",
+           "replaces": replaces, "launches": ranged["launches"][f"scan.cuda.{counter}_sparse"],
+           "max_abs_err": x["max_abs_err"], "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+           "bound_by": x["bound_by"], "library_ms": None, "shape": x["shape"], "kw": (15, ranged["w_sparse"])}
+          for name, replaces, counter, x in (
+              ("rowcompact_scan", "kaptive_tpu/ops/scan_pallas.py:230", "rowcompact", ranged["sparse"][0]),
+              ("minimizer_scan", "kaptive_tpu/ops/minimizer.py:146", "flat", ranged["sparse"][1]))),
         {"name": "arch_viterbi_wide", "route": "cuda", "source": "kaptive_tpu_torch/csrc/viterbi.cu",
          "replaces": "kaptive_tpu/bgc/kernels.py:83", "launches": ranged["launches"]["viterbi.cuda.arch_wide"],
          "max_abs_err": arch_w["max_abs_err"], "ms": arch_w["ms"], "plain_ms": arch_w["plain_ms"],
@@ -1889,6 +1909,7 @@ def main() -> int:
           f"BLOSUM62 x 20 bucket {i32['shape']}), swg_fill_segmented on the bucket {seg['shape']} past the largest "
           f"cluster, rowcompact_scan_any on the (17, 40) batch {rc_any['shape']} and "
           f"minimizer_scan_any on the (17, 40) stream {flat_any['shape']} (w1100_*: one 1 Mb stream at w = 1,100), "
+          f"*_scan_sparse (the sparse-table form) on that 1 Mb stream at w = {ranged['w_sparse']}, "
           f"arch_viterbi_wide on the 257-state draft launch (longest_rows: its longest contig), launches: step "
           f"12(f); {N_ASSEMBLIES / elapsed:.3f} asm/s "
           f"host-seeded, {N_ASSEMBLIES / dev_elapsed:.3f} device-seeded; CLI {cli_walls['host']:.3f} / "

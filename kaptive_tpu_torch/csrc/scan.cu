@@ -40,21 +40,16 @@
 //      OR over k bits, doubled up once a word) and it starts inside
 //      [0, length-k+1).  One hash a position, stored once as a 32-bit word
 //      (17 words a thread, so a warp's stores and loads never share a bank);
-//      valid and strand bits go to bit masks.
+//      strand bits go to a bit mask.
 //   3. Window minimum and selection (select_winners, below): a van Herk /
 //      Gil-Werman pass with W a template parameter, ~3 comparisons a
 //      position for any W; a valid window (minimum != 0xFFFFFFFF, start
 //      inside [0, length-k-W+2)) marks its winner in the tile's selection
 //      mask in shared memory (selection by scatter).
-//   4. Ranking.  A row is four words of (selected & valid).  The thread that
-//      owns a word counts the row's set bits before it (__popc) and walks
-//      its own set bits (__ffs): the (hash, col | strand << 7) pairs of the
-//      first 64 ranks go to the row's 512 bytes of staging in shared memory.
-//      Work follows the ~3 selected positions of a word, not its 16.
-//   5. Store.  A warp takes four rows; each lane stores two neighbouring
-//      slots of hashes and of aux, 0xFFFFFFFF / -1 past the row's count: a
-//      row leaves as two 256-byte stores.  counts holds the full count, even
-//      above 64 (the caller then seeds that genome on the host).
+//   4, 5. Ranking and store (rank_and_store_rows, shared with the run-time
+//      form): each row's selected positions ranked by __popc / __ffs over its
+//      four mask words, the first 64 staged in shared memory, and each row
+//      written as two 256-byte stores; counts holds the full count.
 // The Pallas kernel instead swept whole (1024+16, 128) VMEM tiles with
 // shift-by-one rolls and compacted with a butterfly network.
 //
@@ -90,7 +85,6 @@ constexpr int MASK_WORDS = HASH_WORDS / 2;         // 32-bit mask words over the
 constexpr int HASH_STRIDE = WORD + 1;              // hash words a thread: odd, so conflict-free
 constexpr int THREADS = 288;
 constexpr int WARPS = THREADS / 32;
-constexpr int WARP_ROWS = 4;            // rows a warp stores
 constexpr int MAX_K = 16;               // 2k bits must fit in 32
 constexpr int MAX_W = HALO;
 constexpr uint32_t UMAX = 0xFFFFFFFFu;
@@ -98,7 +92,6 @@ constexpr uint32_t SENTINEL_WORD = 0x04040404u;
 
 static_assert(THREADS >= CODE_WORDS && THREADS % 32 == 0, "one word a thread in every stage");
 static_assert(HASH_WORDS % 2 == 0 && HALO % 32 == 0, "mask words line up with rows");
-static_assert(TILE_ROWS / WARP_ROWS <= WARPS && TILE_ROWS % WARP_ROWS == 0, "every row has a warp");
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
     x ^= x >> 16;
@@ -151,10 +144,11 @@ __device__ __forceinline__ int below(long long end, long long g0) {
     return n <= 0 ? 0 : (n >= WORD ? WORD : (int)n);
 }
 
-// Bit j: an invalid base among the k that start at base j of two words' 32-bit invalid mask
-// (an OR over k mask bits, doubled up).
-__device__ __forceinline__ uint32_t kmer_bad(uint32_t inv32, int k) {
-    uint32_t bad = inv32;
+// Bit j: an invalid base among the k that start at base j of an invalid mask (an OR over k mask
+// bits, doubled up): two words' 32 bits for k <= 16, three words' 48 in 64 for k <= 32.
+template <class U>
+__device__ __forceinline__ U kmer_bad(U inv, int k) {
+    U bad = inv;
     for (int cover = 1; cover < k;) {
         const int step = min(cover, k - cover);
         bad |= bad >> step;
@@ -163,43 +157,46 @@ __device__ __forceinline__ uint32_t kmer_bad(uint32_t inv32, int k) {
     return bad;
 }
 
-// Stage 2 of both kernels: the hashes of a word's 16 k-mer starts to out[0..15] (0xFFFFFFFF where
-// the bit of `valid_bits` is clear) and its strand bits, from the word (w0) and the next (w1).
-// With its own and the next packed word in two registers, a thread gets the k bases that start at
-// base j by one funnel shift and a mask.  In this packing that field IS the reverse-complement's
-// complement (rev = ~field), and the forward k-mer is the field with its 2-bit groups reversed:
-// __brev of the same shift of the words with each base's two bits swapped (swapped once a word,
-// not once a position).  No loop over k.
+// Stage 2 of every kernel: the hashes of a word's 16 k-mer starts to out[0..15] (0xFFFFFFFF where
+// the bit of `valid_bits` is clear) and its strand bits.  (w0, w1) are the packed words whose base
+// 0 is the word's first k-mer start: the reverse field, the kk = min(k, 16) bases that start at a
+// position.  (f0, f1) are the packed words whose base 0 lies k - kk positions later: the forward
+// field, the kk bases that end at the k-mer's last (the same words for k <= 16).  With two words in
+// two registers, a thread gets a field by one funnel shift and a mask.  In this packing the reverse
+// field IS the reverse-complement's complement (rev = ~field), and the forward k-mer is its field
+// with the 2-bit groups reversed: __brev of the same shift of the words with each base's two bits
+// swapped (swapped once a word, not once a position).  No loop over k.  For k > 16 these are the
+// JAX package's uint32 packings, whose shifts of 32 or more give 0: the forward word keeps the
+// k-mer's last 16 bases and the reverse word its first 16.
 //
 // A strand compares the JAX package's packings of the raw codes, in which a sentinel (code 4)
-// ORs 4 << 2(k-1-i) into fwd and 3 - 4 = 0xFFFFFFFF << 2i into rev.  With REBUILD, a k-mer that
-// holds sentinels gets those words back from the packed field and the invalid mask (inv32):
-// fwd | (the mask spread to base pairs, in forward order) << 2, bits past 31 dropped, and
-// rev | 0xFFFFFFFF << 2 j_min, j_min its first sentinel.  Without it the strands are those of the
-// packed fields, which the row-compact scan reads only where the k-mer is valid.
+// ORs 4 << 2(kk-1-i) into fwd and 3 - 4 = 0xFFFFFFFF << 2i into rev.  With REBUILD, a k-mer that
+// holds sentinels gets those words back from the packed fields and their invalid masks (inv_r from
+// w0's first base, inv_f from f0's): fwd | (the mask spread to base pairs, in forward order) << 2,
+// bits past 31 dropped, and rev | 0xFFFFFFFF << 2 j_min, j_min the reverse field's first sentinel.
+// Without it the strands are those of the packed fields, which the row-compact scans read only
+// where the k-mer is valid.
 template <bool REBUILD>
-__device__ __forceinline__ uint32_t hash_word(uint32_t w0, uint32_t w1, uint32_t inv32, uint32_t valid_bits,
-                                              int k, uint32_t* out) {
-    const uint32_t x0 = swap_pairs(w0), x1 = swap_pairs(w1);
-    const uint32_t kmask = k >= 16 ? UMAX : (1u << (2 * k)) - 1u;
-    const int fwd_shift = 32 - 2 * k;
-    const uint32_t ih0 = REBUILD ? spread_hi(inv32 & 0xFFFFu) : 0u;  // already pair-swapped: high bits
-    const uint32_t ih1 = REBUILD ? spread_hi(inv32 >> 16) : 0u;
+__device__ __forceinline__ uint32_t hash_word(uint32_t w0, uint32_t w1, uint32_t f0, uint32_t f1, uint32_t inv_r,
+                                              uint32_t inv_f, uint32_t valid_bits, int kk, uint32_t* out) {
+    const uint32_t x0 = swap_pairs(f0), x1 = swap_pairs(f1);
+    const uint32_t kmask = kk >= 16 ? UMAX : (1u << (2 * kk)) - 1u;
+    const int fwd_shift = 32 - 2 * kk;
+    const uint32_t ih0 = REBUILD ? spread_hi(inv_f & 0xFFFFu) : 0u;  // already pair-swapped: high bits
+    const uint32_t ih1 = REBUILD ? spread_hi(inv_f >> 16) : 0u;
     uint32_t strand_bits = 0;
 #pragma unroll
     for (int j = 0; j < WORD; ++j) {
-        // Bases j .. j+k-1 at bits 2i of the funnel-shifted words: that field is the reverse
-        // complement's complement, (3 - c) << 2i = ~field; the forward k-mer, c << 2(k-1-i), is
+        // Bases j .. j+kk-1 at bits 2i of the funnel-shifted words: that field is the reverse
+        // complement's complement, (3 - c) << 2i = ~field; the forward k-mer, c << 2(kk-1-i), is
         // the field with its 2-bit groups in reverse order: __brev of the pair-swapped words.
         uint32_t rev = ~__funnelshift_r(w0, w1, 2 * j) & kmask;
         uint32_t fwd = __brev(__funnelshift_r(x0, x1, 2 * j)) >> fwd_shift;
         out[j] = (valid_bits >> j) & 1u ? mix32(min(fwd, rev)) : UMAX;
         if (REBUILD) {
-            const uint32_t m = (inv32 >> j) & low_bits(k);
-            if (m) {
-                rev |= UMAX << (2 * (__ffs(m) - 1));
-                fwd |= (__brev(__funnelshift_r(ih0, ih1, 2 * j)) >> fwd_shift) << 2;
-            }
+            const uint32_t mr = (inv_r >> j) & low_bits(kk);
+            if (mr) rev |= UMAX << (2 * (__ffs(mr) - 1));
+            if ((inv_f >> j) & low_bits(kk)) fwd |= (__brev(__funnelshift_r(ih0, ih1, 2 * j)) >> fwd_shift) << 2;
         }
         strand_bits |= (fwd <= rev ? 1u : 0u) << j;
     }
@@ -260,6 +257,55 @@ __device__ __forceinline__ void select_winners(const uint32_t* h, uint32_t start
     if (m1) atomicOr(&s_sel[(word >> 1) + 1], m1);
 }
 
+// The shared slot of run position x: a word's 16 hashes, then one spare slot (HASH_STRIDE).
+__device__ __forceinline__ int slot(int x) { return x + (x >> 4); }
+
+// Stages 4 and 5 of the row-compact kernels, over a tile of `rows` rows whose selection mask is
+// `sel` (bit q: tile position q, a winner of some window) and whose position q hashes to
+// s_hash[slot(x0 + q)]; the outputs start at the genome's row 0.  The mask needs no AND with
+// validity: a winner's hash is not 0xFFFFFFFF, so its k-mer is valid.
+//   4. Ranking.  A row is four mask words.  The thread that owns a word counts the row's set bits
+//      before it (__popc) and walks its own set bits (__ffs): the (hash, col | strand << 7) pairs
+//      of the first 64 ranks go to the row's 512 bytes of `stage` in shared memory.  Work follows
+//      the ~3 selected positions of a word, not its 16.
+//   5. Store.  A warp takes a row at a time; each lane stores two neighbouring slots of hashes and
+//      of aux, 0xFFFFFFFF / -1 past the row's count: a row leaves as two 256-byte stores.  counts
+//      holds the full count, even above 64 (the caller then seeds that genome on the host).
+__device__ __forceinline__ void rank_and_store_rows(const uint32_t* sel, const uint16_t* strand,
+                                                    const uint32_t* s_hash, int x0, int rows, uint2* stage,
+                                                    int* total, long long row0, long long R, uint32_t* hashes,
+                                                    int32_t* aux, int32_t* counts) {
+    for (int t = threadIdx.x; t < rows * (ROW / WORD); t += THREADS) {
+        const int r = t / (ROW / WORD), col0 = t % (ROW / WORD) * WORD;  // the word's row and first column
+        const int mi = t >> 1, mw = r * (ROW / 32);                       // its mask word, its row's first
+        uint32_t mine = t & 1 ? sel[mi] >> WORD : sel[mi] & 0xFFFFu;
+        int rank = t & 1 ? __popc(sel[mi] & 0xFFFFu) : 0;
+#pragma unroll
+        for (int q = 0; q < ROW / 32 - 1; ++q)
+            if (mw + q < mi) rank += __popc(sel[mw + q]);
+        if (col0 == ROW - WORD) total[r] = rank + __popc(mine);  // the row's full count
+        const uint32_t st = strand[t];
+        while (mine && rank < SLOTS) {
+            const int j = __ffs(mine) - 1;
+            mine &= mine - 1;
+            stage[r * SLOTS + rank++] = make_uint2(s_hash[slot(x0 + t * WORD + j)],
+                                                   (uint32_t)(col0 + j) | (((st >> j) & 1u) << 7));
+        }
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < rows && row0 + r < R; r += WARPS) {
+        // Slots 2 lane and 2 lane + 1; 0xFFFFFFFF / -1 past the row's count.
+        const int n = total[r];
+        const uint4 v = *reinterpret_cast<const uint4*>(&stage[r * SLOTS + 2 * lane]);  // (h, a, h, a)
+        const bool live0 = 2 * lane < n, live1 = 2 * lane + 1 < n;
+        const size_t out_row = (size_t)(row0 + r) * SLOTS + 2 * lane;
+        *reinterpret_cast<uint2*>(hashes + out_row) = make_uint2(live0 ? v.x : UMAX, live1 ? v.z : UMAX);
+        *reinterpret_cast<int2*>(aux + out_row) = make_int2(live0 ? (int)v.y : -1, live1 ? (int)v.w : -1);
+        if (lane == 0) counts[row0 + r] = n;
+    }
+}
+
 template <int W>
 __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
     const uint8_t* __restrict__ codes,  // (B, R + 2*halo_rows, 128)
@@ -270,16 +316,13 @@ __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
     __shared__ uint32_t s_word[CODE_WORDS];               // 16 bases a word, 2 bits each
     __shared__ uint16_t s_inv[CODE_WORDS];                // their invalid bits
     __shared__ uint32_t s_hash[HASH_WORDS * HASH_STRIDE];
-    __shared__ __align__(4) uint16_t s_valid[HASH_WORDS];   // k-mer valid, bit j of word wd
-    __shared__ __align__(4) uint16_t s_strand[HASH_WORDS];  // forward strand canonical
+    __shared__ uint16_t s_strand[HASH_WORDS];             // forward strand canonical
     __shared__ uint32_t s_sel[MASK_WORDS];                // selected, one bit a position
     __shared__ __align__(16) uint2 s_stage[TILE_ROWS][SLOTS];  // each row's (hash, aux) slots
     __shared__ int s_total[TILE_ROWS];                     // each row's full count
 
     const int b = blockIdx.y;
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
     const long long length = (long long)R * ROW;
     const long long padded_len = (long long)(R + 2 * halo_rows) * ROW;
     const long long first = (long long)blockIdx.x * TILE - HALO;  // stream position of the block's word 0
@@ -302,9 +345,9 @@ __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
         const uint32_t inv32 = (uint32_t)s_inv[tid] | ((uint32_t)s_inv[tid + 1] << 16);
         const uint32_t inside = low_bits(below(length - k + 1, g0)) & ~low_bits(below(0, g0));
         const uint32_t valid_bits = ~kmer_bad(inv32, k) & inside;
-        s_strand[tid] = (uint16_t)hash_word<false>(s_word[tid], s_word[tid + 1], inv32, valid_bits, k,
+        const uint32_t w0 = s_word[tid], w1 = s_word[tid + 1];
+        s_strand[tid] = (uint16_t)hash_word<false>(w0, w1, w0, w1, inv32, inv32, valid_bits, k,
                                                    s_hash + tid * HASH_STRIDE);
-        s_valid[tid] = (uint16_t)valid_bits;
     }
     __syncthreads();
 
@@ -315,49 +358,10 @@ __global__ void __launch_bounds__(THREADS) rowcompact_scan_kernel(
         select_winners<W>(s_hash + tid * HASH_STRIDE, starts, tid, s_sel);
     }
     __syncthreads();
-    // 4. Ranking: a thread of the tile counts the row's selected positions before its word,
-    //    then stages the (hash, aux) pair of each of its own.
-    const uint32_t* valid32 = reinterpret_cast<const uint32_t*>(s_valid);
-    if (tid >= HALO / WORD && tid < START_WORDS) {
-        const int r = (tid - HALO / WORD) / (ROW / WORD);         // the word's row in the tile
-        const int col0 = (tid - HALO / WORD) % (ROW / WORD) * WORD;  // its first column
-        const int mw = (HALO + r * ROW) / 32;                      // the row's first mask word
-        const int mi = tid >> 1;                                   // the word's own mask word
-        const uint32_t both = s_sel[mi] & valid32[mi];
-        uint32_t mine = tid & 1 ? both >> WORD : both & 0xFFFFu;
-        int rank = tid & 1 ? __popc(both & 0xFFFFu) : 0;
-#pragma unroll
-        for (int q = 0; q < ROW / 32 - 1; ++q)
-            if (mw + q < mi) rank += __popc(s_sel[mw + q] & valid32[mw + q]);
-        const uint32_t strand = s_strand[tid];
-        const uint32_t* h = s_hash + tid * HASH_STRIDE;
-        if (col0 == ROW - WORD) s_total[r] = rank + __popc(mine);  // the row's full count
-        while (mine && rank < SLOTS) {
-            const int j = __ffs(mine) - 1;
-            mine &= mine - 1;
-            s_stage[r][rank++] = make_uint2(h[j], (uint32_t)(col0 + j) | (((strand >> j) & 1u) << 7));
-        }
-    }
-    __syncthreads();
-
-    // 5. Store: a warp takes four rows.
-    if (warp < TILE_ROWS / WARP_ROWS) {
-#pragma unroll
-        for (int a = 0; a < WARP_ROWS; ++a) {
-            const int r = warp * WARP_ROWS + a;
-            const long long grow = (long long)blockIdx.x * TILE_ROWS + r;
-            if (grow < R) {
-                // Slots 2 lane and 2 lane + 1; 0xFFFFFFFF / -1 past the row's count.
-                const int total = s_total[r];
-                const uint4 v = *reinterpret_cast<const uint4*>(&s_stage[r][2 * lane]);  // (h, a, h, a)
-                const bool live0 = 2 * lane < total, live1 = 2 * lane + 1 < total;
-                const size_t out_row = ((size_t)b * R + grow) * SLOTS + 2 * lane;
-                *reinterpret_cast<uint2*>(hashes + out_row) = make_uint2(live0 ? v.x : UMAX, live1 ? v.z : UMAX);
-                *reinterpret_cast<int2*>(aux + out_row) = make_int2(live0 ? (int)v.y : -1, live1 ? (int)v.w : -1);
-                if (lane == 0) counts[(size_t)b * R + grow] = total;
-            }
-        }
-    }
+    // 4, 5. Rank each row's winners, stage the first 64, store each row as whole lines.
+    rank_and_store_rows(s_sel + HALO / 32, s_strand + HALO / WORD, s_hash, HALO, TILE_ROWS, &s_stage[0][0], s_total,
+                        (long long)blockIdx.x * TILE_ROWS, R, hashes + (size_t)b * R * SLOTS,
+                        aux + (size_t)b * R * SLOTS, counts + (size_t)b * R);
 }
 
 template <int W>
@@ -408,10 +412,7 @@ cudaError_t launch(const uint8_t* codes, int B, int R, int halo_rows, int k, uin
 //      contig edges).  A word whose k-mers reach a code > 4 takes its strands from a loop over
 //      its raw codes (raw_strands), exact and never run on encoder output.
 //   3. Windows: select_winners<W>, as in the row-compact scan.
-//   4. Store the tile as whole lines: a thread writes its word's 16 `selected` and 16 `strands`
-//      bytes as one 16-byte store each (from the bit masks), and the hashes leave from the
-//      shared run as 16-byte pairs of int64, consecutive threads on consecutive pairs, so a warp
-//      writes 512 contiguous bytes a store.  An unaligned row stores a position at a time.
+//   4. Store the tile as whole lines (store_flat_tile, shared with the run-time form).
 // ---------------------------------------------------------------------------------------------
 
 // The code at position g of a row of L codes, as the JAX scan's rolls read it.
@@ -419,15 +420,16 @@ __device__ __forceinline__ uint32_t code_at(const uint8_t* row, long long L, lon
     return g < 0 ? 4u : row[g < L ? g : g % L];
 }
 
-// The strand bits of the word that starts at g0, from the raw codes: the JAX packing itself.
+// The strand bits of the word that starts at g0, from the raw codes: the JAX packing itself, of
+// the kk = min(k, 16) bases each uint32 word keeps (the reverse word's first, the forward word's last).
 __device__ __noinline__ uint32_t raw_strands(const uint8_t* row, long long L, long long g0, int k) {
+    const int kk = min(k, 16);
     uint32_t bits = 0;
     for (int j = 0; j < WORD; ++j) {
         uint32_t fwd = 0, rev = 0;
-        for (int i = 0; i < k; ++i) {
-            const uint32_t c = code_at(row, L, g0 + j + i);
-            fwd |= c << (2 * (k - 1 - i));
-            rev |= (3u - c) << (2 * i);
+        for (int i = 0; i < kk; ++i) {
+            rev |= (3u - code_at(row, L, g0 + j + i)) << (2 * i);
+            fwd |= code_at(row, L, g0 + j + k - kk + i) << (2 * (kk - 1 - i));
         }
         bits |= (fwd <= rev ? 1u : 0u) << j;
     }
@@ -439,6 +441,35 @@ __device__ __forceinline__ uint32_t bytes4(uint32_t b) { return (b * 0x00204081u
 
 __device__ __forceinline__ uint4 bytes16(uint32_t b) {
     return make_uint4(bytes4(b & 15u), bytes4((b >> 4) & 15u), bytes4((b >> 8) & 15u), bytes4((b >> 12) & 15u));
+}
+
+// Stage 4 of the flat kernels: a tile's first n positions, from its selection mask `sel` (bit q:
+// tile position q), its strand words and the hashes at s_hash[slot(x0 + q)] (x0 even); the outputs
+// start at the tile's first position.  Where the row is aligned (n a multiple of 16), a thread
+// writes a word's 16 `selected` and 16 `strands` bytes as one 16-byte store each, and the hashes
+// leave as 16-byte pairs of int64, consecutive threads on consecutive pairs, so a warp writes 512
+// contiguous bytes a store; else a position at a time.
+__device__ __forceinline__ void store_flat_tile(const uint32_t* sel, const uint16_t* strand, const uint32_t* s_hash,
+                                                int x0, int n, bool aligned, uint8_t* selected, long long* hashes,
+                                                uint8_t* strands) {
+    const int tid = threadIdx.x;
+    if (aligned) {
+        for (int v = tid; 2 * v < n; v += THREADS) {
+            const uint32_t* h = s_hash + slot(x0 + 2 * v);  // x0 + 2v and x0 + 2v + 1 share a word
+            *reinterpret_cast<longlong2*>(hashes + 2 * v) = make_longlong2(h[0], h[1]);
+        }
+        for (int t = tid; t * WORD < n; t += THREADS) {
+            const uint32_t bits = (sel[t >> 1] >> ((t & 1) * WORD)) & 0xFFFFu;
+            *reinterpret_cast<uint4*>(selected + t * WORD) = bytes16(bits);
+            *reinterpret_cast<uint4*>(strands + t * WORD) = bytes16(strand[t]);
+        }
+    } else {
+        for (int q = tid; q < n; q += THREADS) {
+            selected[q] = (uint8_t)((sel[q >> 5] >> (q & 31)) & 1u);
+            hashes[q] = s_hash[slot(x0 + q)];
+            strands[q] = (uint8_t)((strand[q >> 4] >> (q & 15)) & 1u);
+        }
+    }
 }
 
 template <int W>
@@ -487,8 +518,8 @@ __global__ void __launch_bounds__(THREADS) minimizer_scan_kernel(
         const bool stored = tid >= HALO / WORD && tid < START_WORDS;
         uint32_t* out = s_hash + tid * HASH_STRIDE;
         const uint32_t strand_bits = stored && (inv32 & low_bits(WORD + k - 1))
-                                         ? hash_word<true>(w0, w1, inv32, valid_bits, k, out)
-                                         : hash_word<false>(w0, w1, inv32, valid_bits, k, out);
+                                         ? hash_word<true>(w0, w1, w0, w1, inv32, inv32, valid_bits, k, out)
+                                         : hash_word<false>(w0, w1, w0, w1, inv32, inv32, valid_bits, k, out);
         if (stored) s_strand[tid] = (uint16_t)(s_odd[tid] | s_odd[tid + 1] ? raw_strands(row, L, g0, k) : strand_bits);
     }
     __syncthreads();
@@ -500,29 +531,11 @@ __global__ void __launch_bounds__(THREADS) minimizer_scan_kernel(
     }
     __syncthreads();
 
-    // 4. Store the tile's positions inside the row (position q of the tile is x = HALO + q of the run).
+    // 4. Store the tile's positions inside the row.
     const int n = (int)min((long long)TILE, L - tile0);
     const long long out0 = (long long)blockIdx.y * L + tile0;
-    if (aligned) {  // n is a multiple of 16
-        for (int v = tid; 2 * v < n; v += THREADS) {
-            const int x = HALO + 2 * v;  // even: x and x + 1 lie in one word of the run
-            const uint32_t* h = s_hash + x + (x >> 4);
-            *reinterpret_cast<longlong2*>(hashes + out0 + 2 * v) = make_longlong2(h[0], h[1]);
-        }
-        if (tid * WORD < n) {
-            const int wd = HALO / WORD + tid;
-            const uint32_t sel = (s_sel[wd >> 1] >> ((wd & 1) * WORD)) & 0xFFFFu;
-            *reinterpret_cast<uint4*>(selected + out0 + tid * WORD) = bytes16(sel);
-            *reinterpret_cast<uint4*>(strands + out0 + tid * WORD) = bytes16(s_strand[wd]);
-        }
-    } else {
-        for (int q = tid; q < n; q += THREADS) {
-            const int x = HALO + q;
-            selected[out0 + q] = (uint8_t)((s_sel[x >> 5] >> (x & 31)) & 1u);
-            hashes[out0 + q] = s_hash[x + (x >> 4)];
-            strands[out0 + q] = (uint8_t)((s_strand[x >> 4] >> (x & 15)) & 1u);
-        }
-    }
+    store_flat_tile(s_sel + HALO / 32, s_strand + HALO / WORD, s_hash, HALO, n, aligned, selected + out0,
+                    hashes + out0, strands + out0);
 }
 
 template <int W>
@@ -536,14 +549,422 @@ cudaError_t launch_flat(const uint8_t* codes, int B, long long L, int k, bool al
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // ---------------------------------------------------------------------------------------------
-// The run-time form of both scans: every k >= 1 and every w >= 1.
+// The run-time form of both scans: k and w read at run time, one tiled pass in shared memory.
 //
 // The tiled kernels above take k <= MAX_K (a k-mer in two packed words) and w <= MAX_W (the
 // block's halo, a template parameter).  The JAX scans set no bound on either: they pack into
 // uint32 with XLA's shifts, which give 0 for a shift of 32 or more, so for k > 16 the forward
-// word keeps the last 16 bases and the reverse word the first 16, while validity still spans all
-// k; and the window of w k-mer starts may be as wide as the stream.  This form computes the same
-// outputs, bit for bit, in four kernels over device memory, a thread a position:
+// word keeps the k-mer's last 16 bases and the reverse word its first 16, while validity still
+// spans all k; and the window of w k-mer starts may be as wide as the stream.  scan_rt_kernel
+// computes the same outputs, bit for bit, for every (k, w) whose run fits a block's shared memory
+// (rt_plan); the sparse-table form below takes the rest.
+//
+// What bounds it.  As for the tiled kernels: the flat scan's 11 bytes a position (a code read;
+// selected, an int64 hash and a strand written), the row-compact scan's ~35 integer operations a
+// position.  The form before this one ran a thread a position through device memory: a loop over
+// k raw bytes, floor(log2 w) sparse-table passes of 8-byte keys, a scatter of selected bytes and
+// (row-compact) a compaction that read them all back, ~24 + 24 log2(w) bytes a position and 7 to
+// 13 launches: at (17, 40) 5.8% (flat) and 3.4% (row-compact) of the bound on an NVIDIA H100
+// 80GB HBM3 at 700 W.  Here a position costs what it costs in the tiled kernels plus the halo a
+// tile recomputes, and nothing but the outputs goes through device memory: ~1.8x the tiled
+// kernels' time at (17, 40), 44% (flat) and 28% (row-compact) of the bound (PERF.md section 6,
+// measure_flat_scan.py).
+//
+// Layout.  One block of THREADS = 288 threads per (tile of T = RT_TILE = 4,096 positions (32
+// scan rows), row).  The block's run starts hb = w - 1 positions before the tile, rounded up to a
+// 32-bit mask word; it hashes hb + T + w - 1 positions (nhw words of 16) and packs k + 31 more
+// codes.  The halo a tile recomputes grows with w (35% of a block's positions at w = 1,100); a
+// wider tile would cut that share but doubles the shared memory a block holds, so that past
+// w ~ 1,000 an SM holds one block of 9 warps instead of three (measure_flat_scan.py times an
+// 8,192-position build beside this one).  A thread takes a word of 16 positions at a time (a
+// loop over the run's words):
+//   1. Pack.  16-byte loads of codes packed to 2 bits a base with a 16-bit invalid mask, and (flat)
+//      a flag for a code > 4, as in the tiled kernels; the flat form reads the code at g mod L past
+//      the row's end (the rolls) and the sentinel before 0; the row-compact form reads its padded
+//      stream (a code outside the stream reaches only k-mers and windows its guards reject).
+//      For k > 32, an exclusive prefix count of invalid bases over the run's words (a block scan).
+//   2. Hash (hash_word): the reverse field is the kk = min(k, 16) bases that start at a position,
+//      the forward field the kk that end at its k-mer's last base: each one funnel shift of two
+//      packed words (the forward pair itself funnel-shifted by (k - kk) mod 16 bases once a word).
+//      Validity: no invalid bit among the k-mer's k mask bits: an OR over a 48-bit window of mask
+//      words for k <= 32, the difference of two prefix counts past that.  The flat form rebuilds
+//      the raw packings' strands where a k-mer holds a sentinel and loops over raw codes where it
+//      reaches a code > 4 (raw_strands), as the tiled flat kernel does.
+//   3. Windows, van Herk / Gil-Werman in blocks of w over the run: a forward segmented scan
+//      stores each position's prefix minimum inside its block (hash and position in two shared
+//      arrays); a backward one gives each window start its suffix minimum, joins the prefix
+//      minimum at the window's end and marks the winner in the tile's selection mask (selection
+//      by scatter; a thread skips a winner it has just marked).  Ties go left by the scans'
+//      directions, with 32-bit compares: forward a minimum moves only when strictly smaller,
+//      backward also on a tie, and the join takes the prefix part only when strictly smaller.
+//      Each scan is a thread's 16 positions in registers, then a block scan of the words'
+//      (minimum since the last restart, its position, restart seen) triples (a warp's shuffles,
+//      then the 9 warps' totals scanned in each warp's lanes, a carry from one round of 288
+//      words to the next).  ~3 comparisons a position, whatever w is.
+//   4. Output.  Flat: selected, int64 hashes and strands of the tile as whole lines, as
+//      minimizer_scan_kernel stores them.  Row-compact: each 128-position row ranks its winners
+//      (__popc over the mask words before a word, __ffs over its own), stages the first 64 (hash,
+//      col | strand << 7) pairs in shared memory (over the prefix arrays, free by then) and
+//      leaves as two 256-byte stores; counts holds the full count, even above 64.
+// No key, span or selected array goes through device memory, and the wrapper allocates nothing
+// but the outputs.
+//
+// Shared memory: ~10.6 bytes a hashed position (a 32-bit hash, a 32-bit and a 16-bit prefix
+// minimum, each padded to 17 words of 16 for conflict-free strides) and 7 bytes a word of codes:
+// ~48 KB at w = 40, ~70 KB at w = 1,100 (T = 4,096).  Above 48 KB the launch opts in with
+// cudaFuncSetAttribute.  The range: k <= RT_MAX_K and the plan at T = 4,096 within the 227 KB a
+// block can have (w up to ~8,400 at k <= 32: kts_scan_any_max_w).
+// ---------------------------------------------------------------------------------------------
+
+constexpr int RT_TILE = 4096;                // positions a block outputs (32 scan rows)
+constexpr int RT_MAX_K = 1024;               // the longest k-mer the form takes
+constexpr int RT_MAX_SMEM = 232448;          // the shared memory a block can opt in to on sm_90 (227 KB)
+
+// A block scan's element: the leftmost minimum hash since the last restart (or over all), its run
+// position, and whether a restart (a block of w's first position in scan order) was seen.
+struct Seg {
+    uint32_t h;
+    int p, f;
+};
+
+// The geometry of a run-time launch; rt_plan fills it, the kernel reads it.
+struct RtPlan {
+    int k, w, tile;
+    int hb;      // positions of the run before the tile: w - 1 rounded up to a 32-bit mask word
+    int nhw;     // words of hashed positions: hb + tile + w - 1 positions rounded up
+    int ncw;     // words of codes: the hashed words, the k - 1 bases the last k-mer reaches, 2 spare
+    int off_pre_h, off_hash, off_pre_p, off_word, off_inv, off_flag, off_cnt, off_sel, off_strand, off_tot;
+    int smem;    // dynamic shared bytes
+};
+
+// The plan of a block for (k, w); false when its run does not fit the block's shared memory.
+bool rt_plan(int k, long long w, RtPlan* out) {
+    const int tile = RT_TILE;
+    if (k < 1 || k > RT_MAX_K || w < 1 || w > (1 << 16)) return false;
+    RtPlan p{};
+    p.k = k;
+    p.w = (int)w;
+    p.tile = tile;
+    p.hb = (int)((w - 1 + 31) / 32 * 32);
+    const long long nh = p.hb + (long long)tile + w - 1;
+    p.nhw = (int)((nh + WORD - 1) / WORD);
+    p.ncw = p.nhw + (k + WORD - 1) / WORD + 2;
+    if ((long long)p.nhw * WORD >= (1 << 16)) return false;  // run positions are 16-bit
+    long long off = 0;
+    auto take = [&off](long long bytes) {
+        const long long at = off;
+        off += (bytes + 15) / 16 * 16;
+        return (int)at;
+    };
+    const long long slots = (long long)p.nhw * HASH_STRIDE;
+    p.off_pre_h = take(4 * slots);  // first: the row-compact staging (4 tile + tile / 32 bytes) reuses it
+    p.off_hash = take(4 * slots);
+    p.off_pre_p = take(2 * slots);
+    p.off_word = take(4LL * p.ncw);
+    p.off_inv = take(2LL * p.ncw);
+    p.off_flag = take(p.ncw);
+    p.off_cnt = take(k > 32 ? 4LL * p.ncw : 0);
+    p.off_sel = take(tile / 8);
+    p.off_strand = take(tile / 8);
+    p.off_tot = take(2LL * WARPS * (long long)sizeof(Seg));
+    if (off > RT_MAX_SMEM) return false;
+    p.smem = (int)off;
+    *out = p;
+    return true;
+}
+
+// a before b in scan order.  Forward (positions ascending), b takes the minimum only when strictly
+// smaller; backward (descending), also on a tie: either way the leftmost minimum wins.
+template <bool BACKWARD>
+__device__ __forceinline__ Seg seg_join(Seg a, Seg b) {
+    if (b.f) return b;
+    return (BACKWARD ? b.h <= a.h : b.h < a.h) ? Seg{b.h, b.p, a.f} : a;
+}
+
+__device__ __forceinline__ int shfl_up(int x, int d) { return __shfl_up_sync(0xFFFFFFFFu, x, d); }
+__device__ __forceinline__ int shfl(int x, int src) { return __shfl_sync(0xFFFFFFFFu, x, src); }
+
+__device__ __forceinline__ Seg shfl_up(Seg s, int d) {
+    return Seg{__shfl_up_sync(0xFFFFFFFFu, s.h, d), __shfl_up_sync(0xFFFFFFFFu, s.p, d),
+               __shfl_up_sync(0xFFFFFFFFu, s.f, d)};
+}
+__device__ __forceinline__ Seg shfl(Seg s, int src) {
+    return Seg{__shfl_sync(0xFFFFFFFFu, s.h, src), __shfl_sync(0xFFFFFFFFu, s.p, src),
+               __shfl_sync(0xFFFFFFFFu, s.f, src)};
+}
+
+// An inclusive scan across a warp's lanes (Hillis-Steele: a lane below the shift keeps its value).
+template <class V, class Join>
+__device__ __forceinline__ V warp_inclusive(V x, int lanes, Join join) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int d = 1; d < lanes; d <<= 1) {
+        const V o = shfl_up(x, d);
+        if (lane >= d) x = join(o, x);
+    }
+    return x;
+}
+
+// One round of a block scan in thread order: returns this thread's exclusive prefix (after
+// `carry`, the value of the rounds before) and folds the round's total into `carry`.  A warp
+// scans its lanes; every warp then scans the warps' totals in its own lanes, so no thread walks
+// them one by one.  Every thread calls it; `tot` holds two rounds of warp totals, so a round
+// writes one half while the round before may still read the other.
+template <class V, class Join>
+__device__ __forceinline__ V block_exclusive(V x, V* tot, int round, V& carry, V identity, Join join) {
+    static_assert(WARPS <= 16, "the warps' totals fit a half warp");
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const V incl = warp_inclusive(x, 32, join);
+    const V up = shfl_up(incl, 1);
+    V* t = tot + (round & 1) * WARPS;
+    if (lane == 31) t[warp] = incl;
+    __syncthreads();
+    const V totals = warp_inclusive(lane < WARPS ? t[lane] : identity, 16, join);
+    const V earlier = shfl(totals, warp > 0 ? warp - 1 : 0);
+    const V before = warp > 0 ? join(carry, earlier) : carry;
+    carry = join(carry, shfl(totals, WARPS - 1));
+    return lane == 0 ? before : join(before, up);
+}
+
+// Invalid bases among run positions [0, x): a word's prefix count and its own bits below x.
+__device__ __forceinline__ int invalid_before(const int* cnt, const uint16_t* inv, int x) {
+    return cnt[x >> 4] + __popc((uint32_t)inv[x >> 4] & ((1u << (x & 15)) - 1u));
+}
+
+struct RtArgs {
+    const uint8_t* codes;
+    long long n;        // codes a row of the input: L (flat), (R + 2 halo_rows) * 128 (row-compact)
+    long long pad;      // index of stream position 0 in a row: 0 (flat), halo_rows * 128 (row-compact)
+    long long length;   // stream positions: L, or R * 128
+    bool aligned;       // flat: L % 16 == 0 and every pointer 16-byte aligned
+    uint8_t* selected;  // flat outputs (B, L)
+    long long* hashes64;
+    uint8_t* strands;
+    uint32_t* hashes32;  // row-compact outputs (B, R, 64), (B, R, 64), (B, R)
+    int32_t* aux;
+    int32_t* counts;
+};
+
+template <bool FLAT>
+__global__ void __launch_bounds__(THREADS) scan_rt_kernel(const RtPlan P, const RtArgs A) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    uint32_t* s_pre_h = reinterpret_cast<uint32_t*>(smem + P.off_pre_h);  // prefix minima: hash
+    uint32_t* s_hash = reinterpret_cast<uint32_t*>(smem + P.off_hash);
+    uint16_t* s_pre_p = reinterpret_cast<uint16_t*>(smem + P.off_pre_p);  // prefix minima: run position
+    uint32_t* s_word = reinterpret_cast<uint32_t*>(smem + P.off_word);
+    uint16_t* s_inv = reinterpret_cast<uint16_t*>(smem + P.off_inv);
+    uint8_t* s_odd = smem + P.off_flag;                                     // a code > 4 in the word
+    int* s_cnt = reinterpret_cast<int*>(smem + P.off_cnt);                  // k > 32: invalid bases before a word
+    uint32_t* s_sel = reinterpret_cast<uint32_t*>(smem + P.off_sel);       // the tile's selection mask
+    uint16_t* s_strand = reinterpret_cast<uint16_t*>(smem + P.off_strand); // the tile's strands
+    Seg* s_tot = reinterpret_cast<Seg*>(smem + P.off_tot);
+
+    const int tid = threadIdx.x;
+    const int k = P.k, w = P.w, T = P.tile, hb = P.hb;
+    const long long length = A.length;
+    const long long tile0 = (long long)blockIdx.x * T;
+    const long long r0 = tile0 - hb;  // stream position of run position 0
+    const uint8_t* row = A.codes + (long long)blockIdx.y * A.n;
+
+    // 1. Pack.
+    for (int wd = tid; wd < P.ncw; wd += THREADS) {
+        const long long g0 = r0 + (long long)wd * WORD;
+        uint4 v = make_uint4(SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD, SENTINEL_WORD);
+        if (FLAT) {
+            if (A.aligned && g0 >= 0 && g0 + WORD <= length) {
+                v = *reinterpret_cast<const uint4*>(row + g0);
+            } else if (g0 + WORD > 0 && g0 < length + k - 1) {
+                uint32_t part[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+                for (int i = 0; i < WORD; ++i) part[i >> 2] |= code_at(row, length, g0 + i) << (8 * (i & 3));
+                v = make_uint4(part[0], part[1], part[2], part[3]);
+            }
+            s_odd[wd] = (__vcmpgtu4(v.x, SENTINEL_WORD) | __vcmpgtu4(v.y, SENTINEL_WORD)
+                         | __vcmpgtu4(v.z, SENTINEL_WORD) | __vcmpgtu4(v.w, SENTINEL_WORD)) != 0u;
+        } else {
+            const long long p = A.pad + g0;
+            if (p >= 0 && p + WORD <= A.n) v = *reinterpret_cast<const uint4*>(row + p);
+        }
+        pack_word(v, &s_word[wd], &s_inv[wd]);
+    }
+    for (int i = tid; i < T / 32; i += THREADS) s_sel[i] = 0;
+    __syncthreads();
+    if (k > 32) {  // invalid bases before each code word
+        int carry = 0;
+        int* tot = reinterpret_cast<int*>(s_tot);
+        for (int base = 0; base < P.ncw; base += THREADS) {
+            const int wd = base + tid;
+            const int c = wd < P.ncw ? __popc((uint32_t)s_inv[wd]) : 0;
+            const int before = block_exclusive(c, tot, base / THREADS, carry, 0, [](int a, int b) { return a + b; });
+            if (wd < P.ncw) s_cnt[wd] = before;
+        }
+        __syncthreads();
+    }
+
+    // 2. Hash, validity and strands of each hashed word's 16 k-mer starts.  A k-mer is valid when
+    //    no invalid base lies among its k and it starts inside [0, length-k+1).
+    const int kk = min(k, WORD);
+    const int fo = k - kk;  // the forward field's first base, from the k-mer's start
+    for (int wd = tid; wd < P.nhw; wd += THREADS) {
+        const long long g0 = r0 + (long long)wd * WORD;
+        uint32_t bad;
+        if (k <= 32) {
+            bad = (uint32_t)kmer_bad((unsigned long long)s_inv[wd] | ((unsigned long long)s_inv[wd + 1] << 16)
+                                         | ((unsigned long long)s_inv[wd + 2] << 32), k) & 0xFFFFu;
+        } else {
+            bad = 0;
+            const int x0 = wd * WORD;
+#pragma unroll 4
+            for (int j = 0; j < WORD; ++j)
+                if (invalid_before(s_cnt, s_inv, x0 + j + k) != invalid_before(s_cnt, s_inv, x0 + j)) bad |= 1u << j;
+        }
+        const uint32_t inside = low_bits(below(length - k + 1, g0)) & ~low_bits(below(0, g0));
+        const uint32_t valid_bits = ~bad & inside & 0xFFFFu;
+        const uint32_t w0 = s_word[wd], w1 = s_word[wd + 1];
+        const int a = wd + (fo >> 4), sh = 2 * (fo & 15);
+        const uint32_t f0 = __funnelshift_r(s_word[a], s_word[a + 1], sh);
+        const uint32_t f1 = __funnelshift_r(s_word[a + 1], s_word[a + 2], sh);
+        const uint32_t inv_r = (uint32_t)s_inv[wd] | ((uint32_t)s_inv[wd + 1] << 16);
+        const uint32_t inv_f = (uint32_t)(((unsigned long long)s_inv[a] | ((unsigned long long)s_inv[a + 1] << 16)
+                                           | ((unsigned long long)s_inv[a + 2] << 32)) >> (fo & 15));
+        uint32_t* out = s_hash + wd * HASH_STRIDE;
+        const bool stored = wd >= hb / WORD && wd < (hb + T) / WORD;  // a word of the tile
+        uint32_t strand_bits;
+        if (FLAT && stored && ((inv_r | inv_f) & low_bits(WORD + kk - 1))) {
+            strand_bits = hash_word<true>(w0, w1, f0, f1, inv_r, inv_f, valid_bits, kk, out);
+            bool odd = false;  // a code > 4 among the bases the word's k-mers reach
+            for (int q = wd; q <= (wd * WORD + WORD - 2 + k) >> 4; ++q) odd |= s_odd[q] != 0;
+            if (odd) strand_bits = raw_strands(row, length, g0, k);
+        } else {
+            strand_bits = hash_word<false>(w0, w1, f0, f1, inv_r, inv_f, valid_bits, kk, out);
+        }
+        if (stored) s_strand[wd - hb / WORD] = (uint16_t)strand_bits;
+    }
+    __syncthreads();
+
+    // 3a. Prefix minima inside blocks of w (a block starts where x % w == 0), forward.  A word's
+    //     16 hashes stay in registers from the word's own pass to its pass after the block scan.
+    const Seg none{UMAX, 0, 0};
+    uint32_t hv[WORD];
+    Seg carry = none;
+    for (int base = 0; base < P.nhw; base += THREADS) {
+        const int wd = base + tid;
+        const int x0 = wd * WORD;
+        const int p0 = x0 % w;  // the word's first position inside its block
+        Seg mine = none;
+        if (wd < P.nhw) {
+            int p = p0;
+#pragma unroll
+            for (int j = 0; j < WORD; ++j) {
+                hv[j] = s_hash[slot(x0 + j)];
+                if (p == 0 || hv[j] < mine.h) mine = Seg{hv[j], x0 + j, mine.f | (p == 0)};
+                if (++p == w) p = 0;
+            }
+        }
+        const Seg before = block_exclusive(mine, s_tot, base / THREADS, carry, none,
+                                           [](Seg a, Seg b) { return seg_join<false>(a, b); });
+        if (wd < P.nhw) {
+            uint32_t cur_h = before.h;
+            int cur_p = before.p, p = p0;
+#pragma unroll
+            for (int j = 0; j < WORD; ++j) {
+                if (p == 0 || hv[j] < cur_h) {
+                    cur_h = hv[j];
+                    cur_p = x0 + j;
+                }
+                s_pre_h[slot(x0 + j)] = cur_h;
+                s_pre_p[slot(x0 + j)] = (uint16_t)cur_p;
+                if (++p == w) p = 0;
+            }
+        }
+    }
+    __syncthreads();
+
+    // 3b. Suffix minima inside blocks of w (a block ends where x % w == w - 1), backward; the
+    //     window that starts at x is its suffix minimum joined with the prefix minimum at x + w - 1
+    //     (the suffix part wins a tie: it lies left).  It marks its winner when its minimum is
+    //     not 0xFFFFFFFF (so the winner's k-mer is valid) and it starts inside [0, length-k-w+2).
+    carry = none;
+    const long long n_starts = length - k - w + 2;
+    for (int base = 0; base < P.nhw; base += THREADS) {
+        const int wd = P.nhw - 1 - (base + tid);
+        const int x0 = wd * WORD;
+        const int p0 = wd >= 0 ? (x0 + WORD - 1) % w : 0;  // the word's last position inside its block
+        Seg mine = none;
+        if (wd >= 0) {
+            int p = p0;
+#pragma unroll
+            for (int j = WORD - 1; j >= 0; --j) {
+                hv[j] = s_hash[slot(x0 + j)];
+                if (p == w - 1 || hv[j] <= mine.h) mine = Seg{hv[j], x0 + j, mine.f | (p == w - 1)};
+                if (--p < 0) p = w - 1;
+            }
+        }
+        const Seg before = block_exclusive(mine, s_tot, base / THREADS, carry, none,
+                                           [](Seg a, Seg b) { return seg_join<true>(a, b); });
+        if (wd >= 0) {
+            const long long g0 = r0 + x0;
+            const uint32_t starts = wd < (hb + T) / WORD
+                                        ? low_bits(below(n_starts, g0)) & ~low_bits(below(0, g0)) : 0u;
+            uint32_t cur_h = before.h;
+            int cur_p = before.p, p = p0, last = -(1 << 30);
+#pragma unroll
+            for (int j = WORD - 1; j >= 0; --j) {
+                if (p == w - 1 || hv[j] <= cur_h) {
+                    cur_h = hv[j];
+                    cur_p = x0 + j;
+                }
+                if (--p < 0) p = w - 1;
+                if ((starts >> j) & 1u) {
+                    const int e = slot(x0 + j + w - 1);
+                    const uint32_t pre_h = s_pre_h[e];
+                    const bool right = pre_h < cur_h;
+                    const uint32_t best = right ? pre_h : cur_h;
+                    const int win = (right ? (int)s_pre_p[e] : cur_p) - hb;  // the winner's tile position
+                    if (best != UMAX && win != last) {
+                        last = win;
+                        if (win >= 0 && win < T) atomicOr(&s_sel[win >> 5], 1u << (win & 31));
+                    }
+                }
+            }
+        }
+    }
+    __syncthreads();
+
+    // 4. Output.
+    if (FLAT) {
+        const long long out0 = (long long)blockIdx.y * length + tile0;
+        store_flat_tile(s_sel, s_strand, s_hash, hb, (int)min((long long)T, length - tile0), A.aligned,
+                        A.selected + out0, A.hashes64 + out0, A.strands + out0);
+    } else {  // the staging reuses the prefix arrays, free by now
+        const long long R = length / ROW;
+        const size_t genome = (size_t)blockIdx.y * R;
+        uint2* stage = reinterpret_cast<uint2*>(smem + P.off_pre_h);
+        rank_and_store_rows(s_sel, s_strand, s_hash, hb, T / ROW, stage, reinterpret_cast<int*>(stage + T / ROW * SLOTS),
+                            (long long)blockIdx.x * (T / ROW), R, A.hashes32 + genome * SLOTS, A.aux + genome * SLOTS,
+                            A.counts + genome);
+    }
+}
+
+// One launch of the run-time form over B rows of `length` positions; cudaErrorInvalidValue when
+// (k, w) does not fit a block (the caller then takes the sparse-table form).
+template <bool FLAT>
+cudaError_t launch_rt(const RtArgs& a, int B, int k, long long w, cudaStream_t stream) {
+    RtPlan p;
+    if (!rt_plan(k, w, &p)) return cudaErrorInvalidValue;
+    const long long tiles = (a.length + p.tile - 1) / p.tile;
+    if (B > 65535 || tiles > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+    const cudaError_t err =
+        cudaFuncSetAttribute(scan_rt_kernel<FLAT>, cudaFuncAttributeMaxDynamicSharedMemorySize, RT_MAX_SMEM);
+    if (err != cudaSuccess) return err;
+    scan_rt_kernel<FLAT><<<dim3((unsigned)tiles, (unsigned)B), THREADS, p.smem, stream>>>(p, a);
+    return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------------------------
+// The sparse-table form: every k >= 1 and w >= 1, for the (k, w) whose run does not fit a block.
+//
+// Four kernels over device memory, a thread a position:
 //   1. scan_any_hash_kernel: the packings of the k codes from the raw bytes (every shift below 32
 //      guarded explicitly: a shift by 32 or more is undefined in C++), validity, strand, hash; it
 //      writes each position's window key, hash << 32 | position (so the minimum key is the
@@ -562,8 +983,8 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 //
 // What bounds it.  A position moves its code in, 8-byte keys in and out of every span pass and
 // its outputs: ~(24 + 24 a) bytes, and ~4 k + 20 integer operations, so the a span passes bound
-// it for any w above a few.  It is kept for the inputs the tiled kernels refuse; the main path's
-// (k, w) = (15, 10) never reaches it.
+// it for any w above a few.  It takes windows and k-mers wider than a block's run: w past ~8,400
+// or k past RT_MAX_K.
 // ---------------------------------------------------------------------------------------------
 
 constexpr int ANY_THREADS = 256;
@@ -708,9 +1129,27 @@ bool any_grid_ok(int B, long long length) {
 
 extern "C" {
 
-// The largest k and w of the tiled kernels; every other (k, w) takes the run-time form.
+// The largest k and w of the tiled kernels; every other (k, w) takes a run-time form.
 int kts_scan_tiled_max_k() { return MAX_K; }
 int kts_scan_tiled_max_w() { return MAX_W; }
+
+// The dynamic shared bytes of a run-time launch at (k, w); 0 when its run does not fit a block
+// (the sparse-table form's inputs).
+int kts_scan_any_smem(int k, long long w) {
+    RtPlan p;
+    return rt_plan(k, w, &p) ? p.smem : 0;
+}
+
+// The widest window the run-time form takes at k; 0 when it takes no window at k.
+long long kts_scan_any_max_w(int k) {
+    long long lo = 0, hi = 1 << 16;  // lo fits (or is 0), hi + 1 does not
+    while (lo < hi) {
+        const long long mid = (lo + hi + 1) / 2;
+        if (kts_scan_any_smem(k, mid)) lo = mid;
+        else hi = mid - 1;
+    }
+    return lo;
+}
 
 // One case a window width: both scans take w = 1 .. MAX_W as a template argument.
 #define KTS_WIDTHS(X)                                                                                \
@@ -752,12 +1191,45 @@ int kts_minimizer_scan(const void* codes, int B, long long L, int k, int w,
 
 #undef KTS_WIDTHS
 
-// The row-compact scan's run-time form (any k >= 1, w >= 1) on `stream`, with the caller's
+// The row-compact scan's run-time form (kts_scan_any_smem(k, w) > 0) on `stream`: one launch, no
+// scratch.  Returns the CUDA error of the launch.
+int kts_rowcompact_scan_any(const void* codes, int B, int R, int halo_rows, int k, long long w, void* hashes,
+                            void* aux, void* counts, void* stream) {
+    if (B <= 0 || R <= 0) return 0;
+    if (halo_rows < 0) return (int)cudaErrorInvalidValue;
+    RtArgs a{};
+    a.codes = static_cast<const uint8_t*>(codes);
+    a.n = (long long)(R + 2LL * halo_rows) * ROW;
+    a.pad = (long long)halo_rows * ROW;
+    a.length = (long long)R * ROW;
+    a.hashes32 = static_cast<uint32_t*>(hashes);
+    a.aux = static_cast<int32_t*>(aux);
+    a.counts = static_cast<int32_t*>(counts);
+    return (int)launch_rt<false>(a, B, k, w, static_cast<cudaStream_t>(stream));
+}
+
+// The flat scan's run-time form (kts_scan_any_smem(k, w) > 0) of a (B, L) code stream on `stream`:
+// one launch, no scratch.  Returns the CUDA error of the launch.
+int kts_minimizer_scan_any(const void* codes, int B, long long L, int k, long long w, void* selected,
+                           void* hashes, void* strands, void* stream) {
+    if (B <= 0 || L <= 0) return 0;
+    RtArgs a{};
+    a.codes = static_cast<const uint8_t*>(codes);
+    a.n = L;
+    a.length = L;
+    a.aligned = L % WORD == 0 && aligned16(codes) && aligned16(selected) && aligned16(hashes) && aligned16(strands);
+    a.selected = static_cast<uint8_t*>(selected);
+    a.hashes64 = static_cast<long long*>(hashes);
+    a.strands = static_cast<uint8_t*>(strands);
+    return (int)launch_rt<true>(a, B, k, w, static_cast<cudaStream_t>(stream));
+}
+
+// The row-compact scan's sparse-table form (any k >= 1, w >= 1) on `stream`, with the caller's
 // scratch: keys, spans_a and spans_b (B * R * 128 eight-byte words each), strands and selected
 // (B * R * 128 bytes each).  Returns the first CUDA error of its launches.
-int kts_rowcompact_scan_any(const void* codes, int B, int R, int halo_rows, int k, long long w, void* hashes,
-                            void* aux, void* counts, void* keys, void* spans_a, void* spans_b, void* strands,
-                            void* selected, void* stream) {
+int kts_rowcompact_scan_sparse(const void* codes, int B, int R, int halo_rows, int k, long long w, void* hashes,
+                               void* aux, void* counts, void* keys, void* spans_a, void* spans_b, void* strands,
+                               void* selected, void* stream) {
     if (B <= 0 || R <= 0) return 0;
     const long long length = (long long)R * ROW;
     if (k < 1 || w < 1 || halo_rows < 0 || !any_grid_ok(B, length)) return (int)cudaErrorInvalidValue;
@@ -780,10 +1252,10 @@ int kts_rowcompact_scan_any(const void* codes, int B, int R, int halo_rows, int 
     return (int)cudaGetLastError();
 }
 
-// The flat scan's run-time form (any k >= 1, w >= 1) of a (B, L) code stream on `stream`, with
+// The flat scan's sparse-table form (any k >= 1, w >= 1) of a (B, L) code stream on `stream`, with
 // the caller's scratch: keys, spans_a and spans_b (B * L eight-byte words each).
-int kts_minimizer_scan_any(const void* codes, int B, long long L, int k, long long w, void* selected,
-                           void* hashes, void* strands, void* keys, void* spans_a, void* spans_b, void* stream) {
+int kts_minimizer_scan_sparse(const void* codes, int B, long long L, int k, long long w, void* selected,
+                              void* hashes, void* strands, void* keys, void* spans_a, void* spans_b, void* stream) {
     if (B <= 0 || L <= 0) return 0;
     if (k < 1 || w < 1 || !any_grid_ok(B, L)) return (int)cudaErrorInvalidValue;
     const auto st = static_cast<cudaStream_t>(stream);

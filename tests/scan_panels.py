@@ -99,3 +99,38 @@ EDGE_PANELS = {
 # (k, w) other than (15, 10); (1, 1) is the smallest pair, and both packages' scans take it
 # (every base is its own window, so every valid position is selected).
 KW_CASES = ((11, 5), (16, 32), (1, 1))
+
+
+# The run-time form of both scans (csrc/scan.cu, scan_rt_kernel): the geometry rt_plan gives a
+# block, mirrored here for the numpy model and for the card tests that check the form's range.
+ANY_THREADS = 288
+ANY_TILE = 4096  # the smallest tile: the one the form's range is decided at
+ANY_MAX_K = 1024
+ANY_MAX_SMEM = 232448  # the shared memory a block can opt in to on sm_90 (227 KB)
+SEG_BYTES = 12  # a block scan's element (hash, position, restart seen): three 32-bit words
+
+
+def any_plan(k: int, w: int, tile: int = ANY_TILE):
+    """``rt_plan``: ``{"hb", "nhw", "ncw", "smem"}`` of a block of ``tile`` positions, None when
+    ``(k, w)`` does not fit a block."""
+    if not (1 <= k <= ANY_MAX_K and 1 <= w <= 1 << 16):
+        return None
+    hb = (w - 1 + 31) // 32 * 32
+    nhw = -(-(hb + tile + w - 1) // 16)
+    ncw = nhw + (k + 15) // 16 + 2
+    if nhw * 16 >= 1 << 16:
+        return None
+    slots = 17 * nhw
+    sizes = (4 * slots, 4 * slots, 2 * slots, 4 * ncw, 2 * ncw, ncw, 4 * ncw if k > 32 else 0, tile // 8,
+             tile // 8, 2 * (ANY_THREADS // 32) * SEG_BYTES)
+    smem = sum((b + 15) // 16 * 16 for b in sizes)
+    return None if smem > ANY_MAX_SMEM else {"hb": hb, "nhw": nhw, "ncw": ncw, "smem": smem}
+
+
+def any_max_w(k: int) -> int:
+    """``kts_scan_any_max_w``: the widest window the run-time form takes at ``k`` (0 if none)."""
+    lo, hi = 0, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if any_plan(k, mid) else (lo, mid - 1)
+    return lo

@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from scan_panels import EDGE_PANELS, KW_CASES, PANELS, random_stream
+from scan_panels import EDGE_PANELS, KW_CASES, PANELS, any_max_w, any_plan, random_stream
 from swg_panels import (
     AA, CIGAR_PANELS, GAP_RUNS, NT, best_cell_panel, blosum_matrix, cigar_panel, gap_run_panel, nt_matrix,
     random_swg_batch,
@@ -428,23 +428,37 @@ def test_scan_kernel_equals_plain_at_every_window_width(scan_device):
     _assert_scan_kernel_equals_plain(scan_device, codes, 17, 10)
 
 
-# (k, w) past the tiled kernels' 16 and 32: the run-time form of both scans.
-WIDE_KW = [(15, w) for w in (33, 64, 200, 1000, 1100)] + [(k, w) for k in (17, 20, 31) for w in (10, 40)] + [(32, 5)]
+# (k, w) past the tiled kernels' 16 and 32: the run-time form of both scans, and past its widest
+# window (any_max_w(k), ~8,400) the sparse-table form.  (19, 19) and (21, 11) are minimap2's asm5 /
+# asm10 and sr presets.
+WIDE_KW = ([(15, w) for w in (33, 64, 200, 1000, 1100)] + [(k, w) for k in (17, 19, 20, 21, 31, 32, 33)
+                                                          for w in (10, 40)]
+           + [(32, 5), (19, 19), (21, 11), (33, 1100)]
+           + [(k, any_max_w(k) + d) for k in (15, 33) for d in (0, 1)])
+
+
+def _wide_form(k: int, w: int) -> str:
+    """The run-time form inside its widest window, the sparse-table form past it."""
+    return "any" if any_plan(k, w) else "sparse"
 
 
 @pytest.mark.parametrize("kw", WIDE_KW, ids=[f"k{k}-w{w}" for k, w in WIDE_KW])
 def test_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
-    """The run-time form of the row-compact scan (one launch, the counter ``scan.cuda.rowcompact_any``)
-    on sentinels, ties two apart and poly-A across tile edges, a 24-row panel with a sentinel
-    run, poly-A and a period-2 repeat, and an all-sentinel genome, as one batch."""
+    """The run-time form of the row-compact scan (one launch, the counter
+    ``scan.cuda.rowcompact_any``; past its widest window the sparse-table form,
+    ``scan.cuda.rowcompact_sparse``) on sentinels, ties two apart and poly-A across tile edges,
+    a 24-row panel with a sentinel run, poly-A and a period-2 repeat, and an all-sentinel
+    genome, as one batch."""
     from range_panels import rowcompact_panel
 
     from kaptive_tpu_torch.ops.scan import pad_codes_for_scan_any
-    from kaptive_tpu_torch.ops.scan_cuda import scan_form
+    from kaptive_tpu_torch.ops.scan_cuda import build, scan_form
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
 
     k, w = kw
-    assert scan_form(k, w) == "any"
+    form = _wide_form(k, w)
+    assert scan_form(k, w) == form and build().kts_scan_any_max_w(k) == any_max_w(k)
+    assert build().kts_scan_any_smem(k, w) == (any_plan(k, w) or {"smem": 0})["smem"]
     rng = np.random.default_rng(31 * k + w)
     streams = [EDGE_PANELS[name](rng) for name in ("sentinels-across-edges", "period-2-across-edges",
                                                    "poly-a-across-edges")]
@@ -453,7 +467,7 @@ def test_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
     codes = torch.from_numpy(np.stack([pad_codes_for_scan_any(s[: 72 * 128]) for s in streams]))
     reset_metrics()
     got = _assert_scan_kernel_equals_plain(scan_device, codes.to(scan_device), k, w)
-    assert snapshot().get("scan.cuda.rowcompact_any") == 1
+    assert snapshot() == {f"scan.cuda.rowcompact_{form}": 1, "scan.plain.rowcompact": 1}
     assert int(got[2].sum()) > 0 and int(got[2][3].sum()) == 0
 
 
@@ -1244,9 +1258,10 @@ def test_flat_scan_kernel_equals_plain_on_odd_lengths(scan_device, L):
 
 @pytest.mark.parametrize("kw", WIDE_KW, ids=[f"k{k}-w{w}" for k, w in WIDE_KW])
 def test_flat_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
-    """The run-time form of the flat scan (counter ``scan.cuda.flat_any``): random rows with
-    sentinel runs, poly-A and valid bases to the end, codes 5 and 255, an all-sentinel row; an
-    odd length, and a (L,) stream equal to its row of the batch."""
+    """The run-time form of the flat scan (counter ``scan.cuda.flat_any``; past its widest window
+    the sparse-table form, ``scan.cuda.flat_sparse``): random rows with sentinel runs, poly-A and
+    valid bases to the end, codes 5 and 255, an all-sentinel row; an odd length, and a (L,)
+    stream equal to its row of the batch."""
     from range_panels import scan_stream
 
     from kaptive_tpu_torch.ops.scan_cuda import minimizer_scan_cuda
@@ -1262,7 +1277,7 @@ def test_flat_scan_kernel_equals_plain_past_the_tiled_range(scan_device, kw):
     cuda = torch.from_numpy(codes).to(scan_device)
     reset_metrics()
     sel, _, _ = _assert_flat_kernel_equals_plain(cuda, k, w)
-    assert snapshot() == {"scan.cuda.flat_any": 1, "scan.plain.flat": 1}
+    assert snapshot() == {f"scan.cuda.flat_{_wide_form(k, w)}": 1, "scan.plain.flat": 1}
     assert bool(sel[0].any()) and not bool(sel[3].any())
     for g, x in zip(minimizer_scan_cuda(cuda[2], k, w), minimizer_scan_cuda(cuda, k, w)):
         assert torch.equal(g, x[2])
@@ -1311,7 +1326,8 @@ def test_flat_scan_kernel_equals_plain_at_every_window_width(scan_device, w):
 def test_flat_scan_kernel_equals_plain_on_raw_codes(scan_device, L):
     """Codes 5 and 255 (a word whose k-mers reach one takes its strands from the raw codes), an
     all-sentinel row and a row of valid bases beside them; B = 3, and L % 16 != 0 but for 8192
-    (rows that start at unaligned bytes)."""
+    (rows that start at unaligned bytes); the tiled kernel and, at (19, 19) and (21, 11), the
+    run-time form."""
     rng = np.random.default_rng(L + 1)
     codes = rng.integers(0, 4, (3, L)).astype(np.uint8)
     codes[0, rng.random(L) < 0.01] = 5
@@ -1319,7 +1335,7 @@ def test_flat_scan_kernel_equals_plain_on_raw_codes(scan_device, L):
     codes[0, rng.random(L) < 0.01] = 4
     codes[0, -1] = 255  # read by the k-mers that roll over the end
     codes[1] = 4
-    for k, w in ((15, 10), (16, 32), (11, 5), (1, 1)):
+    for k, w in ((15, 10), (16, 32), (11, 5), (1, 1), (19, 19), (21, 11)):
         _assert_flat_kernel_equals_plain(torch.from_numpy(codes).to(scan_device), k, w)
 
 

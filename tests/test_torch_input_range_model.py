@@ -16,7 +16,9 @@ out in numpy, step for step, and held to the reference:
   the JAX package's ``_fill_band`` (traceback bits on the rows the query
   reaches, best score, row and column) at segments of 8,192 lanes (the
   kernel's) and of 64 and 48 lanes, so that every band crosses several.
-- ``csrc/scan.cu``'s run-time form of both scans: a position's k codes
+- ``csrc/scan.cu``'s sparse-table form of both scans (the form past the
+  run-time form's widest window; that form's own model is
+  ``tests/test_torch_scan_any_tiled_model.py``): a position's k codes
   packed as the JAX package's uint32 shifts pack them (a term whose shift is
   32 or more dropped, every shift guarded), validity over all k codes, a
   sparse table of ``hash << 32 | position`` keys (``floor(log2 w)`` passes of
@@ -151,7 +153,7 @@ def test_segmented_fill_model_on_the_f7_pair():
     _assert_fill_model(arrays, blosum_matrix(), 11, 1, 160, F7_W_PAD, 8192)
 
 
-# --------------------------------------------------------------------------- the scans' run-time form
+# ------------------------------------------------------------------------ the scans' sparse-table form
 
 
 def pack_any_model(rows: np.ndarray, pad: int, length: int, k: int):
@@ -182,7 +184,7 @@ def _mix32(x):
 
 
 def scan_any_model(rows: np.ndarray, pad: int, length: int, k: int, w: int):
-    """Stages 1-3 of the run-time form: ``(selected, hashes, strands, keys)`` of (B, length)."""
+    """Stages 1-3 of the sparse-table form: ``(selected, hashes, strands, keys)`` of (B, length)."""
     fwd, rev, bad = pack_any_model(rows, pad, length, k)
     g = np.arange(length)
     valid = ~bad & (g < length - k + 1)
@@ -209,7 +211,7 @@ def scan_any_model(rows: np.ndarray, pad: int, length: int, k: int, w: int):
 
 
 def rowcompact_any_model(codes_padded: np.ndarray, k: int, w: int):
-    """The row-compact run-time form: ``(hashes, aux, counts)`` as int32 arrays."""
+    """The row-compact sparse-table form: ``(hashes, aux, counts)`` as int32 arrays."""
     B, r_pad, row = codes_padded.shape
     R = r_pad - 16
     selected, _, strands, keys = scan_any_model(codes_padded.reshape(B, -1), 8 * row, R * row, k, w)
