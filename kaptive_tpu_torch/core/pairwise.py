@@ -10,6 +10,9 @@ seeded band ``k`` on the seed diagonal).
 each bucket's padded (query, target) matrices on the device with torch
 indexing, runs :func:`kaptive_tpu_torch.ops.swg.banded_swg` per bucket and
 brings every bucket's results back in one device-to-host copy per sweep.
+Each sweep is two spans: ``dp.launch`` (uploads, bucket plan, gathers,
+launches; it counts ``dp.cells_live`` and ``dp.cells_launched``) and
+``dp.collect`` (the copy back, where the host waits for the card).
 :func:`batched_swg_align_cigars` does the same through
 :func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and also returns
 :class:`~kaptive_tpu_torch.core.alignment.Cigars`.
@@ -38,6 +41,7 @@ from kaptive_tpu_torch.ops.swg import (
     sharded_banded_swg,
 )
 from kaptive_tpu_torch.utils.device import device_count, resolve_device, sharded
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 _RESULT_FIELDS = ("scores", "matches", "mismatches", "gaps", "q_starts", "q_ends", "t_starts", "t_ends")
 
@@ -222,25 +226,34 @@ def run_bucket(args: tuple, statics: dict, emit_cigars: bool, mesh=None) -> torc
     return torch.cat([torch.stack(tuple(res)), n_ops[None], overflow[None].to(torch.int32), ops.T])
 
 
+def count_cells(span, rows: np.ndarray, k_locals: np.ndarray, plan: list) -> None:
+    r"""Add to ``span`` the band cells a sweep's pairs need, ``rows x (2k+3)`` summed
+    (``dp.cells_live``), and the cells its ``plan`` launches, ``b_pad x rows_max x w_pad``
+    summed over the buckets, padding pairs included (``dp.cells_launched``)."""
+    span.add("dp.cells_live", int(np.dot(rows.astype(np.int64), 2 * k_locals.astype(np.int64) + 3)))
+    span.add("dp.cells_launched", sum(b_pad * rows_max * w_pad for _, rows_max, w_pad, b_pad in plan))
+
+
 def collect_buckets(n: int, launched: list, emit_cigars: bool) -> tuple[PairwiseAlignments, Cigars | None]:
     r"""Bring :func:`run_bucket` outputs ``[(pair indices, stacked[:, :len(indices)])]``
     back to the host in one copy and put them in pair order:
     ``(PairwiseAlignments, Cigars or None)``."""
-    out = {k: np.zeros(n, dtype=np.int32) for k in _RESULT_FIELDS}
-    ops = np.zeros((n, MAX_CIGAR_OPS), dtype=np.uint32)
-    n_ops = np.zeros(n, dtype=np.int32)
-    overflow = np.zeros(n, dtype=bool)
-    if launched:
-        stacked = torch.cat([part for _, part in launched], dim=1).cpu().numpy()
-        order = np.concatenate([sel for sel, _ in launched])
-        for i, field in enumerate(_RESULT_FIELDS):
-            out[field][order] = stacked[i]
-        if emit_cigars:
-            n_ops[order] = stacked[8]
-            overflow[order] = stacked[9] != 0
-            ops[order] = stacked[10:].T.view(np.uint32)
-    res = PairwiseAlignments(*(out[f] for f in _RESULT_FIELDS))
-    return res, cigars_from_runs(ops, n_ops, overflow) if emit_cigars else None
+    with phase_timer("dp.collect"):
+        out = {k: np.zeros(n, dtype=np.int32) for k in _RESULT_FIELDS}
+        ops = np.zeros((n, MAX_CIGAR_OPS), dtype=np.uint32)
+        n_ops = np.zeros(n, dtype=np.int32)
+        overflow = np.zeros(n, dtype=bool)
+        if launched:
+            stacked = torch.cat([part for _, part in launched], dim=1).cpu().numpy()
+            order = np.concatenate([sel for sel, _ in launched])
+            for i, field in enumerate(_RESULT_FIELDS):
+                out[field][order] = stacked[i]
+            if emit_cigars:
+                n_ops[order] = stacked[8]
+                overflow[order] = stacked[9] != 0
+                ops[order] = stacked[10:].T.view(np.uint32)
+        res = PairwiseAlignments(*(out[f] for f in _RESULT_FIELDS))
+        return res, cigars_from_runs(ops, n_ops, overflow) if emit_cigars else None
 
 
 def _align_buckets(
@@ -254,30 +267,34 @@ def _align_buckets(
     ``n`` (``min_batch = ceil(16 / n) * n``, as in the JAX package) and its
     pairs are cut over the slots; the matrices are gathered on ``device``.
     """
-    device = resolve_device(device)
-    mat = device_matrix(matrix, device)
-    mesh = mesh if sharded(mesh) else None
-    n_dev = device_count(mesh)
-    w_needed = 2 * k_locals.astype(np.int64) + 3
-    joint = np.maximum(np.maximum(q_lengths, t_lengths), 1)
-    q_data_d = _upload_stream(q_data, device)
-    t_data_d = _upload_stream(t_data, device)
-    launched = []
-    for sel, rows_max, w_pad, b_pad in plan_swg_buckets(joint, w_needed, lattice, min_batch=-(-16 // n_dev) * n_dev):
-        t_pad = w_pad + 2
-        meta = np.zeros((6, b_pad), dtype=np.int64)
-        meta[4] = 1  # padding pairs: empty, band 1
-        for row, src in enumerate((q_offsets, q_lengths, t_offsets, t_lengths, k_locals, diag_offsets)):
-            meta[row, : len(sel)] = src[sel]
-        q_off, q_len, t_off, t_len, kl, do = torch.from_numpy(meta).to(device).unbind(0)
-        q_mat, t_mat = _ragged_gather(
-            q_data_d, t_data_d, q_off, q_len, t_off, t_len,
-            rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
-        )
-        i32 = torch.int32
-        args = (q_mat, q_len.to(i32), t_mat, t_len.to(i32), do.to(i32), kl.to(i32), mat)
-        statics = dict(gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
-        launched.append((sel, run_bucket(args, statics, emit_cigars, mesh)[:, : len(sel)]))
+    with phase_timer("dp.launch") as span:
+        device = resolve_device(device)
+        mat = device_matrix(matrix, device)
+        mesh = mesh if sharded(mesh) else None
+        n_dev = device_count(mesh)
+        w_needed = 2 * k_locals.astype(np.int64) + 3
+        joint = np.maximum(np.maximum(q_lengths, t_lengths), 1)
+        q_data_d = _upload_stream(q_data, device)
+        t_data_d = _upload_stream(t_data, device)
+        plan = plan_swg_buckets(joint, w_needed, lattice, min_batch=-(-16 // n_dev) * n_dev)
+        if span:
+            count_cells(span, q_lengths, k_locals, plan)
+        launched = []
+        for sel, rows_max, w_pad, b_pad in plan:
+            t_pad = w_pad + 2
+            meta = np.zeros((6, b_pad), dtype=np.int64)
+            meta[4] = 1  # padding pairs: empty, band 1
+            for row, src in enumerate((q_offsets, q_lengths, t_offsets, t_lengths, k_locals, diag_offsets)):
+                meta[row, : len(sel)] = src[sel]
+            q_off, q_len, t_off, t_len, kl, do = torch.from_numpy(meta).to(device).unbind(0)
+            q_mat, t_mat = _ragged_gather(
+                q_data_d, t_data_d, q_off, q_len, t_off, t_len,
+                rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
+            )
+            i32 = torch.int32
+            args = (q_mat, q_len.to(i32), t_mat, t_len.to(i32), do.to(i32), kl.to(i32), mat)
+            statics = dict(gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
+            launched.append((sel, run_bucket(args, statics, emit_cigars, mesh)[:, : len(sel)]))
     return collect_buckets(len(q_offsets), launched, emit_cigars)
 
 

@@ -294,22 +294,24 @@ def host_seed_chains(gene_index: GeneIndex, contig_index: ContigIndex, params: M
     from kaptive_tpu_torch.native import hostio
 
     tm = gene_index.minimizers
-    ti, cpos, cstrand, _, _ = hostio.seed_anchors(
-        contig_index.codes, gene_index.k, gene_index.w, tm.hashes,
-        min(params.max_occ, DEVICE_MAX_OCC),
-        bloom_words=gene_index.host_bloom, bloom_bits=BLOOM_BITS,
-        bucket_starts=gene_index.host_buckets, bucket_shift=BUCKET_SHIFT,
-    )
+    with phase_timer("map.seed"):
+        ti, cpos, cstrand, _, _ = hostio.seed_anchors(
+            contig_index.codes, gene_index.k, gene_index.w, tm.hashes,
+            min(params.max_occ, DEVICE_MAX_OCC),
+            bloom_words=gene_index.host_bloom, bloom_bits=BLOOM_BITS,
+            bucket_starts=gene_index.host_buckets, bucket_shift=BUCKET_SHIFT,
+        )
     count("map.host_seed.native")
-    c_idx = np.searchsorted(contig_index.starts, cpos, side="right") - 1
-    anchors = (
-        tm.seq_indices[ti].astype(np.int64),
-        tm.positions[ti].astype(np.int64),
-        c_idx.astype(np.int64),
-        (cpos - contig_index.starts[c_idx]).astype(np.int64),
-        np.where(tm.strands[ti] == cstrand.astype(bool), 1, -1).astype(np.int64),
-    )
-    return chain_anchors(*anchors, gene_index.lengths, gene_index.k, params)
+    with phase_timer("map.chain"):
+        c_idx = np.searchsorted(contig_index.starts, cpos, side="right") - 1
+        anchors = (
+            tm.seq_indices[ti].astype(np.int64),
+            tm.positions[ti].astype(np.int64),
+            c_idx.astype(np.int64),
+            (cpos - contig_index.starts[c_idx]).astype(np.int64),
+            np.where(tm.strands[ti] == cstrand.astype(bool), 1, -1).astype(np.int64),
+        )
+        return chain_anchors(*anchors, gene_index.lengths, gene_index.k, params)
 
 
 def chain_anchors(
@@ -576,19 +578,18 @@ def _map_genes_host_seeded(
     consumed only when they were seeded against this ``gene_index`` with
     these ``params``; otherwise the assembly is seeded here.
     """
-    with phase_timer("map.host_seed"):
-        all_chains: list[dict | None] = []
-        for ci in indexes:
-            cached = ci._cache.get("host_chains")
-            chains = None
-            if cached is not None:
-                seed_gi, seed_params, seed_chains = cached
-                if seed_gi is gene_index and seed_params == params:
-                    chains = seed_chains
-                    count("map.host_seed.preseeded")
-            if chains is None:
-                chains = host_seed_chains(gene_index, ci, params)
-            all_chains.append(chains if chains and len(chains["gene"]) else None)
+    all_chains: list[dict | None] = []
+    for ci in indexes:
+        cached = ci._cache.get("host_chains")
+        chains = None
+        if cached is not None:
+            seed_gi, seed_params, seed_chains = cached
+            if seed_gi is gene_index and seed_params == params:
+                chains = seed_chains
+                count("map.host_seed.preseeded")
+        if chains is None:
+            chains = host_seed_chains(gene_index, ci, params)
+        all_chains.append(chains if chains and len(chains["gene"]) else None)
     return _extend_on_host(all_chains, gene_index, genomes, indexes, gene_names, params, device)
 
 
@@ -600,43 +601,46 @@ def _extend_on_host(
     ONE extension-DP sweep over the whole batch (its pair axis cut over the
     ``mesh`` when one is given), and the batch's alignments."""
     n_genomes = len(genomes)
-    with phase_timer("map.chain_host"):
+    with phase_timer("map.problems") as span:
         all_problems = [
             build_extension_problems(ch, gene_index, ci, params) if ch is not None else None
             for ch, ci in zip(all_chains, indexes)
         ]
-    live = [p for p in all_problems if p is not None]
-    if not live:
-        return [Alignments.empty() for _ in range(n_genomes)]
-    merged = dict(
-        q_codes=np.concatenate([p["q_codes"] for p in live]),
-        q_lengths=np.concatenate([p["q_lengths"] for p in live]).astype(np.int32),
-        t_codes=np.concatenate([p["t_codes"] for p in live]),
-        t_lengths=np.concatenate([p["t_lengths"] for p in live]).astype(np.int32),
-        offsets=np.concatenate([p["offsets"] for p in live]).astype(np.int32),
-        k_locals=np.concatenate([p["k_locals"] for p in live]).astype(np.int32),
-    )
-    merged["q_offsets"] = cumulative_offsets(merged["q_lengths"])
-    merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
+        live = [p for p in all_problems if p is not None]
+        if not live:
+            return [Alignments.empty() for _ in range(n_genomes)]
+        merged = dict(
+            q_codes=np.concatenate([p["q_codes"] for p in live]),
+            q_lengths=np.concatenate([p["q_lengths"] for p in live]).astype(np.int32),
+            t_codes=np.concatenate([p["t_codes"] for p in live]),
+            t_lengths=np.concatenate([p["t_lengths"] for p in live]).astype(np.int32),
+            offsets=np.concatenate([p["offsets"] for p in live]).astype(np.int32),
+            k_locals=np.concatenate([p["k_locals"] for p in live]).astype(np.int32),
+        )
+        merged["q_offsets"] = cumulative_offsets(merged["q_lengths"])
+        merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
+        if span:
+            span.add("map.chains", len(merged["q_lengths"]))
     with phase_timer("map.extension_dp"):
         res, cigars_all = _run_extension_dp(
             merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars, mesh=mesh,
         )
-    counts = [len(p["q_lengths"]) if p is not None else 0 for p in all_problems]
-    bounds = np.cumsum([0] + counts)
-    results: list[Alignments] = []
-    for b in range(n_genomes):
-        if all_problems[b] is None:
-            results.append(Alignments.empty())
-            continue
-        sl = slice(bounds[b], bounds[b + 1])
-        results.append(
-            _alignments_from_extension(
-                all_chains[b], res[sl], all_problems[b]["t_lo"], all_problems[b]["glen"],
-                gene_index, genomes[b], indexes[b], gene_names, params,
-                cigars=cigars_all[sl] if cigars_all is not None else None,
+    with phase_timer("map.results"):
+        counts = [len(p["q_lengths"]) if p is not None else 0 for p in all_problems]
+        bounds = np.cumsum([0] + counts)
+        results: list[Alignments] = []
+        for b in range(n_genomes):
+            if all_problems[b] is None:
+                results.append(Alignments.empty())
+                continue
+            sl = slice(bounds[b], bounds[b + 1])
+            results.append(
+                _alignments_from_extension(
+                    all_chains[b], res[sl], all_problems[b]["t_lo"], all_problems[b]["glen"],
+                    gene_index, genomes[b], indexes[b], gene_names, params,
+                    cigars=cigars_all[sl] if cigars_all is not None else None,
+                )
             )
-        )
     return results
 
 
@@ -1035,31 +1039,35 @@ def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: t
     emit_cigars)`` for :func:`collect_extension_dp_device`; nothing is copied
     back here.
     """
-    from kaptive_tpu_torch.core.pairwise import run_bucket
+    from kaptive_tpu_torch.core.pairwise import count_cells, run_bucket
     from kaptive_tpu_torch.ops.swg import device_matrix, plan_swg_buckets
 
-    dev = flat_codes.device
-    matrix = device_matrix(_NT_MATRIX, dev)
-    gene_codes = gene_index.device_codes(dev)
-    n = len(specs["gene"])
-    w_needed = 2 * specs["k_locals"] + 3
-    joint = np.maximum(np.maximum(specs["glen"], specs["t_len"]), 1)
-    launched = []
-    for sel, rows_max, w_pad, b_pad in plan_swg_buckets(joint, w_needed, params.lattice):
-        t_pad = w_pad + 2
-        meta = np.zeros((7, b_pad), dtype=np.int64)
-        meta[[1, 2, 6]] = 1  # padding pairs: length 1, plus strand, band 1
-        for row, key in enumerate(("q_start", "glen", "strand", "t_flat", "t_len", "offsets", "k_locals")):
-            meta[row, : len(sel)] = specs[key][sel]
-        q_start, glen, strand, t_flat, t_len, offsets, k_locals = torch.from_numpy(meta).to(dev).unbind(0)
-        q_mat, t_mat = _ext_gather_bucket(
-            gene_codes, flat_codes, q_start, glen, strand, t_flat, t_len,
-            rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
-        )
-        i32 = torch.int32
-        args = (q_mat, glen.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), matrix)
-        statics = dict(gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
-        launched.append((sel, run_bucket(args, statics, params.emit_cigars)[:, : len(sel)]))
+    with phase_timer("dp.launch") as span:
+        dev = flat_codes.device
+        matrix = device_matrix(_NT_MATRIX, dev)
+        gene_codes = gene_index.device_codes(dev)
+        n = len(specs["gene"])
+        w_needed = 2 * specs["k_locals"] + 3
+        joint = np.maximum(np.maximum(specs["glen"], specs["t_len"]), 1)
+        plan = plan_swg_buckets(joint, w_needed, params.lattice)
+        if span:
+            count_cells(span, specs["glen"], specs["k_locals"], plan)
+        launched = []
+        for sel, rows_max, w_pad, b_pad in plan:
+            t_pad = w_pad + 2
+            meta = np.zeros((7, b_pad), dtype=np.int64)
+            meta[[1, 2, 6]] = 1  # padding pairs: length 1, plus strand, band 1
+            for row, key in enumerate(("q_start", "glen", "strand", "t_flat", "t_len", "offsets", "k_locals")):
+                meta[row, : len(sel)] = specs[key][sel]
+            q_start, glen, strand, t_flat, t_len, offsets, k_locals = torch.from_numpy(meta).to(dev).unbind(0)
+            q_mat, t_mat = _ext_gather_bucket(
+                gene_codes, flat_codes, q_start, glen, strand, t_flat, t_len,
+                rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
+            )
+            i32 = torch.int32
+            args = (q_mat, glen.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), matrix)
+            statics = dict(gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
+            launched.append((sel, run_bucket(args, statics, params.emit_cigars)[:, : len(sel)]))
     return n, launched, params.emit_cigars
 
 
@@ -1222,7 +1230,7 @@ def _map_genes_device_seeded(
     lp = L + 2 * PAD_POS  # one genome's length in the flattened padded stream
     all_chains: list[dict | None] = []
     all_specs: list[dict | None] = []
-    with phase_timer("map.chain_host"):
+    with phase_timer("map.problems") as span:
         for b, ci in enumerate(indexes):
             chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)
             if not chains or len(chains["gene"]) == 0:
@@ -1231,29 +1239,31 @@ def _map_genes_device_seeded(
                 continue
             all_chains.append(chains)
             all_specs.append(build_extension_specs(chains, gene_index, ci, params, flat_base=b * lp))
-
-    live = [s for s in all_specs if s is not None]
-    if not live:
-        return [Alignments.empty() for _ in range(n_genomes)]
-    merged = {key: np.concatenate([s[key] for s in live]) for key in live[0] if key != "t_lo"}
+        live = [s for s in all_specs if s is not None]
+        if not live:
+            return [Alignments.empty() for _ in range(n_genomes)]
+        merged = {key: np.concatenate([s[key] for s in live]) for key in live[0] if key != "t_lo"}
+        if span:
+            span.add("map.chains", len(merged["glen"]))
     with phase_timer("map.extension_dp"):
         res, cigars_all = collect_extension_dp_device(
             launch_extension_dp_device(merged, gene_index, flat_codes, params)
         )
-    bounds = np.cumsum([0] + [len(s["glen"]) if s is not None else 0 for s in all_specs])
-    results: list[Alignments] = []
-    for b in range(n_genomes):
-        if all_specs[b] is None:
-            results.append(Alignments.empty())
-            continue
-        sl = slice(bounds[b], bounds[b + 1])
-        results.append(
-            _alignments_from_extension(
-                all_chains[b], res[sl], all_specs[b]["t_lo"], all_specs[b]["glen"],
-                gene_index, genomes[b], indexes[b], gene_names, params,
-                cigars=cigars_all[sl] if cigars_all is not None else None,
+    with phase_timer("map.results"):
+        bounds = np.cumsum([0] + [len(s["glen"]) if s is not None else 0 for s in all_specs])
+        results: list[Alignments] = []
+        for b in range(n_genomes):
+            if all_specs[b] is None:
+                results.append(Alignments.empty())
+                continue
+            sl = slice(bounds[b], bounds[b + 1])
+            results.append(
+                _alignments_from_extension(
+                    all_chains[b], res[sl], all_specs[b]["t_lo"], all_specs[b]["glen"],
+                    gene_index, genomes[b], indexes[b], gene_names, params,
+                    cigars=cigars_all[sl] if cigars_all is not None else None,
+                )
             )
-        )
     return results
 
 
@@ -1273,7 +1283,7 @@ def _map_genes_sharded(
     table = ShardedGeneTable.of(gene_index, mesh.shape["model"])
     with phase_timer("map.scan_match"):
         chains_np, counts_np = sharded_scan_match_chain(mesh, indexes, table, gene_index, params, length=L)
-    with phase_timer("map.chain_host"):
+    with phase_timer("map.problems"):
         all_chains = []
         for b, ci in enumerate(indexes):
             chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)

@@ -17,11 +17,17 @@ the consumer holds; both functions take the JAX package's parameters in its
 positions, with its defaults.
 
 ``map_batch`` runs on one worker thread and overlaps ``finish_batch`` of the
-batch before it on the calling thread; results stream in input order.
+batch before it on the calling thread; results stream in input order.  Each
+batch is one request (:func:`~kaptive_tpu_torch.utils.profiling.request_context`):
+its ingest on the pool, its ``map_batch`` and its ``finish_batch`` carry one
+request id, and the two waits of the stream are spans of their own
+(``stream.wait_ingest`` on the pool's futures, ``stream.wait_map`` on
+``map_batch``'s).
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 from collections.abc import Callable, Iterable, Iterator
 from concurrent.futures import ThreadPoolExecutor
@@ -34,14 +40,19 @@ from kaptive_tpu_torch.core.genome import GenomeAssembly
 from kaptive_tpu_torch.ops.mapper import device_inputs, host_seed_chains, resolve_seed_mode, upload_form
 from kaptive_tpu_torch.ops.minimizer import ContigIndex
 from kaptive_tpu_torch.utils.device import sharded
-from kaptive_tpu_torch.utils.profiling import phase_timer
+from kaptive_tpu_torch.utils.profiling import phase_timer, request_context
 
 Ingested = tuple[GenomeAssembly, ContigIndex]
 PreSeed = Callable[[ContigIndex], tuple]
 PREFETCH_BATCHES = 2  # stream_type's default depth: batches ingested ahead of the one the consumer holds
 
 
-def _load_and_index(path: str | Path | IO[bytes], pre_seed: PreSeed | None, upload_to: torch.device | None) -> Ingested:
+def _load_and_index(
+    path: str | Path | IO[bytes], pre_seed: PreSeed | None, upload_to: torch.device | None,
+    ctx: contextvars.Context | None = None,
+) -> Ingested:
+    if ctx is not None:  # the batch's request context, one copy an assembly
+        return ctx.run(_load_and_index, path, pre_seed, upload_to)
     with phase_timer("ingest.parse_pack"):
         ga = GenomeAssembly.ensure(path)
         ci = ContigIndex.build(ga.contigs)
@@ -73,6 +84,20 @@ def stream_batches(
     returns the ``host_chains`` entry (host seeding); ``upload_to`` is the
     device each assembly's upload form is copied to (device seeding), unless
     ``multi_device`` says that a mesh's mapper uploads the batch itself."""
+    for _, batch in _ingest(genomes, batch_size, prefetch_batches, max_workers, multi_device, pre_seed, upload_to):
+        yield batch
+
+
+def _wait_ingest(futures: list) -> list[Ingested]:
+    with phase_timer("stream.wait_ingest"):
+        return [f.result() for f in futures]
+
+
+def _ingest(
+    genomes: Iterable[str | Path | IO[bytes]], batch_size: int, prefetch_batches: int, max_workers: int | None,
+    multi_device: bool, pre_seed: PreSeed | None, upload_to: torch.device | None,
+) -> Iterator[tuple[contextvars.Context, list[Ingested]]]:
+    r""":func:`stream_batches`, each batch with the context that carries its request id."""
     if prefetch_batches < 0:
         raise ValueError(f"prefetch_batches must be >= 0, got {prefetch_batches}")
     if multi_device:
@@ -91,17 +116,19 @@ def stream_batches(
     if max_workers is None:
         max_workers = max(2, min(16, os.cpu_count() or 8))
     with ThreadPoolExecutor(max_workers=max_workers) as pool:
-        pending = [
-            [pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[gi]]
-            for gi in range(min(prefetch_batches + 1, len(groups)))
-        ]
+
+        def submit(group: list) -> tuple[contextvars.Context, list]:
+            ctx = request_context()
+            return ctx, [pool.submit(_load_and_index, g, pre_seed, upload_to, ctx.copy()) for g in group]
+
+        pending = [submit(groups[gi]) for gi in range(min(prefetch_batches + 1, len(groups)))]
         next_submit = len(pending)
         for _ in range(len(groups)):
-            futures = pending.pop(0)
+            ctx, futures = pending.pop(0)
             if next_submit < len(groups):
-                pending.append([pool.submit(_load_and_index, g, pre_seed, upload_to) for g in groups[next_submit]])
+                pending.append(submit(groups[next_submit]))
                 next_submit += 1
-            yield [f.result() for f in futures]
+            yield ctx, ctx.copy().run(_wait_ingest, futures)
 
 
 def auto_batch_size(per_device: int = 16) -> int:
@@ -127,7 +154,7 @@ def stream_type(
     ``prefetch_batches`` and ``max_workers`` are :func:`stream_batches`'s.
     """
     if sharded(getattr(serotyper, "mesh", None)):
-        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, multi_device=True)
+        batches = _ingest(genomes, batch_size, prefetch_batches, max_workers, True, None, None)
     elif resolve_seed_mode() == "host":
         gene_index = serotyper.gene_index
         mp = serotyper.mapper_params
@@ -137,17 +164,24 @@ def stream_type(
         def pre_seed(ci: ContigIndex) -> tuple:
             return gene_index, mp, host_seed_chains(gene_index, ci, mp)
 
-        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, pre_seed=pre_seed)
+        batches = _ingest(genomes, batch_size, prefetch_batches, max_workers, False, pre_seed, None)
     else:
-        batches = stream_batches(genomes, batch_size, prefetch_batches, max_workers, upload_to=serotyper.device)
+        batches = _ingest(genomes, batch_size, prefetch_batches, max_workers, False, None, serotyper.device)
     with ThreadPoolExecutor(max_workers=1) as device_stage:
-        pending = None  # future over map_batch for the batch ahead
-        for batch in batches:
+        pending = None  # (context, future over map_batch) for the batch ahead
+        for ctx, batch in batches:
             assemblies = [ga for ga, _ in batch]
             indexes = [ci for _, ci in batch]
-            future = device_stage.submit(serotyper.map_batch, assemblies, indexes)
+            future = device_stage.submit(ctx.copy().run, serotyper.map_batch, assemblies, indexes)
             if pending is not None:
-                yield from serotyper.finish_batch(*pending.result())
-            pending = future
+                yield from pending[0].copy().run(_finish, serotyper, pending[1])
+            pending = ctx, future
         if pending is not None:
-            yield from serotyper.finish_batch(*pending.result())
+            yield from pending[0].copy().run(_finish, serotyper, pending[1])
+
+
+def _finish(serotyper, mapped) -> list:
+    r"""``finish_batch`` over the batch that ``mapped`` (a future over ``map_batch``) gives."""
+    with phase_timer("stream.wait_map"):
+        assemblies, alns_list = mapped.result()
+    return serotyper.finish_batch(assemblies, alns_list)

@@ -177,7 +177,7 @@ class Type(Command):
             "--profile", action="store_true",
             help="Print per-phase wall-time totals and the pipeline's counters (kernel "
             "launches, fallbacks) to stderr after the run (set KAPTIVE_TRACE_DIR to also "
-            "write a torch.profiler Chrome trace there)",
+            "write a torch.profiler Chrome trace there, the phases' spans on its timeline)",
         )
         opts.add_argument(
             "--screen-only", action="store_true",

@@ -43,7 +43,7 @@ from kaptive_tpu_torch.serotyping.analysis import (
 )
 from kaptive_tpu_torch.serotyping.models import GeneHits, GeneState, LocusPieces, SerotypingResult
 from kaptive_tpu_torch.utils.device import device_count, resolve_device, sharded
-from kaptive_tpu_torch.utils.profiling import phase_timer
+from kaptive_tpu_torch.utils.profiling import phase_timer, request
 
 
 def _byte_vocab(strings, pad: int = 0) -> np.ndarray:
@@ -148,8 +148,9 @@ class Serotyper:
 
     def batch(self, genomes: list[GenomeAssembly | str | Path]) -> list[SerotypingResult | None]:
         r"""Type a batch of assemblies: one extension sweep and one protein sweep."""
-        assemblies, alns_list = self.map_batch(genomes)
-        return self.finish_batch(assemblies, alns_list)
+        with request(), phase_timer("type.request"):
+            assemblies, alns_list = self.map_batch(genomes)
+            return self.finish_batch(assemblies, alns_list)
 
     def map_batch(self, genomes: list, indexes: list[ContigIndex] | None = None):
         r"""Mapping stage only: (assemblies, per-assembly Alignments).
@@ -161,26 +162,30 @@ class Serotyper:
         """
         if len(genomes) == 0:
             return [], []
-        with phase_timer("type.ingest"):
-            assemblies = [GenomeAssembly.ensure(g) for g in genomes]
-            if indexes is None:
-                indexes = [ContigIndex.build(a.contigs) for a in assemblies]
-        with phase_timer("type.map"):
-            alns_list = map_genes_batch(
-                self._gene_index, assemblies, self._gene_names, self.mapper_params,
-                indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device, mesh=self.mesh,
-            )
+        with request():
+            with phase_timer("type.ingest"):
+                assemblies = [GenomeAssembly.ensure(g) for g in genomes]
+                if indexes is None:
+                    indexes = [ContigIndex.build(a.contigs) for a in assemblies]
+            with phase_timer("type.map"):
+                alns_list = map_genes_batch(
+                    self._gene_index, assemblies, self._gene_names, self.mapper_params,
+                    indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device, mesh=self.mesh,
+                )
         return assemblies, alns_list
 
     def finish_batch(
         self, assemblies: list, alns_list: list
     ) -> list[SerotypingResult | None]:
         r"""Decision stages over pre-computed mapper hits (see :meth:`map_batch`)."""
+        if len(assemblies) == 0:
+            return []
+        with request():
+            return self._finish_batch(assemblies, alns_list)
+
+    def _finish_batch(self, assemblies: list, alns_list: list) -> list[SerotypingResult]:
         db = self._db
         n_asm = len(assemblies)
-        if n_asm == 0:
-            return []
-
         with phase_timer("type.decide"):
             table = HitTable.from_alignments(alns_list)
             pick = pick_best_loci(db, table, n_asm, self.min_gene_coverage)
@@ -221,15 +226,16 @@ class Serotyper:
 
         # Gene states before identity: contig-edge partials, then truncation
         # below 90% translated coverage.
-        partial = edge_partial_mask(hits, self.partial_edge_tolerance)
-        ref_nt_len = db.genes.lengths[hits.gene]
-        prot_covs = (prot_seqs.lengths * 3.0) / ref_nt_len
-        states = np.where(
-            partial,
-            GeneState.PARTIAL.value,
-            np.where(prot_covs < 0.90, GeneState.TRUNCATED.value, GeneState.NORMAL.value),
-        ).astype(np.int8)
-        coverages = np.clip(prot_covs * 100.0, 0.0, 100.0).astype(np.float32)
+        with phase_timer("type.states"):
+            partial = edge_partial_mask(hits, self.partial_edge_tolerance)
+            ref_nt_len = db.genes.lengths[hits.gene]
+            prot_covs = (prot_seqs.lengths * 3.0) / ref_nt_len
+            states = np.where(
+                partial,
+                GeneState.PARTIAL.value,
+                np.where(prot_covs < 0.90, GeneState.TRUNCATED.value, GeneState.NORMAL.value),
+            ).astype(np.int8)
+            coverages = np.clip(prot_covs * 100.0, 0.0, 100.0).astype(np.float32)
 
         # Protein identity DP: every hit of every assembly, one sweep.
         with phase_timer("type.protein_dp"):

@@ -18,6 +18,7 @@ from typing import Self
 import numpy as np
 
 from kaptive_tpu_torch.serotyping.models import GeneState, SerotypingProblem, SerotypingResult
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 # Gene-state annotations appended to per-gene detail entries; NORMAL is untagged.
 _STATE_TAGS = {
@@ -97,8 +98,9 @@ class ReportRow:
         return f"{type(self).__name__}({self._cells!r})"
 
     def __bytes__(self) -> bytes:
-        row = self._cells
-        return b"\t".join(row[name] for name in self.COLUMNS) + b"\n"
+        with phase_timer("report.row"):
+            row = self._cells
+            return b"\t".join(row[name] for name in self.COLUMNS) + b"\n"
 
     # Header label <-> column name transform hooks (identity by default).
 
@@ -173,44 +175,45 @@ class KaptiveRow(ReportRow):
 
     @classmethod
     def from_result(cls, result: SerotypingResult) -> "KaptiveRow":
-        hits = result.gene_hits
-        category = {  # hit partition: (inside?, expected/other/extra)
-            ("in", "exp"): hits.is_inside & hits.is_expected,
-            ("out", "exp"): ~hits.is_inside & hits.is_expected,
-            ("in", "other"): hits.is_inside & ~hits.is_expected & ~hits.is_extra,
-            ("out", "other"): ~hits.is_inside & ~hits.is_expected & ~hits.is_extra,
-        }
-        distinct = {
-            key: len(np.unique(hits.gene_indices[mask])) for key, mask in category.items()
-        }
-        roster_size = distinct["in", "exp"] + distinct["out", "exp"] + len(
-            result.missing_expected_genes
-        )
-        broken = np.isin(
-            result.gene_states, (GeneState.TRUNCATED.value, GeneState.PARTIAL.value)
-        )
-        cells = {column: getattr(result, attr).encode("utf-8") for column, attr in cls._VERBATIM}
-        cells.update(
-            Match_confidence=_confidence_cell(result),
-            Problems=result.problems.to_symbols(),
-            Identity=b"%.2f%%" % result.percent_identity,
-            Coverage=b"%.2f%%" % result.percent_coverage,
-            Length_discrepancy=_discrepancy_cell(result.length_discrepancy),
-            Expected_genes_in_locus=_tally_cell(distinct["in", "exp"], roster_size),
-            Expected_genes_in_locus_details=_detail_cell(result, category["in", "exp"]),
-            Missing_expected_genes=b";".join(
-                name.encode("utf-8") for name in result.missing_expected_genes
-            ),
-            Other_genes_in_locus=b"%d" % distinct["in", "other"],
-            Other_genes_in_locus_details=_detail_cell(result, category["in", "other"]),
-            Expected_genes_outside_locus=_tally_cell(distinct["out", "exp"], roster_size),
-            Expected_genes_outside_locus_details=_detail_cell(result, category["out", "exp"]),
-            Other_genes_outside_locus=b"%d" % distinct["out", "other"],
-            Other_genes_outside_locus_details=_detail_cell(result, category["out", "other"]),
-            Truncated_genes_details=_detail_cell(result, broken),
-            Extra_genes_details=_detail_cell(result, hits.is_extra),
-        )
-        return cls(**cells)
+        with phase_timer("report.row"):
+            hits = result.gene_hits
+            category = {  # hit partition: (inside?, expected/other/extra)
+                ("in", "exp"): hits.is_inside & hits.is_expected,
+                ("out", "exp"): ~hits.is_inside & hits.is_expected,
+                ("in", "other"): hits.is_inside & ~hits.is_expected & ~hits.is_extra,
+                ("out", "other"): ~hits.is_inside & ~hits.is_expected & ~hits.is_extra,
+            }
+            distinct = {
+                key: len(np.unique(hits.gene_indices[mask])) for key, mask in category.items()
+            }
+            roster_size = distinct["in", "exp"] + distinct["out", "exp"] + len(
+                result.missing_expected_genes
+            )
+            broken = np.isin(
+                result.gene_states, (GeneState.TRUNCATED.value, GeneState.PARTIAL.value)
+            )
+            cells = {column: getattr(result, attr).encode("utf-8") for column, attr in cls._VERBATIM}
+            cells.update(
+                Match_confidence=_confidence_cell(result),
+                Problems=result.problems.to_symbols(),
+                Identity=b"%.2f%%" % result.percent_identity,
+                Coverage=b"%.2f%%" % result.percent_coverage,
+                Length_discrepancy=_discrepancy_cell(result.length_discrepancy),
+                Expected_genes_in_locus=_tally_cell(distinct["in", "exp"], roster_size),
+                Expected_genes_in_locus_details=_detail_cell(result, category["in", "exp"]),
+                Missing_expected_genes=b";".join(
+                    name.encode("utf-8") for name in result.missing_expected_genes
+                ),
+                Other_genes_in_locus=b"%d" % distinct["in", "other"],
+                Other_genes_in_locus_details=_detail_cell(result, category["in", "other"]),
+                Expected_genes_outside_locus=_tally_cell(distinct["out", "exp"], roster_size),
+                Expected_genes_outside_locus_details=_detail_cell(result, category["out", "exp"]),
+                Other_genes_outside_locus=b"%d" % distinct["out", "other"],
+                Other_genes_outside_locus_details=_detail_cell(result, category["out", "other"]),
+                Truncated_genes_details=_detail_cell(result, broken),
+                Extra_genes_details=_detail_cell(result, hits.is_extra),
+            )
+            return cls(**cells)
 
 
 class Pha4geRow(ReportRow):

@@ -114,6 +114,19 @@ EXCEPTIONS = {
         "ops/swg_cuda.py::as_kernel_matrix",
         f"{DEVICE_PROGRAM} (the Pallas kernel's compressed VMEM score table)",
     ),
+    # The set of compiled DP shapes: eager PyTorch compiles no program per shape.
+    "utils/metrics.py:record_shape": (
+        "none: the work a sweep launches is counted per span (dp.cells_launched, utils/profiling.py)",
+        f"{NOT_TO_PORT}: the compiled-shape set",
+    ),
+    "utils/metrics.py:shapes": (
+        "none: the port compiles no program per shape",
+        f"{NOT_TO_PORT}: the compiled-shape set",
+    ),
+    "utils/metrics.py:reset_metrics": (
+        "reset_metrics(): every counter cleared; there is no compiled-shape set to keep",
+        f"{NOT_TO_PORT}: the compiled-shape set",
+    ),
 }
 
 
