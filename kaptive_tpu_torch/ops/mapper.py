@@ -9,7 +9,9 @@ or the explicit ``seed_mode=``), give the same rows:
   the same anchors and is what the tests hold it to); :func:`chain_anchors` chains them on
   the host; every chain of the batch becomes one banded SWG problem (gene vs
   projected contig window; match 2, mismatch -4, gap 4+2) in one bucketed
-  sweep through :func:`kaptive_tpu_torch.core.pairwise.batched_swg_align`.
+  sweep, its scalar specs built on the host and its query and target
+  matrices gathered on the device from the resident gene codes and the
+  batch's uploaded 2-bit streams (:func:`_extend_on_device`).
 - **Device-seeded**: each assembly's 2-bit stream is uploaded (sparse form:
   the real prefix plus the positions of invalid bases), unpacked on the
   device, scanned by the row-compact minimizer scan
@@ -570,13 +572,15 @@ def _alignments_from_extension(
 
 def _map_genes_host_seeded(
     gene_index: GeneIndex, genomes: list, indexes: list,
-    gene_names: tuple[str, ...], params: MapperParams, device: torch.device | str,
+    gene_names: tuple[str, ...], params: MapperParams, device: torch.device,
 ) -> list[Alignments]:
     r"""Host seeding and chaining, then ONE extension-DP sweep over the whole batch.
 
     Chains pre-seeded by the ingest pool (``ci._cache["host_chains"]``) are
     consumed only when they were seeded against this ``gene_index`` with
-    these ``params``; otherwise the assembly is seeded here.
+    these ``params``; otherwise the assembly is seeded here.  The batch's
+    streams are then uploaded in their 2-bit form and the extension problems
+    gathered on the device (:func:`_extend_on_device`), as in device mode.
     """
     all_chains: list[dict | None] = []
     for ci in indexes:
@@ -590,7 +594,36 @@ def _map_genes_host_seeded(
         if chains is None:
             chains = host_seed_chains(gene_index, ci, params)
         all_chains.append(chains if chains and len(chains["gene"]) else None)
-    return _extend_on_host(all_chains, gene_index, genomes, indexes, gene_names, params, device)
+    L = max(int(ci.codes.shape[0]) for ci in indexes)
+    with phase_timer("map.pack_upload"):
+        padded, _ = _batch_codes(indexes, L, device)
+    return _extend_on_device(
+        all_chains, gene_index, genomes, indexes, gene_names, params, padded.reshape(-1), L + 2 * PAD_POS
+    )
+
+
+def _batch_alignments(
+    all_chains: list, parts: list, res, cigars_all, gene_index: GeneIndex, genomes: list, indexes: list,
+    gene_names: tuple[str, ...], params: MapperParams,
+) -> list[Alignments]:
+    r"""The batch's alignments from one sweep's results: genome ``b``'s pairs are the
+    ``len(parts[b]["glen"])`` that follow the genomes before it (none where ``parts[b]``
+    is None); ``parts`` are its problems or specs, which carry ``t_lo`` and ``glen``."""
+    bounds = np.cumsum([0] + [len(p["glen"]) if p is not None else 0 for p in parts])
+    results: list[Alignments] = []
+    for b, part in enumerate(parts):
+        if part is None:
+            results.append(Alignments.empty())
+            continue
+        sl = slice(bounds[b], bounds[b + 1])
+        results.append(
+            _alignments_from_extension(
+                all_chains[b], res[sl], part["t_lo"], part["glen"],
+                gene_index, genomes[b], indexes[b], gene_names, params,
+                cigars=cigars_all[sl] if cigars_all is not None else None,
+            )
+        )
+    return results
 
 
 def _extend_on_host(
@@ -599,7 +632,8 @@ def _extend_on_host(
 ) -> list[Alignments]:
     r"""Each genome's chains (or None) to extension problems built on the host,
     ONE extension-DP sweep over the whole batch (its pair axis cut over the
-    ``mesh`` when one is given), and the batch's alignments."""
+    ``mesh`` when one is given), and the batch's alignments: the mesh path's
+    tail, which :func:`launch_extension_dp_device` cannot shard."""
     n_genomes = len(genomes)
     with phase_timer("map.problems") as span:
         all_problems = [
@@ -619,29 +653,50 @@ def _extend_on_host(
         )
         merged["q_offsets"] = cumulative_offsets(merged["q_lengths"])
         merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
+        n_chains = len(merged["q_lengths"])
+        count("map.problems.host", n_chains)
         if span:
-            span.add("map.chains", len(merged["q_lengths"]))
+            span.add("map.chains", n_chains)
     with phase_timer("map.extension_dp"):
         res, cigars_all = _run_extension_dp(
             merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars, mesh=mesh,
         )
     with phase_timer("map.results"):
-        counts = [len(p["q_lengths"]) if p is not None else 0 for p in all_problems]
-        bounds = np.cumsum([0] + counts)
-        results: list[Alignments] = []
-        for b in range(n_genomes):
-            if all_problems[b] is None:
-                results.append(Alignments.empty())
-                continue
-            sl = slice(bounds[b], bounds[b + 1])
-            results.append(
-                _alignments_from_extension(
-                    all_chains[b], res[sl], all_problems[b]["t_lo"], all_problems[b]["glen"],
-                    gene_index, genomes[b], indexes[b], gene_names, params,
-                    cigars=cigars_all[sl] if cigars_all is not None else None,
-                )
-            )
-    return results
+        return _batch_alignments(all_chains, all_problems, res, cigars_all, gene_index, genomes, indexes,
+                                 gene_names, params)
+
+
+def _extend_on_device(
+    all_chains: list, gene_index: GeneIndex, genomes: list, indexes: list,
+    gene_names: tuple[str, ...], params: MapperParams, flat_codes: torch.Tensor, lp: int,
+) -> list[Alignments]:
+    r"""Each genome's chains (or None) to scalar extension specs on the host, ONE
+    extension-DP sweep over the whole batch with each bucket's matrices gathered
+    on the device, and the batch's alignments.
+
+    ``flat_codes`` is the batch's :func:`_batch_codes` stream flattened, genome
+    ``b`` at ``b * lp``; the gene codes are the resident :meth:`GeneIndex.device_codes`.
+    """
+    with phase_timer("map.problems") as span:
+        all_specs = [
+            build_extension_specs(ch, gene_index, ci, params, flat_base=b * lp) if ch is not None else None
+            for b, (ch, ci) in enumerate(zip(all_chains, indexes))
+        ]
+        live = [s for s in all_specs if s is not None]
+        if not live:
+            return [Alignments.empty() for _ in genomes]
+        merged = {key: np.concatenate([s[key] for s in live]) for key in live[0] if key != "t_lo"}
+        n_chains = len(merged["glen"])
+        count("map.problems.device", n_chains)
+        if span:
+            span.add("map.chains", n_chains)
+    with phase_timer("map.extension_dp"):
+        res, cigars_all = collect_extension_dp_device(
+            launch_extension_dp_device(merged, gene_index, flat_codes, params)
+        )
+    with phase_timer("map.results"):
+        return _batch_alignments(all_chains, all_specs, res, cigars_all, gene_index, genomes, indexes,
+                                 gene_names, params)
 
 
 # --- device-seeded mode ---------------------------------------------------
@@ -1215,7 +1270,6 @@ def _map_genes_device_seeded(
             chains_d, counts_d = seed_chunk(padded[lo:hi], starts, shards, gene_index, params)
             chain_parts.append(chains_d)
             count_parts.append(counts_d)
-    flat_codes = padded.reshape(-1)
     chains_d, counts_d = torch.cat(chain_parts), torch.cat(count_parts, 1)
     with phase_timer("map.scan_sync"):
         prefix = min(CHAIN_PREFIX, CHAIN_CAP)
@@ -1227,44 +1281,14 @@ def _map_genes_device_seeded(
             count("map.chain_prefix_miss")
             chains_np = chains_d.cpu().numpy()
 
-    lp = L + 2 * PAD_POS  # one genome's length in the flattened padded stream
-    all_chains: list[dict | None] = []
-    all_specs: list[dict | None] = []
-    with phase_timer("map.problems") as span:
+    with phase_timer("map.problems"):
+        all_chains = []
         for b, ci in enumerate(indexes):
             chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)
-            if not chains or len(chains["gene"]) == 0:
-                all_chains.append(None)
-                all_specs.append(None)
-                continue
-            all_chains.append(chains)
-            all_specs.append(build_extension_specs(chains, gene_index, ci, params, flat_base=b * lp))
-        live = [s for s in all_specs if s is not None]
-        if not live:
-            return [Alignments.empty() for _ in range(n_genomes)]
-        merged = {key: np.concatenate([s[key] for s in live]) for key in live[0] if key != "t_lo"}
-        if span:
-            span.add("map.chains", len(merged["glen"]))
-    with phase_timer("map.extension_dp"):
-        res, cigars_all = collect_extension_dp_device(
-            launch_extension_dp_device(merged, gene_index, flat_codes, params)
-        )
-    with phase_timer("map.results"):
-        bounds = np.cumsum([0] + [len(s["glen"]) if s is not None else 0 for s in all_specs])
-        results: list[Alignments] = []
-        for b in range(n_genomes):
-            if all_specs[b] is None:
-                results.append(Alignments.empty())
-                continue
-            sl = slice(bounds[b], bounds[b + 1])
-            results.append(
-                _alignments_from_extension(
-                    all_chains[b], res[sl], all_specs[b]["t_lo"], all_specs[b]["glen"],
-                    gene_index, genomes[b], indexes[b], gene_names, params,
-                    cigars=cigars_all[sl] if cigars_all is not None else None,
-                )
-            )
-    return results
+            all_chains.append(chains if chains and len(chains["gene"]) else None)
+    return _extend_on_device(
+        all_chains, gene_index, genomes, indexes, gene_names, params, padded.reshape(-1), L + 2 * PAD_POS
+    )
 
 
 def _map_genes_sharded(
@@ -1327,7 +1351,7 @@ def map_genes_batch(
         return _map_genes_sharded(gene_index, genomes, indexes, gene_names, params, mesh, resolve_device(device))
     if mode == "device":
         return _map_genes_device_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
-    return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, device)
+    return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
 
 
 def map_genes(

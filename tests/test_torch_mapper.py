@@ -324,3 +324,156 @@ def test_pairwise_aligner_equals_jax(seeded):
             jax_queries, jax_targets, seeds
         )
         assert_same(got, want)
+
+
+def _contig_fasta(seqs: list[bytes]) -> bytes:
+    return b"".join(b">c%d\n%s\n" % (i + 1, s) for i, s in enumerate(seqs))
+
+
+def _extension_genomes(panel, case: str) -> list:
+    r"""The assemblies of an extension case: plus- and minus-strand chains, a draft
+    of many contigs, windows clipped at a contig's ends, Ns past the sparse
+    upload's capacity beside a sparse stream, and the whole panel as one batch."""
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.ops.mapper import MapperParams, host_seed_chains
+    from kaptive_tpu_torch.ops.minimizer import EXC_CAP, ContigIndex
+
+    clean, _, revcomp, split, n_heavy = panel.assemblies
+    seq = clean.contigs.seqs.tobytes()
+
+    def genome(name: str, contigs: list[bytes]):
+        return GenomeAssembly.from_stream(io.BytesIO(_contig_fasta(contigs)), name)
+
+    if case == "strands":
+        return [clean, revcomp]
+    if case == "draft":
+        cuts = np.linspace(0, len(seq), 9).astype(int)
+        return [genome("draft", [seq[a:b] for a, b in zip(cuts, cuts[1:])]), split]
+    if case == "clipped":
+        chains = host_seed_chains(panel.db.gene_index, ContigIndex.build(clean.contigs), MapperParams())
+        lo, hi = int(chains["t_min"].min()) + 5, int(chains["t_max"].max()) - 5
+        return [genome("clipped", [seq[lo:hi]]), split]
+    if case == "n_dense":
+        return [genome("n_dense", [seq[:2000] + b"N" * (EXC_CAP + 100) + seq[2000:]]), n_heavy]
+    return list(panel.assemblies)
+
+
+EXTENSION_CASES = ["strands", "draft", "clipped", "n_dense", "panel_batch"]
+
+
+def _both_sweeps(panel, genomes, params, monkeypatch):
+    r"""Host mode's merged specs and flattened stream as the extension sweep gets them,
+    and the merged host-built problems of the same chains: ``(specs, flat, problems,
+    device-built alignments, host-built alignments)``."""
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+
+    gi, names = panel.db.gene_index, panel.gene_names
+    seen: dict = {}
+    launch, run_host = tm.launch_extension_dp_device, tm._run_extension_dp
+
+    def launch_seen(specs, gene_index, flat_codes, p):
+        seen["specs"], seen["flat"] = specs, flat_codes
+        return launch(specs, gene_index, flat_codes, p)
+
+    def run_host_seen(problems, **kw):
+        seen["problems"] = problems
+        return run_host(problems, **kw)
+
+    monkeypatch.setattr(tm, "launch_extension_dp_device", launch_seen)
+    monkeypatch.setattr(tm, "_run_extension_dp", run_host_seen)
+    got = tm.map_genes_batch(gi, genomes, names, params, seed_mode="host", device="cpu")
+    indexes = [ContigIndex.build(ga.contigs) for ga in genomes]
+    chains = [tm.host_seed_chains(gi, ci, params) for ci in indexes]
+    chains = [ch if ch and len(ch["gene"]) else None for ch in chains]
+    want = tm._extend_on_host(chains, gi, genomes, indexes, names, params, torch.device("cpu"))
+    return seen["specs"], seen["flat"], seen["problems"], got, want
+
+
+@pytest.mark.parametrize("case", EXTENSION_CASES)
+def test_device_gathered_problems_equal_host_built(panel, monkeypatch, case):
+    """Every bucket's (query, target) matrices and scalars gathered on the device from
+    the specs and the uploaded streams equal those gathered from the host-built problems."""
+    from kaptive_tpu_torch.core.pairwise import _ragged_gather
+    from kaptive_tpu_torch.ops.mapper import MapperParams, _ext_gather_bucket
+    from kaptive_tpu_torch.ops.scan import PAD_POS
+    from kaptive_tpu_torch.ops.swg import plan_swg_buckets
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    genomes = _extension_genomes(panel, case)
+    reset_metrics()
+    specs, flat, problems, _, _ = _both_sweeps(panel, genomes, MapperParams(), monkeypatch)
+    counts = snapshot()
+    gi = panel.db.gene_index
+    if case == "strands":
+        assert (specs["strand"] > 0).any() and (specs["strand"] < 0).any()
+    if case == "draft":
+        assert len(genomes[0].contigs.lengths) == 8
+    if case == "clipped":
+        # The clipped genome is first: one contig at flat position PAD_POS.
+        first = specs["t_flat"] < flat.shape[0] // len(genomes)
+        t_lo, clen = specs["t_flat"][first] - PAD_POS, int(genomes[0].contigs.lengths[0])
+        assert (t_lo == 0).any() and (t_lo + specs["t_len"][first] == clen).any()
+    assert counts.get("map.dense_upload", 0) == (case == "n_dense")
+    for key, host_key in (("glen", "q_lengths"), ("t_len", "t_lengths"), ("offsets", "offsets"),
+                          ("k_locals", "k_locals")):
+        np.testing.assert_array_equal(specs[key], problems[host_key], err_msg=key)
+
+    joint = np.maximum(np.maximum(specs["glen"], specs["t_len"]), 1)
+    plan = plan_swg_buckets(joint, 2 * specs["k_locals"] + 3, None)
+    gene_codes = gi.device_codes("cpu")
+    q_data, t_data = torch.from_numpy(problems["q_codes"]), torch.from_numpy(problems["t_codes"])
+    assert len(plan) > 0
+    for sel, rows_max, w_pad, _ in plan:
+        t_pad = w_pad + 2
+        shape = dict(rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad)
+
+        def col(a):
+            return torch.from_numpy(np.asarray(a)[sel].astype(np.int64))
+
+        q_dev, t_dev = _ext_gather_bucket(
+            gene_codes, flat, col(specs["q_start"]), col(specs["glen"]), col(specs["strand"]),
+            col(specs["t_flat"]), col(specs["t_len"]), **shape,
+        )
+        q_host, t_host = _ragged_gather(
+            q_data, t_data, col(problems["q_offsets"]), col(problems["q_lengths"]),
+            col(problems["t_offsets"]), col(problems["t_lengths"]), **shape,
+        )
+        assert torch.equal(q_dev, q_host) and torch.equal(t_dev, t_host)
+
+
+@pytest.mark.parametrize("emit_cigars", [False, True])
+@pytest.mark.parametrize("case", EXTENSION_CASES)
+def test_host_mode_alignments_equal_host_built_problems(panel, monkeypatch, case, emit_cigars):
+    """Host mode's alignments (problems gathered on the device) equal, field for field,
+    those of the same chains' problems built on the host (the mesh path's tail on one device)."""
+    from kaptive_tpu_torch.ops.mapper import MapperParams
+
+    genomes = _extension_genomes(panel, case)
+    _, _, _, got, want = _both_sweeps(panel, genomes, MapperParams(emit_cigars=emit_cigars), monkeypatch)
+    assert sum(len(w) for w in want) > 0
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+def test_extension_problems_are_built_where_the_mesh_says(panel, monkeypatch, slots):
+    """One device: every chain's problem is built on the device; a mesh of more than one
+    slot builds them on the host, to cut the DP pairs over its slots."""
+    from kaptive_tpu_torch.ops.mapper import map_genes_batch
+    from kaptive_tpu_torch.parallel import make_mesh
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+    from kaptive_tpu_torch.utils.profiling import reset_phases
+
+    monkeypatch.setenv("KAPTIVE_PROFILE", "1")
+    reset_phases()
+    reset_metrics()
+    mesh = make_mesh(devices=[torch.device("cpu")] * slots) if slots > 1 else None
+    got = map_genes_batch(panel.db.gene_index, panel.assemblies, panel.gene_names,
+                          seed_mode="host", device="cpu", mesh=mesh)
+    counts = snapshot()
+    reset_phases()
+    assert all(len(g) > 0 for g in got)
+    built, other = ("map.problems.device", "map.problems.host") if slots == 1 else \
+        ("map.problems.host", "map.problems.device")
+    assert counts[built] == counts["map.chains"] > 0
+    assert other not in counts

@@ -222,17 +222,18 @@ def test_work_counters_match_the_problems_of_a_typing_run(enabled, port_panel, m
     db, paths = port_panel
     serotyper = Serotyper(db, device="cpu")
     problems, cells = [], []
-    run_ext, align = mapper._run_extension_dp, pairwise.batched_swg_align
+    launch_ext, align = mapper.launch_extension_dp_device, pairwise.batched_swg_align
 
-    def run_ext_seen(merged, **kw):
-        problems.append(len(merged["q_lengths"]))
-        return run_ext(merged, **kw)
+    def launch_ext_seen(specs, *a, **kw):
+        problems.append(len(specs["glen"]))
+        cells.append(sum(int(q) * (2 * int(k) + 3) for q, k in zip(specs["glen"], specs["k_locals"])))
+        return launch_ext(specs, *a, **kw)
 
     def align_seen(q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals, *a, **kw):
         cells.append(sum(int(q) * (2 * int(k) + 3) for q, k in zip(q_lengths, k_locals)))
         return align(q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals, *a, **kw)
 
-    monkeypatch.setattr(mapper, "_run_extension_dp", run_ext_seen)
+    monkeypatch.setattr(mapper, "launch_extension_dp_device", launch_ext_seen)
     monkeypatch.setattr(pairwise, "batched_swg_align", align_seen)
     reset_phases()
     reset_metrics()
@@ -252,7 +253,7 @@ def test_work_counters_match_the_problems_of_a_typing_run(enabled, port_panel, m
     assert {s.name for s in spans if "dp.cells_live" in (s.counts or {})} == {"dp.launch"}
     [req] = [s for s in spans if s.name == "type.request"]
     assert all(s.request == req.request for s in spans)
-    assert {"map.seed", "map.chain", "map.problems", "map.extension_dp", "map.results",
+    assert {"map.seed", "map.chain", "map.pack_upload", "map.problems", "map.extension_dp", "map.results",
             "dp.launch", "dp.collect", "type.states"} <= {s.name for s in spans}
     assert np.all([s.parent is not None for s in spans if s is not req])
 
