@@ -113,11 +113,12 @@ class Run:
 
 
 class _Observer:
-    r"""Every row of the window: the call, the row's stability, a kept sample."""
+    r"""Every row of the window: the call (locus and phenotype), the row's stability, a kept sample."""
 
-    def __init__(self, pool, sample: set[int]) -> None:
+    def __init__(self, pool, sample: set[int], phenotypes: list[str]) -> None:
         self.pool = pool
         self.sample = sample
+        self.phenotypes = phenotypes  # each pool entry's, worked out by the reference from what was planted
         self.kept: dict[int, tuple] = {}
         self.rows: dict[int, bytes] = {}
         self.counts = dict.fromkeys(CHECKS, 0)
@@ -130,10 +131,11 @@ class _Observer:
         if result is None or row is None:
             self.counts["failed"] += 1
             return
-        if result.best_locus_name != asm.locus.name:
+        if result.best_locus_name != asm.locus.name or result.phenotype != self.phenotypes[idx]:
             self.counts["wrong_calls"] += 1
             if len(self.notes) < 10:
-                self.notes.append(f"{asm.name}: called {result.best_locus_name}, planted {asm.locus.name}")
+                self.notes.append(f"{asm.name}: called {result.best_locus_name} {result.phenotype!r}, "
+                                  f"planted {asm.locus.name} {self.phenotypes[idx]!r}")
         first = self.rows.setdefault(idx, row)
         if first != row:
             self.counts["unstable_rows"] += 1
@@ -275,15 +277,24 @@ def _steal_s() -> float:
         return 0.0
 
 
-def _sample(pool, traffic, rng) -> set[int]:
+def _sample(pool, traffic, rng, phenotypes: list[str]) -> set[int]:
     r"""The pool entries the reference checks: the longest locus, the most
-    contigs, then others drawn from the seed up to ``check_sample``."""
+    contigs, then others drawn from the seed up to ``check_sample``.  Where
+    the mix plants extra genes or knockouts, the first entry of each
+    phenotype in the drawn order comes before the others."""
     n = min(traffic["check_sample"], len(pool))
     picked = [
         max(range(len(pool)), key=lambda i: len(pool[i].locus.seq)),
         max(range(len(pool)), key=lambda i: len(pool[i].contig_starts)),
     ]
-    for i in rng.permutation(len(pool)):
+    order = rng.permutation(len(pool))
+    if any("extra_sets" in c or "knockout" in c for c in traffic["classes"]):
+        seen = {phenotypes[i] for i in picked}
+        for i in order:
+            if phenotypes[i] not in seen and len(set(picked)) < n:
+                seen.add(phenotypes[i])
+                picked.append(int(i))
+    for i in order:
         if len(set(picked)) >= n:
             break
         picked.append(int(i))
@@ -329,12 +340,15 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
         gbk.with_suffix(".toml").write_text(synthetic.toml)
         db = Database.from_genbank(gbk)
     pool = gen.make_pool(traffic, synthetic, cfg["genome_nt"], rng_pool)
-    sample = _sample(pool, traffic, rng_sample)
+    from reference.phenotype import expected_phenotypes
+
+    phenotypes = expected_phenotypes(pool, synthetic, cfg)
+    sample = _sample(pool, traffic, rng_sample, phenotypes)
 
     serotyper = Serotyper(db, device=device)
     serotyper.warmup(genome_length=cfg["genome_nt"], batch_size=traffic.get("batch_size", 1))
     run = Run(seconds=seconds, setup_s=0.0)
-    observer = _Observer(pool, sample)
+    observer = _Observer(pool, sample, phenotypes)
     stretch = _Stretch(run, trace, device)
     stages = _Stages(serotyper, run.spans if trace else None)
     stretch.warm()
@@ -362,7 +376,8 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool, 
     checked = [(asm, result, row, header) for asm, result, row in (observer.kept[i] for i in sorted(observer.kept))]
     genes = gen.gene_table(synthetic)
     t_judge = clock()
-    verdict = judge(checked, genes, float(cfg["id_threshold"]), device, rng_sample)
+    verdict = judge(checked, genes, float(cfg["id_threshold"]), device, rng_sample,
+                    phenotypes={asm.name: phenotypes[i] for i, asm in enumerate(pool)})
     t_judge = clock() - t_judge
     counts = dict(observer.counts)
     counts.update(verdict.counts)

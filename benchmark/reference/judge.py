@@ -1,10 +1,10 @@
 r"""The comparison that decides ``correct``.
 
-For every assembly the harness planted one locus, so it knows each of that
-locus's genes: the ORF, where it lies in which contig, on which strand, and
-where a contig break cuts it.  The program's result and report row are
-judged gene by gene against what this module works out again from those
-generated inputs alone:
+For every assembly the harness planted one locus, and where the mix says so
+extra genes in its flanks, so it knows each planted gene: the ORF, where it
+lies in which contig, on which strand, and where a contig break cuts it.
+The program's result and report row are judged gene by gene against what
+this module works out again from those generated inputs alone:
 
 - ``missing_genes``: a planted gene that lies whole in one contig and has no
   hit of its id on that contig and strand over it;
@@ -26,9 +26,11 @@ generated inputs alone:
   made by substitution alone, nearly always have); a hit whose best
   alignment has a gap is left undecided and counted apart;
 - ``row_faults``: a cell of the report row that disagrees: the assembly,
-  the locus, the type, a whole planted gene listed as missing, or its
-  ``gene,identity%,coverage%[,state]`` entry among the expected genes in
-  the locus, with the coverage and the state worked out here.
+  the locus, the type (the phenotype that ``reference.phenotype`` works out
+  from what was planted), a whole planted gene listed as missing, its
+  ``gene,identity%,coverage%[,state]`` entry among the expected genes in the
+  locus, or for an extra gene among the extra genes, with the coverage and
+  the state worked out here; and an extra gene listed that was not planted.
 
 Every hit of a planted gene is judged, and a sample drawn from the seed of
 the hits of other loci's genes (``OTHER_HITS`` an assembly), on their
@@ -81,6 +83,7 @@ class Verdict:
 class _Hit:
     name: str  # assembly
     gene: object  # gen.Gene
+    extra: bool  # a planted extra gene: its row entry is among the extra genes
     whole: bool  # a planted gene whole in one contig: its report row entry is judged
     planted: bool  # a planted gene's hit: its extent is judged
     h: int  # row of the result's gene hits
@@ -101,9 +104,8 @@ def _codes(seq: bytes) -> np.ndarray:
     return lut[np.frombuffer(seq, np.uint8)]
 
 
-def _pieces(asm, gene):
-    r"""``(contig, start, end, whole)`` of each part of ``gene`` that a contig holds."""
-    lo, hi = asm.locus_start + gene.start, asm.locus_start + gene.end
+def _pieces(asm, lo: int, hi: int):
+    r"""``(contig, start, end, whole)`` of each part of the gene planted at ``[lo, hi)`` that a contig holds."""
     out = []
     for c in range(len(asm.contig_starts) - 1):
         a, b = max(lo, int(asm.contig_starts[c])), min(hi, int(asm.contig_starts[c + 1]))
@@ -123,7 +125,7 @@ def _detail_entries(cell: bytes) -> dict[bytes, list[bytes]]:
 def _other_hits(asm, gh, ids, genes, rng) -> list[_Hit]:
     r"""Up to ``OTHER_HITS`` hits of ``asm``'s result whose gene is not of the planted locus,
     drawn by ``rng``."""
-    planted = {g.gene_id.encode() for g in asm.locus.genes}
+    planted = {g.gene_id.encode() for g, _, _ in asm.planted_genes()}
     rows = np.flatnonzero([gid not in planted for gid in ids])
     if len(rows) > OTHER_HITS:
         rows = np.sort(rng.choice(rows, OTHER_HITS, replace=False))
@@ -136,13 +138,15 @@ def _other_hits(asm, gh, ids, genes, rng) -> list[_Hit]:
         q = (int(gh.q_starts[h]), int(gh.q_ends[h]))
         # Oriented by the hit's strand: where the program found the copy, not where its locus lays it.
         oriented = replace(gene, strand=int(gh.strands[h]))
-        out.append(_Hit(asm.name, oriented, False, False, int(h), q, t, contig, _codes(gene.orf), t))
+        out.append(_Hit(asm.name, oriented, False, False, False, int(h), q, t, contig, _codes(gene.orf), t))
     return out
 
 
-def judge(checked, genes: dict, id_threshold: float, device, rng=None, control: bool = False) -> Verdict:
+def judge(checked, genes: dict, id_threshold: float, device, rng=None, control: bool = False,
+          phenotypes: dict[str, str] | None = None) -> Verdict:
     r"""Judge ``checked``, a list of ``(assembly, result, row_bytes, header)``; ``genes`` holds every
-    gene of the database by its id, and ``rng`` draws the sample of other loci's hits (none without).
+    gene of the database by its id, ``rng`` draws the sample of other loci's hits (none without),
+    and ``phenotypes`` gives each assembly's phenotype by its name (its locus's type without).
 
     With ``control`` the program's protein identities are replaced by the
     nucleotide identity of each hit (the protein DP left out), and only
@@ -158,15 +162,20 @@ def judge(checked, genes: dict, id_threshold: float, device, rng=None, control: 
             for key, want in (
                 (b"Assembly", asm.name.encode()),
                 (b"Best match locus", asm.locus.name.encode()),
-                (b"Best match type", asm.locus.serotype.encode()),
+                (b"Best match type", (phenotypes or {}).get(asm.name, asm.locus.serotype).encode()),
             ):
                 if cells.get(key) != want:
                     v.add("row_faults", f"{asm.name} {key.decode()} {cells.get(key)!r} != {want!r}")
             missing = set(filter(None, cells.get(b"Missing expected genes", b"").split(b";")))
-        for gene in asm.locus.genes:
+            extra_ids = {g.gene_id.encode() for g in asm.extras}
+            for gid in _detail_entries(cells.get(b"Extra genes, details", b"")):
+                if gid not in extra_ids:
+                    v.add("row_faults", f"{asm.name} extra gene {gid!r} listed, not planted")
+        for gene, lo, hi in asm.planted_genes():
             v.genes += 1
             orf = _codes(gene.orf)
-            for c, a, b, whole in _pieces(asm, gene):
+            extra = gene in asm.extras
+            for c, a, b, whole in _pieces(asm, lo, hi):
                 contig = asm.genome[asm.contig_starts[c] : asm.contig_starts[c + 1]]
                 rows = np.flatnonzero(
                     (ids == gene.gene_id.encode()) & (np.asarray(gh.t_indices) == c)
@@ -181,7 +190,7 @@ def judge(checked, genes: dict, id_threshold: float, device, rng=None, control: 
                     q = (int(gh.q_starts[h]), int(gh.q_ends[h]))
                     t = (int(gh.t_starts[h]), int(gh.t_ends[h]))
                     region = (max(0, min(a - PAD, t[0])), min(len(contig), max(b + PAD, t[1])))
-                    hits.append(_Hit(asm.name, gene, whole, True, int(h), q, t, contig, orf, region))
+                    hits.append(_Hit(asm.name, gene, extra, whole, True, int(h), q, t, contig, orf, region))
     v.hits = len(hits)
     if rng is not None:
         for asm, result, row, header in checked:
@@ -245,7 +254,8 @@ def judge(checked, genes: dict, id_threshold: float, device, rng=None, control: 
         state = "partial" if partial else "truncated" if cov < 90.0 else "novel" if ident < id_threshold else "normal"
         want = b"%s,%.2f%%,%.2f%%" % (x.gene.gene_id.encode(), ident, cov) + STATE_TAGS[state]
         cells = dict(zip(header.rstrip(b"\n").split(b"\t"), row.rstrip(b"\n").split(b"\t")))
-        entries = _detail_entries(cells.get(b"Expected genes in locus, details", b""))
+        column = b"Extra genes, details" if x.extra else b"Expected genes in locus, details"
+        entries = _detail_entries(cells.get(column, b""))
         if want not in entries.get(x.gene.gene_id.encode(), []):
             v.add("row_faults", f"{where}: row entry {entries.get(x.gene.gene_id.encode())} lacks {want!r}")
         if float(np.float32(gh.coverages[x.h])) != cov:

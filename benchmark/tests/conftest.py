@@ -1,6 +1,7 @@
-r"""Helpers of the benchmark's CPU tests: a copy of the benchmark with a tiny cell added as files.
+r"""Helpers of the benchmark's CPU tests: a copy of the benchmark with tiny cells added as files.
 
-The tiny configuration and mixes live here, not under ``configs/`` and
+The tiny configurations (one K-shaped, one O-shaped with extra genes and
+phenotype rules) and their mixes live here, not under ``configs/`` and
 ``traffic/``; ``tiny_root`` writes them into a temporary copy of the
 benchmark beside a ``BENCHMARK.json`` that names them, which is how a later
 change adds a cell.
@@ -39,24 +40,68 @@ TINY_TRAFFIC = {
     "tiny_single": {"entry": "single", "env": ENV, "pool_size": 8, "check_sample": 8, "classes": MIX},
 }
 
+# O-shaped: loci that share most of their genes (two nearly identical), genes outside the locus
+# that a replacement rule asks for, and a rule on a gene knocked out.
+TINY_O_CONFIG = {
+    "name": "tiny_o", "db_name": "Tiny_O_locus_synthetic", "organism": "Testus syntheticus", "taxon": 12345,
+    "antigen": "Lipopolysaccharide O antigen", "pathway": "ABC transporter-dependent",
+    "gene_nt": [300, 900], "spacer_nt": [80, 200], "tail_nt": 150,
+    "family_identity": [0.80, 0.99], "cluster_identity": {"glf": [0.99, 0.999], "wbbM": [0.99, 0.999]},
+    "loci": [
+        {"name": "OL1", "type": "O1", "genes": ["wzm", "wzt", "wbbM", "glf", "wbbN", "wbbO"]},
+        {"name": "OL2.1", "type": "O2a", "genes": ["wzm", "wzt", "wbbM", "glf", "wbbN", "wbbO", "gmlA"]},
+        {"name": "OL2.2", "type": "O2b", "genes": ["wzm", "wzt", "wbbM", "glf", "wbbN", "wbbO", "gmlB"]},
+        {"name": "OL3", "type": "O3", "genes": ["wzm", "wzt", "wbdA", "wbdB", "wbdC", "wbdD"]},
+    ],
+    "extra_genes": [{"cluster": "wbbY", "nt": 900}, {"cluster": "wbbZ", "nt": 600}],
+    "phenotype_logic": {
+        "O1v2": {"loci": ["OL2.*"], "extra_genes": ["wbbY", "wbbZ"], "priority": 60},
+        "O-null": {"loci": ["OL*"], "inactive_genes": ["wzm"], "priority": 100},
+    },
+    "genome_nt": 40000, "id_threshold": 82.5,
+}
+O_PLANTS = {"extra_sets": [{"genes": ["wbbY", "wbbZ"], "share": 0.5}], "knockout": {"cluster": "wzm", "share": 0.25}}
+O_MIX = [
+    {"name": "clean", "weight": 1, "sub_rate": 0.0, "contigs": [1, 1], "split": "none", **O_PLANTS},
+    {"name": "draft", "weight": 1, "sub_rate": 0.005, "contigs": [3, 6], "split": "random", "min_contig_nt": 1000,
+     **O_PLANTS},
+]
+TINY_O_TRAFFIC = {"entry": "single", "env": ENV, "pool_size": 8, "check_sample": 8, "classes": O_MIX}
+
 
 def make_tiny_root(tmp: Path) -> Path:
     r"""A checkout-like directory: the benchmark copied, the tiny cells added as files."""
     shutil.copytree(BENCH, tmp / "benchmark", ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    (tmp / "benchmark" / "configs" / "tiny.json").write_text(json.dumps(TINY_CONFIG))
-    for name, mix in TINY_TRAFFIC.items():
+    for name, config in (("tiny", TINY_CONFIG), ("tiny_o", TINY_O_CONFIG)):
+        (tmp / "benchmark" / "configs" / f"{name}.json").write_text(json.dumps(config))
+    for name, mix in {**TINY_TRAFFIC, "tiny_o_single": TINY_O_TRAFFIC}.items():
         (tmp / "benchmark" / "traffic" / f"{name}.json").write_text(json.dumps(mix))
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
-    spec["configs"].append({"name": "tiny", "source": "https://example.org/tiny", "file": "benchmark/configs/tiny.json",
-                            "reduced": [], "why": "a CPU test"})
-    for cell, traffic in (("tiny.stream", "tiny_stream"), ("tiny.single", "tiny_single")):
-        spec["workloads"].append({"name": cell, "config": "tiny", "traffic": traffic, "chips": 1, "why": "a CPU test"})
-    adds = {"asm_per_s": ["tiny.stream", "tiny.single"], "asm_p95_ms": ["tiny.single"]}
+    for name in ("tiny", "tiny_o"):
+        spec["configs"].append({"name": name, "source": "https://example.org/tiny", "why": "a CPU test",
+                                "file": f"benchmark/configs/{name}.json", "reduced": []})
+    singles = ["tiny.single", "tiny_o.single"]
+    for cell, config, traffic in (("tiny.stream", "tiny", "tiny_stream"), ("tiny.single", "tiny", "tiny_single"),
+                                  ("tiny_o.single", "tiny_o", "tiny_o_single")):
+        spec["workloads"].append({"name": cell, "config": config, "traffic": traffic, "chips": 1, "why": "a CPU test"})
+    adds = {"asm_per_s": ["tiny.stream", *singles], "asm_p95_ms": singles}
     for m in spec["end_to_end"] + spec["per_layer"]:
         if "workloads" in m:
-            m["workloads"] += adds.get(m["name"], ["tiny.single"] if m["name"].endswith(".single") else [])
+            m["workloads"] += adds.get(m["name"], singles if m["name"].endswith(".single") else [])
     (tmp / "BENCHMARK.json").write_text(json.dumps(spec, indent=2))
     return tmp
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    r"""One intra-op thread, as the cells' mixes set for the card: the plain CPU forms of the kernels
+    run faster on one, and test workers do not contend for the cores, so a window holds requests."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="session")
