@@ -82,13 +82,17 @@ DEVICE_MAX_OCC = 1024  # ceiling on MapperParams.max_occ (the JAX package's seed
 BUCKET_SHIFT = 12  # hash-prefix bucket width of the table search (2^20 buckets)
 BLOOM_BITS = 27  # membership bitmap size (2^27 bits = 16 MB)
 
-# Device-seeded buffers, per genome (the JAX package's capacities; a genome
-# that overflows one is seeded on the host, counted by cause).
-CANDIDATE_CAP = 1 << 14  # bloom-surviving minimizers
-ANCHOR_CAP = 1 << 14  # anchors
+# Device-seeded buffers, per genome; a genome that overflows one is seeded on
+# the host, counted by cause.  Sized for locus databases of conserved gene
+# families, whose copies in every locus all anchor on a genome's one member:
+# a complete 5.3 Mb genome against 140 loci of 8 families has ~25,000 anchors
+# and ~12,000 candidates, against 241 loci ~48,000 and ~17,000, and up to
+# ~3,900 chains (twice the JAX package's capacities, four times its anchors).
+CANDIDATE_CAP = 1 << 15  # bloom-surviving minimizers
+ANCHOR_CAP = 1 << 16  # anchors
 FOLD_ROWS = 16  # 128-position scan rows folded into one 1024-lane row
 FOLD_SLOTS = 512  # live capacity per folded row (lambda ~ 373, P(X > 512) ~ 1e-12)
-CHAIN_CAP = 4096  # chains
+CHAIN_CAP = 1 << 13  # chains
 CHAIN_PREFIX = 512  # chain rows pulled with the counts (the full buffer past this)
 _U32 = 0xFFFFFFFF
 _BIG = 0x7FFFFFFF

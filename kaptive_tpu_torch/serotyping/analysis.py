@@ -384,26 +384,20 @@ def edge_partial_mask(hits: HitTable, tolerance: int) -> npt.NDArray[np.bool_]:
     return (at_left & (head_clip > 0)) | (at_right & (tail_clip > 0))
 
 
-def resolve_phenotypes(
+def rule_fires(
     db, best_locus: npt.NDArray[np.int64], active_clusters: npt.NDArray[np.bool_]
-) -> list[str]:
-    r"""Batched phenotype rule engine.
+) -> npt.NDArray[np.bool_]:
+    r"""``(n_rules, n_asm)`` mask of the phenotype rules that fire for each assembly.
 
     ``active_clusters`` is an ``(n_asm, n_clusters)`` mask of gene clusters
     found intact (NORMAL/PARTIAL).  A rule fires for an assembly when (a) its
     locus pattern covers the winning locus, (b) every required extra cluster
     is active, and (c) if it names inactive clusters, at least one of those
-    *expected in the winning locus* is missing/broken.  Firing replacement
-    rules override the base type by priority; suffix rules append in
-    descending priority.  (= ref ``serotyping/core.py:398-442`` +
-    ``db/models.py:169-307``, evaluated for the whole batch at once.)
+    *expected in the winning locus* is missing/broken.
     """
     phen = db.phenotypes
-    n_asm = len(best_locus)
-    out = [db.serotypes[int(locus)] for locus in best_locus]
     if len(phen) == 0:
-        return out
-
+        return np.zeros((0, len(best_locus)), dtype=bool)
     active8 = active_clusters.astype(np.int8)  # (n_asm, C)
     locus_ok = phen.locus_masks[:, best_locus]  # (R, n_asm)
     extras_ok = (active8 @ phen.extra_masks.T).T == phen.extra_counts[:, None]  # (R, n_asm)
@@ -424,7 +418,25 @@ def resolve_phenotypes(
     has_applicable = applicable.sum(axis=2) > 0
     inactive_ok = ~names_inactive[:, None] | (has_applicable & (inactive_hit > 0))
 
-    fires = locus_ok & extras_ok & inactive_ok  # (R, n_asm)
+    return locus_ok & extras_ok & inactive_ok
+
+
+def resolve_phenotypes(
+    db, best_locus: npt.NDArray[np.int64], active_clusters: npt.NDArray[np.bool_]
+) -> list[str]:
+    r"""Batched phenotype rule engine.
+
+    The rules that fire (:func:`rule_fires`): firing replacement rules
+    override the base type by priority; suffix rules append in descending
+    priority.  (= ref ``serotyping/core.py:398-442`` +
+    ``db/models.py:169-307``, evaluated for the whole batch at once.)
+    """
+    phen = db.phenotypes
+    n_asm = len(best_locus)
+    out = [db.serotypes[int(locus)] for locus in best_locus]
+    if len(phen) == 0:
+        return out
+    fires = rule_fires(db, best_locus, active_clusters)  # (R, n_asm)
 
     # Replacement rules: one masked argmax-by-priority per assembly (first
     # rule wins priority ties, matching the reference's ascending-rule-id

@@ -273,6 +273,58 @@ def test_device_mode_fallbacks_keep_host_rows(panel, monkeypatch, cause):
         assert_same(g, h)
 
 
+FAMILY_RICH = {
+    "name": "family_rich", "db_name": "Family_rich_synthetic", "organism": "Testus syntheticus", "taxon": 12345,
+    "gene_nt": [2100, 2400], "spacer_nt": [80, 200], "tail_nt": 150,
+    "family_identity": [0.99, 0.999],
+    "loci": [{"name": f"KL{i}", "type": f"K{i}", "genes": ["famA", "famB", f"orf{i}"]} for i in range(1, 33)],
+    "genome_nt": 20000, "id_threshold": 82.5,
+}
+
+
+def test_a_family_rich_genome_is_chained_on_the_device(tmp_path):
+    """32 loci share two gene families at 99-99.9%, so a genome's one planted member of each anchors
+    every copy: more anchors than the JAX package's 16,384, which device mode holds and chains
+    itself, with host mode's alignments."""
+    import sys
+    from pathlib import Path
+
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.db import Database
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    bench = str(Path(__file__).resolve().parent.parent / "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    from kbench import gen
+
+    rng_db, rng_asm = gen.seed_streams(2**31 + 21, 2)
+    synthetic = gen.make_database(FAMILY_RICH, rng_db)
+    gbk = tmp_path / "family_rich.gbk"
+    gbk.write_text(synthetic.genbank)
+    gbk.with_suffix(".toml").write_text(synthetic.toml)
+    db = Database.from_genbank(gbk)
+    clean = {"name": "clean", "sub_rate": 0.0, "split": "none"}
+    asm = gen.make_assembly(rng_asm, "g0", clean, 1, synthetic.loci[3], FAMILY_RICH["genome_nt"])
+    genome = GenomeAssembly.from_stream(io.BytesIO(asm.fasta), asm.name)
+
+    ci = ContigIndex.build(genome.contigs)
+    codes, starts = tm._batch_codes([ci], int(ci.codes.shape[0]), torch.device("cpu"))
+    params = tm.MapperParams()
+    _, counts = tm.seed_chunk(codes, starts, [(torch.device("cpu"), db.gene_index.seed_table("cpu"))],
+                              db.gene_index, params)
+    assert 1 << 14 < int(counts[2, 0]) <= tm.ANCHOR_CAP and int(counts[3, 0]) == 0
+    names = tuple(str(i) for i in range(len(db.genes)))
+    reset_metrics()
+    [got] = tm.map_genes_batch(db.gene_index, [genome], names, params, seed_mode="device", device="cpu")
+    seen = snapshot()
+    assert seen.get("map.device_chained") == 1 and not any(k.startswith("map.host_") for k in seen), seen
+    [want] = tm.map_genes_batch(db.gene_index, [genome], names, params, seed_mode="host", device="cpu")
+    assert len(want) >= 64  # every copy of both families
+    assert_same(got, want)
+
 def test_resolve_seed_mode(monkeypatch):
     from kaptive_tpu_torch.ops.mapper import resolve_seed_mode
 

@@ -1,8 +1,9 @@
 """The port's span recorder (``kaptive_tpu_torch.utils.profiling``): spans and their
 parents, thread safety, request ids across the stream's threads, the disabled path,
 ``phase_report`` from the spans, the clock shared with ``torch.profiler``, and the
-work counters of a typing run on the CPU."""
+work counters of a typing run on the CPU, the phenotype stage's among them."""
 
+import io
 import json
 import sys
 import threading
@@ -269,3 +270,68 @@ def test_counters_are_left_alone_when_profiling_is_off(port_panel, monkeypatch):
     Serotyper(db, device="cpu").batch(list(paths[:1]))
     assert not {"map.chains", "dp.cells_live", "dp.cells_launched"} & set(snapshot())
     assert recording()[1] == []
+
+
+@pytest.fixture(scope="module")
+def o_panel(tmp_path_factory):
+    from o_panel import CONFIG, make_o_panel
+
+    from kaptive_tpu_torch.db import Database
+
+    _, pool, gbk = make_o_panel(tmp_path_factory.mktemp("profiling_o_panel"))
+    return Database.from_genbank(gbk), pool, CONFIG["phenotype_logic"]
+
+
+def _rules_fired(db, result, rules) -> int:
+    r"""The rules that fire for ``result``, worked out from its hits: the clusters of its NORMAL and
+    PARTIAL hits are active, its best locus's own clusters the expected ones."""
+    from fnmatch import fnmatchcase
+
+    from kaptive_tpu_torch.serotyping.models import GeneState
+
+    cluster = [db.cluster_keys[c] for c in db.gene_cluster_ids]
+    intact = np.isin(result.gene_states, (GeneState.NORMAL.value, GeneState.PARTIAL.value))
+    active = {cluster[g] for g in result.gene_hits.gene_indices[intact]}
+    row = db.loci.ids.index(result.best_locus_name)
+    expected = {cluster[g] for g in np.flatnonzero(db.gene_locus_indices == row)}
+    fired = 0
+    for rule in rules.values():
+        inactive = {c for c in cluster if c in rule.get("inactive_genes", ())}
+        fired += (any(fnmatchcase(result.best_locus_name, p) for p in rule["loci"])
+                  and set(rule.get("extra_genes", ())) <= active
+                  and (not inactive or bool((inactive & expected) - active)))
+    return fired
+
+
+def _phenotype_counts(db, fastas):
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.serotyping import Serotyper
+
+    reset_phases()
+    results = Serotyper(db, device="cpu").batch(
+        [GenomeAssembly.from_stream(io.BytesIO(fasta), name) for name, fasta in fastas]
+    )
+    spans = [s for s in recording()[1] if s.name == "type.phenotype"]
+    return results, spans
+
+
+def test_the_phenotype_span_nests_in_finalize_and_counts_rules_and_extra_hits(enabled, o_panel, monkeypatch):
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "host")
+    db, pool, rules = o_panel
+    results, [span] = _phenotype_counts(db, [(a.name, a.fasta) for a in pool])
+    assert span.parent is not None and span.parent.name == "type.finalize"
+    assert span.parent.start <= span.start <= span.end <= span.parent.end
+    fired = [_rules_fired(db, r, rules) for r in results]
+    assert fired == [1, 1, 3, 1, 4, 0]  # o2 and o4 carry both extra genes; o4 is also knocked out
+    assert span.counts["phenotype.fired"] == sum(fired)
+    assert span.counts["decide.extra_hits"] == sum(int(r.gene_hits.is_extra.sum()) for r in results) > 0
+
+
+def test_phenotype_counters_of_a_batch_are_the_sums_of_its_assemblies_alone(enabled, o_panel, monkeypatch):
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "host")
+    db, pool, _ = o_panel
+    pair = [(a.name, a.fasta) for a in (pool[2], pool[4])]
+    _, [both] = _phenotype_counts(db, pair)
+    alone = [_phenotype_counts(db, [one])[1][0] for one in pair]
+    for counter in ("phenotype.fired", "decide.extra_hits"):
+        assert both.counts[counter] == sum(s.counts[counter] for s in alone) > 0
