@@ -11,7 +11,7 @@ Design: the reference backs these with sequential Numba kernels
 pure vectorised prefix operations (sort + segment-wise cumulative max + cumsum of
 breaks), which are mathematically equivalent to the reference's sequential
 single-linkage sweeps, while greedy overlap culling keeps the reference's exact
-order semantics with a vectorised inner comparison.  These run on host: interval
+order semantics in one C pass of the host library.  These run on host: interval
 counts in the typing pipeline are tiny (hundreds), far below device-dispatch
 breakeven; the O(N) contig-scale work stays on the device in :mod:`kaptive_tpu_torch.ops`.
 """
@@ -28,6 +28,7 @@ import numpy as np
 import numpy.typing as npt
 
 from kaptive_tpu_torch.core.collections import SoAContainer, soa
+from kaptive_tpu_torch.native import hostio
 
 
 class Strand(IntEnum):
@@ -219,46 +220,20 @@ class Intervals(SoAContainer):
         considered in ``order``; an item is kept unless it overlaps a previously
         kept item in the same (group, secondary group) by more than
         ``max_overlap_fraction`` of the shorter interval.  The sequential greedy
-        structure is preserved (required for bit-identical results); the inner
-        comparison against kept items is vectorised.
+        structure is preserved (required for bit-identical results); it runs as
+        one C pass of the host library (:func:`~kaptive_tpu_torch.native.hostio.cull_overlaps`),
+        which compares an item with its own group's kept items alone.
         """
         n = len(self)
         if n == 0:
             return np.empty(0, dtype=np.bool_)
-        g1 = np.zeros(n, dtype=np.int64) if group_by is None else np.asarray(group_by, dtype=np.int64)
-        g2 = np.zeros(n, dtype=np.int64) if secondary_group_by is None else np.asarray(secondary_group_by, dtype=np.int64)
-        starts = self.starts.astype(np.int64)
-        ends = self.ends.astype(np.int64)
-        lengths = ends - starts
-
-        kept_mask = np.zeros(n, dtype=np.bool_)
-        # Kept-so-far arrays, appended per acceptance (amortised O(kept) per item).
-        kept_idx: list[int] = []
-        kept_s = np.empty(n, dtype=np.int64)
-        kept_e = np.empty(n, dtype=np.int64)
-        kept_g = np.empty(n, dtype=np.int64)  # combined group key
-        # Combine groups into a single key for one comparison.
-        gmax = int(g2.max()) + 1 if n else 1
-        gkey = g1 * gmax + g2
-        nk = 0
-        for idx in order:
-            s, e, length = starts[idx], ends[idx], lengths[idx]
-            if length <= 0:
-                continue
-            if nk:
-                same = kept_g[:nk] == gkey[idx]
-                if same.any():
-                    ks = kept_s[:nk][same]
-                    ke = kept_e[:nk][same]
-                    overlap = np.minimum(e, ke) - np.maximum(s, ks)
-                    min_len = np.minimum(length, ke - ks)
-                    if np.any((overlap > 0) & (overlap > max_overlap_fraction * min_len)):
-                        continue
-            kept_mask[idx] = True
-            kept_s[nk], kept_e[nk], kept_g[nk] = s, e, gkey[idx]
-            kept_idx.append(int(idx))
-            nk += 1
-        return kept_mask
+        gkey = None
+        if group_by is not None or secondary_group_by is not None:
+            g1 = np.zeros(n, dtype=np.int64) if group_by is None else np.asarray(group_by, dtype=np.int64)
+            g2 = np.zeros(n, dtype=np.int64) if secondary_group_by is None else np.asarray(secondary_group_by, dtype=np.int64)
+            # Combine groups into a single key, as the JAX package does.
+            gkey = g1 * (int(g2.max()) + 1) + g2
+        return hostio.cull_overlaps(self.starts, self.ends, gkey, order, max_overlap_fraction)
 
     def cluster_spatial(self, tolerance: int = 0,
                         group_by: npt.NDArray[np.integer] | None = None) -> npt.NDArray[np.int32]:

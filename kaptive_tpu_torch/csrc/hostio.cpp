@@ -13,10 +13,14 @@
 //                  seq_offsets, seq_lengths, name_offsets, name_lengths)
 //
 // encode_dna_2bit(data, n, out): byte -> {A,a:0 C,c:1 G,g:2 T,t/U,u:3 else 4}.
+//
+// Beside the input pipeline it holds decide's greedy overlap cull
+// (cull_overlaps), a per-hit loop too slow in Python.
 
 #include <cstdint>
 #include <cstddef>
 #include <cstring>
+#include <vector>
 
 // The seeding kernel carries AVX-512 fast paths (16 minimizer lanes per
 // iteration); every vector loop has a scalar twin and the build works on any
@@ -568,6 +572,61 @@ int64_t seed_anchors(const uint8_t* codes, int64_t L, int32_t k, int32_t w,
     out_counts[0] = n_min;
     out_counts[1] = n_cand;
     return n_anch;
+}
+
+// Greedy overlap cull (core/interval.py::Intervals.cull_overlaps): items are
+// visited in order[]; an item of positive length is kept unless it overlaps a
+// kept item of the same group key by more than frac of the shorter one
+// (overlap > 0 and overlap > frac * min_len, in double as numpy does).  Only
+// kept items block others, and an item is compared with its own group's kept
+// items alone.  A first pass gives each visit its group's dense id (an
+// open-addressed table over the keys) and each group a slice of one buffer,
+// as long as its visits; the second keeps each group's kept (start, end)
+// pairs packed in its slice.  gkey may be null (one group).
+void cull_overlaps(const int64_t* starts, const int64_t* ends, const int64_t* gkey,
+                   int64_t n, const int64_t* order, int64_t n_order, double frac,
+                   uint8_t* kept) {
+    memset(kept, 0, (size_t)n);
+    int64_t cap = 16;
+    while (cap < 2 * n_order) cap <<= 1;
+    const uint64_t mask = (uint64_t)cap - 1;
+    std::vector<int64_t> slot_key(cap), slot_id(cap, -1), dense(n_order), base(1, 0);
+    for (int64_t o = 0; o < n_order; o++) {
+        const int64_t g = gkey ? gkey[order[o]] : 0;
+        uint64_t h = (uint64_t)g * 0x9E3779B97F4A7C15ull;  // Fibonacci hash, linear probe
+        h ^= h >> 29;
+        while (slot_id[h & mask] >= 0 && slot_key[h & mask] != g) h++;
+        int64_t& id = slot_id[h & mask];
+        if (id < 0) {
+            id = (int64_t)base.size() - 1;
+            slot_key[h & mask] = g;
+            base.push_back(0);
+        }
+        dense[o] = id;
+        base[id + 1]++;
+    }
+    for (size_t d = 1; d < base.size(); d++) base[d] += base[d - 1];
+    std::vector<int64_t> n_in(base.size(), 0), ks(2 * n_order);
+    for (int64_t o = 0; o < n_order; o++) {
+        const int64_t i = order[o];
+        const int64_t s = starts[i], e = ends[i], len = e - s;
+        if (len <= 0) continue;
+        const int64_t d = dense[o];
+        int64_t* slice = ks.data() + 2 * base[d];
+        bool blocked = false;
+        for (int64_t r = 0; r < n_in[d]; r++) {
+            const int64_t ks_r = slice[2 * r], ke_r = slice[2 * r + 1];
+            const int64_t overlap = (e < ke_r ? e : ke_r) - (s > ks_r ? s : ks_r);
+            const int64_t klen = ke_r - ks_r;
+            const int64_t min_len = len < klen ? len : klen;
+            if (overlap > 0 && (double)overlap > frac * (double)min_len) { blocked = true; break; }
+        }
+        if (blocked) continue;
+        kept[i] = 1;
+        slice[2 * n_in[d]] = s;
+        slice[2 * n_in[d] + 1] = e;
+        n_in[d]++;
+    }
 }
 
 }  // extern "C"

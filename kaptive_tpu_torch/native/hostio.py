@@ -5,8 +5,8 @@ the source shipped in the package into :data:`kaptive_tpu_torch.utils.nvcc.BUILD
 (the checkout's ``build/kaptive_tpu_torch/``, or the per-user cache of an
 installed package), to a temporary name and then ``os.replace``, so two
 processes building at once never load a half-written library.  Nothing is compiled at import.  The port needs this
-library for FASTA parsing, the contig stream and host seeding: where ``g++``
-is missing or the build fails, :func:`load` raises.
+library for FASTA parsing, the contig stream, host seeding and the overlap
+cull: where ``g++`` is missing or the build fails, :func:`load` raises.
 """
 
 from __future__ import annotations
@@ -70,6 +70,11 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int64, ctypes.c_int64,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.cull_overlaps.restype = None
+    lib.cull_overlaps.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, ctypes.c_void_p,
     ]
 
 
@@ -219,3 +224,36 @@ def seed_anchors(
         if n <= cap_out:
             return ti[:n], cpos[:n], cstrand[:n], int(counts[0]), int(counts[1])
         cap_out = int(n)
+
+
+def cull_overlaps(
+    starts: np.ndarray, ends: np.ndarray, group_key: np.ndarray | None,
+    order: np.ndarray, max_overlap_fraction: float,
+) -> np.ndarray:
+    r"""Greedy overlap cull in one C pass: the kept mask of ``Intervals.cull_overlaps``.
+
+    ``group_key`` is one int64 key a row (``None``: one group); ``order`` the
+    rows to visit, first to last, as numpy indices (negative ones count from
+    the end).
+    """
+    starts_c = np.ascontiguousarray(starts, dtype=np.int64)
+    ends_c = np.ascontiguousarray(ends, dtype=np.int64)
+    n = len(starts_c)
+    if len(ends_c) != n or (group_key is not None and len(group_key) != n):
+        raise ValueError("starts, ends and group_key must have one entry a row")
+    key_c = None if group_key is None else np.ascontiguousarray(group_key, dtype=np.int64)
+    order_c = np.asarray(order, dtype=np.int64)
+    if order_c.size and (order_c.min() < -n or order_c.max() >= n):
+        raise IndexError(f"order holds an index outside [-{n}, {n})")
+    order_c = np.ascontiguousarray(np.where(order_c < 0, order_c + n, order_c))
+    kept = np.empty(n, dtype=np.bool_)
+    load().cull_overlaps(
+        starts_c.ctypes.data_as(ctypes.c_void_p),
+        ends_c.ctypes.data_as(ctypes.c_void_p),
+        None if key_c is None else key_c.ctypes.data_as(ctypes.c_void_p),
+        n,
+        order_c.ctypes.data_as(ctypes.c_void_p), len(order_c),
+        float(max_overlap_fraction),
+        kept.ctypes.data_as(ctypes.c_void_p),
+    )
+    return kept

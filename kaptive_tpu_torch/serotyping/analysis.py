@@ -38,6 +38,7 @@ import numpy.typing as npt
 from kaptive_tpu_torch.core.alignment import Alignments
 from kaptive_tpu_torch.core.collections import group_leaders
 from kaptive_tpu_torch.core.interval import Intervals
+from kaptive_tpu_torch.utils.profiling import phase_timer
 
 __all__ = [
     "HitTable", "LocusPick", "Reconstruction", "group_leaders",
@@ -269,9 +270,13 @@ def reconstruct_loci(db, hits: HitTable, pick: LocusPick, n_asm: int) -> Reconst
         (-hits.mapq.astype(np.int32), -hits.matches, -hits.score, ~on_winner)
     ).astype(np.int32)
     spans = Intervals(hits.t_start, hits.t_end, hits.strand)
-    survived = spans.cull_overlaps(
-        order=visit, max_overlap_fraction=0.1, group_by=asm_ctg, secondary_group_by=None
-    )
+    with phase_timer("decide.cull") as span:
+        survived = spans.cull_overlaps(
+            order=visit, max_overlap_fraction=0.1, group_by=asm_ctg, secondary_group_by=None
+        )
+    if span:  # counted once the span is closed, so its time is the cull's alone
+        span.add("cull.items", len(spans))
+        span.add("cull.kept", int(np.count_nonzero(survived)))
     hits = hits.take(survived)
     asm_ctg = asm_ctg[survived]
     n = len(hits)

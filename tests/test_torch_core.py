@@ -92,6 +92,87 @@ def test_intervals():
     assert_same(port.arrange(p_idx, np.array([1, 0]), *pieces), ref.arrange(p_idx, np.array([1, 0]), *pieces))
 
 
+def _piled(rng, n_groups: int, per: int, sites: int = 26):
+    """``per`` hits a group piled on ``sites`` loci 3 kb apart, as family copies pile on a locus."""
+    n = n_groups * per
+    starts = rng.integers(0, sites, n) * 3000 + rng.integers(-200, 200, n)
+    ends = starts + rng.integers(-5, 1500, n)
+    return starts, ends, rng.permutation(n), dict(group_by=np.repeat(np.arange(n_groups), per))
+
+
+def _at_the_threshold(frac: float):
+    """Pairs (kept first, then the other) whose overlap is ``frac`` x the shorter length and one
+    base either side, for several lengths of each; one group a pair."""
+    rows = []
+    for len_a in (10, 30, 33, 50, 70, 100, 1000):
+        for len_b in (len_a, 50, 1000):
+            edge = int(frac * min(len_a, len_b))
+            for ov in (edge - 1, edge, edge + 1):
+                rows += [(0, len_a), (len_a - ov, len_a - ov + len_b)]
+    starts, ends = np.array(rows).T
+    n = len(rows)
+    return starts, ends, np.arange(n), dict(max_overlap_fraction=frac, group_by=np.arange(n) // 2)
+
+
+def _cull_case(name: str, rng):
+    """``(starts, ends, order, keyword arguments)`` of one parity case of the overlap cull."""
+    if name == "score_ties":
+        starts, ends, _, kw = _piled(rng, 3, 120)
+        scores = rng.integers(0, 4, len(starts))
+        return starts, ends, np.lexsort((-scores,)), kw
+    if name == "empty_and_negative_lengths":
+        starts, ends, order, kw = _piled(rng, 2, 150)
+        ends[::7] = starts[::7]
+        ends[3::11] = starts[3::11] - rng.integers(1, 50, len(starts[3::11]))
+        return starts, ends, order, kw
+    if name == "threshold_0.1":
+        return _at_the_threshold(0.1)
+    if name == "threshold_0.3":
+        return _at_the_threshold(0.3)
+    if name == "secondary_group_by":
+        starts, ends, order, kw = _piled(rng, 4, 100)
+        return starts, ends, order, dict(kw, max_overlap_fraction=0.3, secondary_group_by=rng.integers(0, 3, len(starts)))
+    if name == "secondary_group_by_alone":
+        starts, ends, order, _ = _piled(rng, 1, 200)
+        return starts, ends, order, dict(secondary_group_by=rng.integers(0, 3, len(starts)))
+    if name == "order_a_strict_subset":
+        starts, ends, order, kw = _piled(rng, 3, 100)
+        return starts, ends, order[: len(order) // 3], kw
+    if name == "order_with_repeats_and_negative_indices":
+        starts, ends, order, kw = _piled(rng, 2, 80)
+        order = np.concatenate([order[:60] - len(order), order, order[:40]])
+        return starts, ends, order, kw
+    if name == "one_group_no_keys":
+        starts, ends, order, _ = _piled(rng, 1, 300)
+        return starts, ends, order, {}
+    if name == "single_hit":
+        return np.array([5]), np.array([90]), np.array([0]), {}
+    if name == "empty":
+        return np.zeros(0), np.zeros(0), np.zeros(0), {}
+    if name == "batch_64_groups":
+        return _piled(rng, 64, 300)
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("case", [
+    "score_ties", "empty_and_negative_lengths", "threshold_0.1", "threshold_0.3", "secondary_group_by",
+    "secondary_group_by_alone", "order_a_strict_subset", "order_with_repeats_and_negative_indices",
+    "one_group_no_keys", "single_hit", "empty", "batch_64_groups",
+])
+def test_cull_overlaps_equals_jax(case):
+    """The port's one C pass keeps the mask of the JAX package's greedy loop."""
+    starts, ends, order, kw = _cull_case(case, np.random.default_rng(sum(map(ord, case))))
+    strands = np.ones(len(starts), np.int8)
+    port, ref = (cls(starts.astype(np.int32), ends.astype(np.int32), strands)
+                 for cls in _both("core.interval", "Intervals"))
+    order = np.asarray(order, dtype=np.int32)
+    got, want = port.cull_overlaps(order, **kw), ref.cull_overlaps(order, **kw)
+    assert got.dtype == want.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
+    if case == "order_a_strict_subset":
+        assert not got[np.setdiff1d(np.arange(len(starts)), order)].any()
+
+
 def test_genome_assembly_from_stream():
     rng = np.random.default_rng(63)
     contigs = _random_dna_list(rng, 5, 200, 900)

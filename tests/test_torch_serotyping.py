@@ -197,3 +197,34 @@ def test_device_mode_stream_type_equals_jax(panel, jax_results, jax_device_resul
         assert ("device_inputs", "cpu") in ci._cache
     assert counts.get("map.device_chained") == len(got)
     assert not any(key.startswith("map.host_seed") for key in counts)
+
+
+def test_the_cull_span_nests_in_decide_and_counts_hits_offered_and_kept(panel, port_serotyper, monkeypatch):
+    """One ``decide.cull`` a batch, inside ``type.decide``; its counters, added once it closes, are
+    the hits ``reconstruct_loci`` was handed and the hits it kept."""
+    from kaptive_tpu_torch.serotyping import core
+    from kaptive_tpu_torch.utils.profiling import recording, reset_phases
+
+    seen = []
+    reconstruct = core.reconstruct_loci
+
+    def spy(db, hits, pick, n_asm):
+        recon = reconstruct(db, hits, pick, n_asm)
+        seen.append((len(hits), len(recon.hits)))
+        return recon
+
+    monkeypatch.setattr(core, "reconstruct_loci", spy)
+    monkeypatch.setenv("KAPTIVE_PROFILE", "1")
+    reset_phases()
+    try:
+        got = port_serotyper.batch(list(panel[1]))
+        spans = [s for s in recording()[1] if s.name == "decide.cull"]
+    finally:
+        reset_phases()
+    assert [r.best_locus_name for r in got] == TRUTH
+    [(offered, kept)] = seen
+    [span] = spans
+    assert span.parent is not None and span.parent.name == "type.decide"
+    assert span.parent.start <= span.start <= span.end <= span.parent.end
+    assert span.counts == {"cull.items": offered, "cull.kept": kept}
+    assert offered >= kept > 0
