@@ -157,18 +157,13 @@ module of either was loaded).  Steps:
 
 ``python3 chip_smoke.py --measure`` then also measures, before the last lines:
 
-13. bench.py's full 32 assemblies, host- and then device-seeded, typed in
-    stream batches of 32 and of 8, three timed passes each after a priming
-    pass (every pass and the median printed), and for each mode one more
-    batch-32 pass under ``torch.profiler`` for the card's busy share and its
-    time per kernel.
-14. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
+13. Synthetic full-size DP buckets (seeded pairs, query lengths within 200 of
     ``rows_max``, ~2% substitutions): kernel == plain, fill and traceback
     times, and band cells per second of the fill.
-15. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
+14. The fill and the traceback at 44, 384 and 1536 live pairs of one shape
     (1024 rows, ``w_pad`` 128): latency against throughput, and whether a
     lattice batch of 384 pairs fills the card.
-16. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
+15. The scan at 1, 4 and 32 genomes of 45,056 rows (seeded random streams):
     kernel == plain at each, CUDA-event time and bound: latency against
     throughput of the scan, and the time of a 32-genome batch in one launch.
 
@@ -203,8 +198,6 @@ ROOT = Path(__file__).resolve().parent
 N_ASSEMBLIES = 8
 BATCH_SIZE = 4
 SEED = 2026
-MEASURE_ASSEMBLIES = 32  # bench.py's count
-MEASURE_PASSES = 3
 # (alphabet, B, rows_max, w_pad): the extension lattice's full buckets, and a protein one.
 SYNTHETIC_BUCKETS = (("nt", 384, 1024, 128), ("nt", 384, 2560, 128), ("nt", 384, 2560, 512),
                      ("aa", 96, 1024, 640))
@@ -1546,57 +1539,17 @@ def _synthetic_bucket(rng, alphabet: bytes, B: int, rows_max: int, w_pad: int):
 
 
 def measure(card: str) -> None:
-    """``--measure``: throughput over bench.py's 32 assemblies, the card's busy share, and
-    full-size synthetic buckets, live-pair steps and scan batches (see the module docstring, steps 13 to 16)."""
-    import statistics
-
+    """``--measure``: full-size synthetic buckets, live-pair steps and scan batches (see the
+    module docstring, steps 13 to 15)."""
     import numpy as np
     import torch
     from scan_panels import random_stream
     from swg_panels import AA, NT, nt_matrix
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from kaptive_tpu_torch.core.pairwise import blosum62_matrix
     from kaptive_tpu_torch.ops.minimizer import DEFAULT_K, DEFAULT_W
     from kaptive_tpu_torch.ops.scan import add_halo
     from kaptive_tpu_torch.ops.swg_cuda import as_kernel_matrix, fill_form, swg_fill_cuda, swg_traceback_cuda
-    from kaptive_tpu_torch.serotyping import Serotyper
-    from kaptive_tpu_torch.utils.profiling import phase_report, reset_phases
-
-    db, assemblies, _ = build_workload(MEASURE_ASSEMBLIES)
-    serotyper = Serotyper(db, device="cuda")
-    for mode in ("host", "device"):
-        os.environ["KAPTIVE_SEED_MODE"] = mode
-        type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)  # priming pass
-        for batch in (MEASURE_ASSEMBLIES, 8):
-            rates = []
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(MEASURE_PASSES):
-                reset_phases()
-                _, seconds = type_all(serotyper, assemblies, batch)
-                rates.append(MEASURE_ASSEMBLIES / seconds)
-            print(f"# measure, {mode}-seeded: {MEASURE_ASSEMBLIES} assemblies in stream batches of "
-                  f"{batch}, {MEASURE_ASSEMBLIES}/{MEASURE_ASSEMBLIES} correct in each pass: "
-                  f"{', '.join(f'{r:.3f}' for r in rates)} asm/s, median {statistics.median(rates):.3f}, "
-                  f"peak device memory {torch.cuda.max_memory_allocated() / 1e6:.1f} MB "
-                  f"[{card}]; phase table of the last pass (host wall seconds):", flush=True)
-            phase_report(stream=sys.stdout)
-            sys.stdout.flush()
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, seconds = type_all(serotyper, assemblies, MEASURE_ASSEMBLIES)
-        per_kernel: dict[str, list[float]] = {}
-        for event in prof.events():
-            if event.device_type == DeviceType.CUDA:
-                per_kernel.setdefault(event.name, []).append(event.device_time_total / 1e3)
-        busy_ms = sum(sum(v) for v in per_kernel.values())
-        print(f"# measure, {mode}-seeded: profiled batch-{MEASURE_ASSEMBLIES} pass {seconds:.4f} s, "
-              f"card busy {busy_ms:.3f} ms = busy share {busy_ms / 1e3 / seconds:.5f} [{card}]; "
-              "by device time:", flush=True)
-        for name, times in sorted(per_kernel.items(), key=lambda kv: -sum(kv[1]))[:10]:
-            print(f"#   {sum(times):9.3f} ms  {len(times):4d} x  {name[:100]}", flush=True)
-    os.environ["KAPTIVE_SEED_MODE"] = "host"
 
     rng = np.random.default_rng(SEED)
     for alpha, B, rows_max, w_pad in SYNTHETIC_BUCKETS:
@@ -1612,7 +1565,7 @@ def measure(card: str) -> None:
         print(f"#   fill: {cells / times['fill_ms'] / 1e6:.2f} G band-cells/s "
               f"(band cells = sum of q_len x w_pad) [{card}]", flush=True)
 
-    # Step 15: one shape, more and more live pairs (the rest of the bucket is empty pairs).
+    # Step 14: one shape, more and more live pairs (the rest of the bucket is empty pairs).
     rows_max, w_pad = 1024, 128
     matrix = as_kernel_matrix(nt_matrix(), torch.device("cuda"))
     fill_kw = dict(gap_open=4, gap_extend=2, rows_max=rows_max, w_pad=w_pad)
@@ -1630,7 +1583,7 @@ def measure(card: str) -> None:
         print(f"# live pairs {live} of {B} at (rows_max, w_pad) = ({rows_max}, {w_pad}): fill {fill_ms:.4f} ms "
               f"({cells / fill_ms / 1e6:.2f} G band-cells/s), traceback {walk_ms:.4f} ms [{card}]", flush=True)
 
-    # Step 16: the scan at more and more genomes in one launch.
+    # Step 15: the scan at more and more genomes in one launch.
     streams = torch.from_numpy(np.stack([random_stream(rng, SCAN_ROWS) for _ in range(max(SCAN_GENOME_STEPS))]))
     for n_genomes in SCAN_GENOME_STEPS:
         times = _check_scan(add_halo(streams[:n_genomes].cuda()), DEFAULT_K, DEFAULT_W)
@@ -1647,7 +1600,7 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--measure", action="store_true",
-                        help="after the smoke, also run the measurements of steps 13 to 16")
+                        help="after the smoke, also run the measurements of steps 13 to 15")
     opts = parser.parse_args()
 
     from bench import GENOME_MB, KINDS

@@ -6,13 +6,16 @@ values).  :class:`PairwiseAligner` keeps upstream Kaptive's defaults
 (gap_open=11, gap_extend=1, band k=20; unseeded band ``max(k, |len1-len2|+1)``,
 seeded band ``k`` on the seed diagonal).
 
-:func:`batched_swg_align` uploads the two ragged byte streams once, gathers
-each bucket's padded (query, target) matrices on the device with torch
-indexing, runs :func:`kaptive_tpu_torch.ops.swg.banded_swg` per bucket and
-brings every bucket's results back in one device-to-host copy per sweep.
-Each sweep is two spans: ``dp.launch`` (uploads, bucket plan, gathers,
-launches; it counts ``dp.cells_live`` and ``dp.cells_launched``) and
-``dp.collect`` (the copy back, where the host waits for the card).
+:func:`launch_sweep` is the port's one bucketed banded-SWG sweep, which the
+protein aligner and the mapper's extension DP (on one device or cut over a
+mesh) share: each bucket's padded (query, target) matrices are gathered on the
+device from two byte streams (:func:`gather_bucket`), each bucket runs
+:func:`kaptive_tpu_torch.ops.swg.banded_swg` (:func:`run_bucket`) and
+:func:`collect_buckets` brings every bucket's results back in one
+device-to-host copy per sweep.  Each sweep is two spans: ``dp.launch``
+(uploads, bucket plan, gathers, launches; it counts ``dp.cells_live`` and
+``dp.cells_launched``) and ``dp.collect`` (the copy back, where the host waits
+for the card).  :func:`batched_swg_align` runs it on two ragged byte streams;
 :func:`batched_swg_align_cigars` does the same through
 :func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and also returns
 :class:`~kaptive_tpu_torch.core.alignment.Cigars`.
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from functools import cache
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import numpy.typing as npt
@@ -191,15 +194,42 @@ def _upload_stream(data: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(data).to(device)
 
 
-def _ragged_gather(q_data, t_data, q_off, q_len, t_off, t_len, *, rows_max: int, t_cols: int, t_pad: int):
-    r"""One bucket's padded (query, target) uint8 matrices, zero outside each length
-    (the ``_ragged_gather_jit`` counterpart)."""
-    dev = q_data.device
+class DpPairs(NamedTuple):
+    r"""A sweep's pairs, one int column each (the rows of a bucket's meta block): the
+    query's start in its stream, its length and strand (``-1``: read reverse-complemented),
+    the target window's start in its stream and length, the band's diagonal offset
+    (``q_pos - t_pos``) and half width."""
+
+    q_start: np.ndarray
+    q_len: np.ndarray
+    strand: np.ndarray
+    t_start: np.ndarray
+    t_len: np.ndarray
+    offsets: np.ndarray
+    k_locals: np.ndarray
+
+
+def gather_bucket(q_stream, t_stream, q_start, q_len, strand, t_start, t_len,
+                  *, rows_max: int, t_cols: int, t_pad: int):
+    r"""One DP bucket's padded (query, target) uint8 matrices, gathered on the device.
+
+    Queries whose ``strand`` is negative are read backwards and complemented (codes
+    below 4); with ``strand`` None every query is on the plus strand, and the
+    strand's ops are not issued.  Entries past each length are 0, and the target is
+    left-padded by ``t_pad``.
+    """
+    dev = t_stream.device
     j = torch.arange(rows_max, device=dev)[None, :]
-    q = q_data[(q_off[:, None] + j).clamp(0, q_data.shape[0] - 1)]
+    if strand is None:
+        q = q_stream[(q_start[:, None] + j).clamp(0, q_stream.shape[0] - 1)]
+    else:
+        fwd = (strand > 0)[:, None]
+        qi = torch.where(fwd, q_start[:, None] + j, q_start[:, None] + q_len[:, None] - 1 - j)
+        q = q_stream[qi.clamp(0, q_stream.shape[0] - 1)]
+        q = torch.where(fwd | (q >= 4), q, 3 - q)
     q = torch.where(j < q_len[:, None], q, 0)
     jt = torch.arange(t_cols, device=dev)[None, :]
-    t = t_data[(t_off[:, None] + (jt - t_pad)).clamp(0, t_data.shape[0] - 1)]
+    t = t_stream[(t_start[:, None] + (jt - t_pad)).clamp(0, t_stream.shape[0] - 1)]
     t = torch.where((jt >= t_pad) & (jt < t_pad + t_len[:, None]), t, 0)
     return q.contiguous(), t.contiguous()
 
@@ -256,46 +286,60 @@ def collect_buckets(n: int, launched: list, emit_cigars: bool) -> tuple[Pairwise
         return res, cigars_from_runs(ops, n_ops, overflow) if emit_cigars else None
 
 
-def _align_buckets(
-    q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals,
-    matrix, gap_open: int, gap_extend: int, lattice, device, emit_cigars: bool, mesh=None,
+def launch_sweep(
+    q_stream, t_stream, pairs: DpPairs, *, matrix, gap_open: int, gap_extend: int,
+    lattice: SwgLattice | None, emit_cigars: bool, device: str | torch.device, mesh=None,
 ):
-    r"""The bucketed sweep of :func:`batched_swg_align` (and, with ``emit_cigars``,
-    of :func:`batched_swg_align_cigars`): ``(PairwiseAlignments, Cigars or None)``.
+    r"""Launch one bucketed banded-SWG sweep: every DP of the port runs through here.
 
-    With a ``mesh`` of ``n`` slots every bucket's batch is a multiple of
-    ``n`` (``min_batch = ceil(16 / n) * n``, as in the JAX package) and its
-    pairs are cut over the slots; the matrices are gathered on ``device``.
+    ``q_stream`` and ``t_stream`` are the byte streams the ``pairs`` index, each a
+    tensor already on ``device`` or a numpy array uploaded here.  Buckets follow
+    :func:`plan_swg_buckets` with ``lattice``; each bucket's columns go up in one
+    meta block, its matrices are gathered on ``device`` (:func:`gather_bucket`) and
+    it runs through :func:`run_bucket`.  Padding pairs are (start 0, length 1, plus
+    strand, band 1, empty target).  With a ``mesh`` of ``n`` slots (count-only) every
+    bucket's batch is a multiple of ``n`` (``min_batch = ceil(16 / n) * n``, as in the
+    JAX package) and its pairs are cut over the slots.  Returns the pending
+    ``(n, [(pair indices, stacked results)], emit_cigars)`` for
+    :func:`collect_buckets`; nothing is copied back here.
     """
     with phase_timer("dp.launch") as span:
         device = resolve_device(device)
         mat = device_matrix(matrix, device)
-        mesh = mesh if sharded(mesh) else None
+        mesh = mesh if sharded(mesh) and not emit_cigars else None
         n_dev = device_count(mesh)
-        w_needed = 2 * k_locals.astype(np.int64) + 3
-        joint = np.maximum(np.maximum(q_lengths, t_lengths), 1)
-        q_data_d = _upload_stream(q_data, device)
-        t_data_d = _upload_stream(t_data, device)
+        q_stream, t_stream = (
+            s if isinstance(s, torch.Tensor) else _upload_stream(s, device) for s in (q_stream, t_stream)
+        )
+        joint = np.maximum(np.maximum(pairs.q_len, pairs.t_len), 1)
+        w_needed = 2 * pairs.k_locals.astype(np.int64) + 3
         plan = plan_swg_buckets(joint, w_needed, lattice, min_batch=-(-16 // n_dev) * n_dev)
         if span:
-            count_cells(span, q_lengths, k_locals, plan)
+            count_cells(span, pairs.q_len, pairs.k_locals, plan)
         launched = []
         for sel, rows_max, w_pad, b_pad in plan:
             t_pad = w_pad + 2
-            meta = np.zeros((6, b_pad), dtype=np.int64)
-            meta[4] = 1  # padding pairs: empty, band 1
-            for row, src in enumerate((q_offsets, q_lengths, t_offsets, t_lengths, k_locals, diag_offsets)):
-                meta[row, : len(sel)] = src[sel]
-            q_off, q_len, t_off, t_len, kl, do = torch.from_numpy(meta).to(device).unbind(0)
-            q_mat, t_mat = _ragged_gather(
-                q_data_d, t_data_d, q_off, q_len, t_off, t_len,
+            meta = np.zeros((len(pairs), b_pad), dtype=np.int64)
+            meta[[1, 2, 6]] = 1  # padding pairs: length 1, plus strand, band 1
+            for row, col in enumerate(pairs):
+                meta[row, : len(sel)] = col[sel]
+            q_start, q_len, strand, t_start, t_len, offsets, k_locals = torch.from_numpy(meta).to(device).unbind(0)
+            minus = bool((pairs.strand[sel] < 0).any())  # False in every protein bucket
+            q_mat, t_mat = gather_bucket(
+                q_stream, t_stream, q_start, q_len, strand if minus else None, t_start, t_len,
                 rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
             )
             i32 = torch.int32
-            args = (q_mat, q_len.to(i32), t_mat, t_len.to(i32), do.to(i32), kl.to(i32), mat)
+            args = (q_mat, q_len.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), mat)
             statics = dict(gap_open=gap_open, gap_extend=gap_extend, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
             launched.append((sel, run_bucket(args, statics, emit_cigars, mesh)[:, : len(sel)]))
-    return collect_buckets(len(q_offsets), launched, emit_cigars)
+    return len(pairs.q_len), launched, emit_cigars
+
+
+def _ragged_pairs(q_offsets, q_lengths, t_offsets, t_lengths, diag_offsets, k_locals) -> DpPairs:
+    r"""The plus-strand :class:`DpPairs` of two ragged streams' pairs."""
+    return DpPairs(q_offsets, q_lengths, np.ones(len(q_offsets), np.int64), t_offsets, t_lengths,
+                   diag_offsets, k_locals)
 
 
 def batched_swg_align(
@@ -313,10 +357,11 @@ def batched_swg_align(
     stacked ``(8, pairs)`` results of all buckets then cross to the host in
     one copy.
     """
-    return _align_buckets(
-        q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals,
-        matrix, gap_open, gap_extend, lattice, device, emit_cigars=False, mesh=mesh,
-    )[0]
+    pairs = _ragged_pairs(q_offsets, q_lengths, t_offsets, t_lengths, diag_offsets, k_locals)
+    return collect_buckets(*launch_sweep(
+        q_data, t_data, pairs, matrix=matrix, gap_open=gap_open, gap_extend=gap_extend,
+        lattice=lattice, emit_cigars=False, device=device, mesh=mesh,
+    ))[0]
 
 
 def batched_swg_align_cigars(
@@ -334,7 +379,8 @@ def batched_swg_align_cigars(
     statistics stay exact).  Buckets follow :func:`plan_swg_buckets` as in
     count-only mode; a pair's result does not depend on its bucket.
     """
-    return _align_buckets(
-        q_data, q_offsets, q_lengths, t_data, t_offsets, t_lengths, diag_offsets, k_locals,
-        matrix, gap_open, gap_extend, lattice, device, emit_cigars=True,
-    )
+    pairs = _ragged_pairs(q_offsets, q_lengths, t_offsets, t_lengths, diag_offsets, k_locals)
+    return collect_buckets(*launch_sweep(
+        q_data, t_data, pairs, matrix=matrix, gap_open=gap_open, gap_extend=gap_extend,
+        lattice=lattice, emit_cigars=True, device=device,
+    ))

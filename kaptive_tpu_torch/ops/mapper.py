@@ -37,9 +37,9 @@ import numpy as np
 import torch
 
 from kaptive_tpu_torch.core.alignment import Alignments, Cigars
-from kaptive_tpu_torch.core.collections import cumulative_offsets, ragged_gather_indices
+from kaptive_tpu_torch.core.collections import ragged_gather_indices
 from kaptive_tpu_torch.core.genome import GenomeAssembly
-from kaptive_tpu_torch.core.pairwise import PairwiseAlignments
+from kaptive_tpu_torch.core.pairwise import DpPairs, PairwiseAlignments, collect_buckets, launch_sweep
 from kaptive_tpu_torch.core.seq import Sequences
 from kaptive_tpu_torch.ops.minimizer import (
     DEFAULT_K,
@@ -409,7 +409,12 @@ def build_extension_problems(
     contig_index: ContigIndex,
     params: MapperParams,
 ) -> dict | None:
-    r"""Project chains to ragged banded-DP problems (host array assembly only)."""
+    r"""Project chains to ragged banded-DP problems (host array assembly only).
+
+    The port's mapper gathers its problems on the device instead
+    (:func:`build_extension_specs`); this host-built form is the reference the
+    tests hold that gather to.
+    """
     n = len(chains["gene"])
     if n == 0:
         return None
@@ -435,28 +440,6 @@ def build_extension_problems(
         offsets=offsets.astype(np.int32), k_locals=k_locals.astype(np.int32),
         t_lo=t_lo, glen=glen,
     )
-
-
-def _run_extension_dp(
-    problems: dict, lattice=None, device: str | torch.device = "cuda", emit_cigars: bool = False, mesh=None,
-) -> tuple[PairwiseAlignments, Cigars | None]:
-    r"""One batched banded-SWG sweep over concatenated extension problems:
-    ``(PairwiseAlignments, Cigars or None)``, the CIGARs with ``emit_cigars``.
-
-    With a ``mesh`` the buckets' pair axis is cut over its slots; CIGAR mode
-    runs unsharded on ``device``, as in the JAX package.
-    """
-    from kaptive_tpu_torch.core.pairwise import batched_swg_align, batched_swg_align_cigars
-
-    args = (
-        problems["q_codes"], problems["q_offsets"], problems["q_lengths"],
-        problems["t_codes"], problems["t_offsets"], problems["t_lengths"],
-        problems["offsets"], problems["k_locals"],
-    )
-    kw = dict(matrix=_NT_MATRIX, gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, lattice=lattice, device=device)
-    if emit_cigars:
-        return batched_swg_align_cigars(*args, **kw)
-    return batched_swg_align(*args, **kw, mesh=mesh), None
 
 
 def _alignments_from_extension(
@@ -630,53 +613,14 @@ def _batch_alignments(
     return results
 
 
-def _extend_on_host(
-    all_chains: list, gene_index: GeneIndex, genomes: list, indexes: list,
-    gene_names: tuple[str, ...], params: MapperParams, device: torch.device | str, mesh=None,
-) -> list[Alignments]:
-    r"""Each genome's chains (or None) to extension problems built on the host,
-    ONE extension-DP sweep over the whole batch (its pair axis cut over the
-    ``mesh`` when one is given), and the batch's alignments: the mesh path's
-    tail, which :func:`launch_extension_dp_device` cannot shard."""
-    n_genomes = len(genomes)
-    with phase_timer("map.problems") as span:
-        all_problems = [
-            build_extension_problems(ch, gene_index, ci, params) if ch is not None else None
-            for ch, ci in zip(all_chains, indexes)
-        ]
-        live = [p for p in all_problems if p is not None]
-        if not live:
-            return [Alignments.empty() for _ in range(n_genomes)]
-        merged = dict(
-            q_codes=np.concatenate([p["q_codes"] for p in live]),
-            q_lengths=np.concatenate([p["q_lengths"] for p in live]).astype(np.int32),
-            t_codes=np.concatenate([p["t_codes"] for p in live]),
-            t_lengths=np.concatenate([p["t_lengths"] for p in live]).astype(np.int32),
-            offsets=np.concatenate([p["offsets"] for p in live]).astype(np.int32),
-            k_locals=np.concatenate([p["k_locals"] for p in live]).astype(np.int32),
-        )
-        merged["q_offsets"] = cumulative_offsets(merged["q_lengths"])
-        merged["t_offsets"] = cumulative_offsets(merged["t_lengths"])
-        n_chains = len(merged["q_lengths"])
-        count("map.problems.host", n_chains)
-        if span:
-            span.add("map.chains", n_chains)
-    with phase_timer("map.extension_dp"):
-        res, cigars_all = _run_extension_dp(
-            merged, lattice=params.lattice, device=device, emit_cigars=params.emit_cigars, mesh=mesh,
-        )
-    with phase_timer("map.results"):
-        return _batch_alignments(all_chains, all_problems, res, cigars_all, gene_index, genomes, indexes,
-                                 gene_names, params)
-
-
 def _extend_on_device(
     all_chains: list, gene_index: GeneIndex, genomes: list, indexes: list,
-    gene_names: tuple[str, ...], params: MapperParams, flat_codes: torch.Tensor, lp: int,
+    gene_names: tuple[str, ...], params: MapperParams, flat_codes: torch.Tensor, lp: int, mesh=None,
 ) -> list[Alignments]:
     r"""Each genome's chains (or None) to scalar extension specs on the host, ONE
     extension-DP sweep over the whole batch with each bucket's matrices gathered
-    on the device, and the batch's alignments.
+    on the device (its pair axis cut over the ``mesh`` when one is given), and the
+    batch's alignments.
 
     ``flat_codes`` is the batch's :func:`_batch_codes` stream flattened, genome
     ``b`` at ``b * lp``; the gene codes are the resident :meth:`GeneIndex.device_codes`.
@@ -696,7 +640,7 @@ def _extend_on_device(
             span.add("map.chains", n_chains)
     with phase_timer("map.extension_dp"):
         res, cigars_all = collect_extension_dp_device(
-            launch_extension_dp_device(merged, gene_index, flat_codes, params)
+            launch_extension_dp_device(merged, gene_index, flat_codes, params, mesh=mesh)
         )
     with phase_timer("map.results"):
         return _batch_alignments(all_chains, all_specs, res, cigars_all, gene_index, genomes, indexes,
@@ -1028,8 +972,8 @@ def build_extension_specs(
     r"""Scalar-only extension specs for the device-side problem build.
 
     The projection of :func:`build_extension_problems` (:func:`_project_chains`),
-    with no code gathered on the host: :func:`_ext_gather_bucket` gathers each bucket's query and
-    target matrices on the device from the resident gene codes and padded
+    with no code gathered on the host: :func:`~kaptive_tpu_torch.core.pairwise.gather_bucket` gathers each
+    bucket's query and target matrices on the device from the resident gene codes and padded
     genome streams.  ``flat_base`` is the genome's offset in the flattened
     (B * padded length) stream.
     """
@@ -1044,26 +988,6 @@ def build_extension_specs(
         t_len=t_len, offsets=offsets.astype(np.int64),
         k_locals=k_locals.astype(np.int64), t_lo=t_lo,
     )
-
-
-def _ext_gather_bucket(gene_codes, flat_codes, q_start, glen, strand, t_flat, t_len,
-                       *, rows_max: int, t_cols: int, t_pad: int):
-    r"""One DP bucket's (query, target) uint8 matrices, gathered on the device.
-
-    Minus-strand queries are reverse-complemented; entries past each length
-    are 0, and the target is left-padded by ``t_pad``.
-    """
-    dev = flat_codes.device
-    j = torch.arange(rows_max, device=dev)[None, :]
-    fwd = (strand > 0)[:, None]
-    qi = torch.where(fwd, q_start[:, None] + j, q_start[:, None] + glen[:, None] - 1 - j)
-    q = gene_codes[qi.clamp(0, gene_codes.shape[0] - 1)]
-    q = torch.where(fwd | (q >= 4), q, 3 - q)
-    q = torch.where(j < glen[:, None], q, 0)
-    jt = torch.arange(t_cols, device=dev)[None, :]
-    t = flat_codes[(t_flat[:, None] + (jt - t_pad)).clamp(0, flat_codes.shape[0] - 1)]
-    t = torch.where((jt >= t_pad) & (jt < t_pad + t_len[:, None]), t, 0)
-    return q.contiguous(), t.contiguous()
 
 
 def run_extension_dp_device(
@@ -1084,57 +1008,33 @@ def run_extension_dp_device(
     return (res, cigars) if params.emit_cigars else res
 
 
-def launch_extension_dp_device(specs: dict, gene_index: GeneIndex, flat_codes: torch.Tensor, params: MapperParams):
-    r"""Launch the bucketed banded-SWG sweep with device-side problem gathering.
+def launch_extension_dp_device(
+    specs: dict, gene_index: GeneIndex, flat_codes: torch.Tensor, params: MapperParams, *, mesh=None,
+):
+    r"""Launch the extension DP: :func:`~kaptive_tpu_torch.core.pairwise.launch_sweep`
+    over the resident gene codes and the flattened stream batch.
 
     ``specs`` is the merged :func:`build_extension_specs` output and
     ``flat_codes`` the flattened padded stream batch on the device.  Bucket
-    shapes follow :func:`plan_swg_buckets` with ``params.lattice``; padding
-    pairs are (gene 0, length 1, band 1, empty target), as in the JAX
-    package.  With ``params.emit_cigars`` each bucket runs
+    shapes follow :func:`~kaptive_tpu_torch.ops.swg.plan_swg_buckets` with ``params.lattice``; with
+    ``params.emit_cigars`` each bucket runs
     :func:`~kaptive_tpu_torch.ops.swg.banded_swg_cigars` and its run buffers
-    travel with the statistics; the problem build stays on the device either
-    way.  Returns the pending ``(n, [(pair indices, stacked results)],
-    emit_cigars)`` for :func:`collect_extension_dp_device`; nothing is copied
-    back here.
+    travel with the statistics.  With a ``mesh`` (count-only) each bucket's pairs
+    are cut over its slots.  Returns the pending sweep for
+    :func:`collect_extension_dp_device`; nothing is copied back here.
     """
-    from kaptive_tpu_torch.core.pairwise import count_cells, run_bucket
-    from kaptive_tpu_torch.ops.swg import device_matrix, plan_swg_buckets
-
-    with phase_timer("dp.launch") as span:
-        dev = flat_codes.device
-        matrix = device_matrix(_NT_MATRIX, dev)
-        gene_codes = gene_index.device_codes(dev)
-        n = len(specs["gene"])
-        w_needed = 2 * specs["k_locals"] + 3
-        joint = np.maximum(np.maximum(specs["glen"], specs["t_len"]), 1)
-        plan = plan_swg_buckets(joint, w_needed, params.lattice)
-        if span:
-            count_cells(span, specs["glen"], specs["k_locals"], plan)
-        launched = []
-        for sel, rows_max, w_pad, b_pad in plan:
-            t_pad = w_pad + 2
-            meta = np.zeros((7, b_pad), dtype=np.int64)
-            meta[[1, 2, 6]] = 1  # padding pairs: length 1, plus strand, band 1
-            for row, key in enumerate(("q_start", "glen", "strand", "t_flat", "t_len", "offsets", "k_locals")):
-                meta[row, : len(sel)] = specs[key][sel]
-            q_start, glen, strand, t_flat, t_len, offsets, k_locals = torch.from_numpy(meta).to(dev).unbind(0)
-            q_mat, t_mat = _ext_gather_bucket(
-                gene_codes, flat_codes, q_start, glen, strand, t_flat, t_len,
-                rows_max=rows_max, t_cols=rows_max + 2 * t_pad, t_pad=t_pad,
-            )
-            i32 = torch.int32
-            args = (q_mat, glen.to(i32), t_mat, t_len.to(i32), offsets.to(i32), k_locals.to(i32), matrix)
-            statics = dict(gap_open=NT_GAP_OPEN, gap_extend=NT_GAP_EXTEND, rows_max=rows_max, w_pad=w_pad, t_pad=t_pad)
-            launched.append((sel, run_bucket(args, statics, params.emit_cigars)[:, : len(sel)]))
-    return n, launched, params.emit_cigars
+    dev = flat_codes.device
+    pairs = DpPairs(specs["q_start"], specs["glen"], specs["strand"], specs["t_flat"], specs["t_len"],
+                    specs["offsets"], specs["k_locals"])
+    return launch_sweep(
+        gene_index.device_codes(dev), flat_codes, pairs, matrix=_NT_MATRIX, gap_open=NT_GAP_OPEN,
+        gap_extend=NT_GAP_EXTEND, lattice=params.lattice, emit_cigars=params.emit_cigars, device=dev, mesh=mesh,
+    )
 
 
 def collect_extension_dp_device(pending) -> tuple[PairwiseAlignments, Cigars | None]:
     r"""Bring a :func:`launch_extension_dp_device` sweep back to the host in one copy:
     ``(PairwiseAlignments, Cigars or None)``."""
-    from kaptive_tpu_torch.core.pairwise import collect_buckets
-
     return collect_buckets(*pending)
 
 
@@ -1300,7 +1200,7 @@ def _map_genes_sharded(
     gene_names: tuple[str, ...], params: MapperParams, mesh, device: torch.device,
 ) -> list[Alignments]:
     r"""Seeding and chaining on the mesh (:func:`~kaptive_tpu_torch.parallel.typing.sharded_scan_match_chain`),
-    extension problems built on the host, one DP sweep cut over the mesh.
+    then the one-device tail (:func:`_extend_on_device`) with the DP sweep cut over the mesh.
 
     Each fallback cause is held against its per-shard cap, as in the JAX
     package's sharded tail.
@@ -1316,7 +1216,11 @@ def _map_genes_sharded(
         for b, ci in enumerate(indexes):
             chains = _device_chains(counts_np, chains_np, b, ci, gene_index, params)
             all_chains.append(chains if chains and len(chains["gene"]) else None)
-    return _extend_on_host(all_chains, gene_index, genomes, indexes, gene_names, params, device, mesh)
+    with phase_timer("map.pack_upload"):
+        padded, _ = _batch_codes(indexes, L, device)
+    return _extend_on_device(
+        all_chains, gene_index, genomes, indexes, gene_names, params, padded.reshape(-1), L + 2 * PAD_POS, mesh
+    )
 
 
 def map_genes_batch(

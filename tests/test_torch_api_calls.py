@@ -337,13 +337,13 @@ def test_positional_mesh_binds_the_mesh(monkeypatch):
     mesh = make_mesh(devices=["cpu", "cpu"])
     lattice = SwgLattice.for_max_len(128, batch=16)
     seen = []
-    real = pairwise._align_buckets
+    real = pairwise.launch_sweep
 
     def spy(*a, **kw):
-        seen.append((kw.get("mesh"), a[11]))
+        seen.append((kw.get("mesh"), kw["lattice"]))
         return real(*a, **kw)
 
-    monkeypatch.setattr(pairwise, "_align_buckets", spy)
+    monkeypatch.setattr(pairwise, "launch_sweep", spy)
     sharded = pairwise.batched_swg_align(*args, mesh, lattice, device="cpu")
     plain = pairwise.batched_swg_align(*args, device="cpu")
     assert seen == [(mesh, lattice), (None, None)]

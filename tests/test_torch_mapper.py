@@ -416,38 +416,51 @@ EXTENSION_CASES = ["strands", "draft", "clipped", "n_dense", "panel_batch"]
 def _both_sweeps(panel, genomes, params, monkeypatch):
     r"""Host mode's merged specs and flattened stream as the extension sweep gets them,
     and the merged host-built problems of the same chains: ``(specs, flat, problems,
-    device-built alignments, host-built alignments)``."""
+    device-built alignments, host-built alignments)``.  The host-built alignments run
+    the problems' ragged streams through ``batched_swg_align`` (or its CIGAR form)."""
+    from kaptive_tpu_torch.core.collections import cumulative_offsets
+    from kaptive_tpu_torch.core.pairwise import batched_swg_align, batched_swg_align_cigars
     from kaptive_tpu_torch.ops import mapper as tm
     from kaptive_tpu_torch.ops.minimizer import ContigIndex
 
     gi, names = panel.db.gene_index, panel.gene_names
     seen: dict = {}
-    launch, run_host = tm.launch_extension_dp_device, tm._run_extension_dp
+    launch = tm.launch_extension_dp_device
 
-    def launch_seen(specs, gene_index, flat_codes, p):
+    def launch_seen(specs, gene_index, flat_codes, p, **kw):
         seen["specs"], seen["flat"] = specs, flat_codes
-        return launch(specs, gene_index, flat_codes, p)
-
-    def run_host_seen(problems, **kw):
-        seen["problems"] = problems
-        return run_host(problems, **kw)
+        return launch(specs, gene_index, flat_codes, p, **kw)
 
     monkeypatch.setattr(tm, "launch_extension_dp_device", launch_seen)
-    monkeypatch.setattr(tm, "_run_extension_dp", run_host_seen)
     got = tm.map_genes_batch(gi, genomes, names, params, seed_mode="host", device="cpu")
     indexes = [ContigIndex.build(ga.contigs) for ga in genomes]
     chains = [tm.host_seed_chains(gi, ci, params) for ci in indexes]
     chains = [ch if ch and len(ch["gene"]) else None for ch in chains]
-    want = tm._extend_on_host(chains, gi, genomes, indexes, names, params, torch.device("cpu"))
-    return seen["specs"], seen["flat"], seen["problems"], got, want
+    parts = [tm.build_extension_problems(ch, gi, ci, params) if ch is not None else None
+             for ch, ci in zip(chains, indexes)]
+    live = [p for p in parts if p is not None]
+    problems = {key: np.concatenate([p[key] for p in live])
+                for key in ("q_codes", "q_lengths", "t_codes", "t_lengths", "offsets", "k_locals")}
+    problems["q_offsets"] = cumulative_offsets(problems["q_lengths"])
+    problems["t_offsets"] = cumulative_offsets(problems["t_lengths"])
+    args = [problems[key] for key in ("q_codes", "q_offsets", "q_lengths", "t_codes", "t_offsets", "t_lengths",
+                                      "offsets", "k_locals")]
+    kw = dict(matrix=tm._NT_MATRIX, gap_open=tm.NT_GAP_OPEN, gap_extend=tm.NT_GAP_EXTEND,
+              lattice=params.lattice, device="cpu")
+    if params.emit_cigars:
+        res, cigars = batched_swg_align_cigars(*args, **kw)
+    else:
+        res, cigars = batched_swg_align(*args, **kw), None
+    want = tm._batch_alignments(chains, parts, res, cigars, gi, genomes, indexes, names, params)
+    return seen["specs"], seen["flat"], problems, got, want
 
 
 @pytest.mark.parametrize("case", EXTENSION_CASES)
 def test_device_gathered_problems_equal_host_built(panel, monkeypatch, case):
     """Every bucket's (query, target) matrices and scalars gathered on the device from
     the specs and the uploaded streams equal those gathered from the host-built problems."""
-    from kaptive_tpu_torch.core.pairwise import _ragged_gather
-    from kaptive_tpu_torch.ops.mapper import MapperParams, _ext_gather_bucket
+    from kaptive_tpu_torch.core.pairwise import gather_bucket
+    from kaptive_tpu_torch.ops.mapper import MapperParams
     from kaptive_tpu_torch.ops.scan import PAD_POS
     from kaptive_tpu_torch.ops.swg import plan_swg_buckets
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
@@ -483,15 +496,20 @@ def test_device_gathered_problems_equal_host_built(panel, monkeypatch, case):
         def col(a):
             return torch.from_numpy(np.asarray(a)[sel].astype(np.int64))
 
-        q_dev, t_dev = _ext_gather_bucket(
+        q_dev, t_dev = gather_bucket(
             gene_codes, flat, col(specs["q_start"]), col(specs["glen"]), col(specs["strand"]),
             col(specs["t_flat"]), col(specs["t_len"]), **shape,
         )
-        q_host, t_host = _ragged_gather(
-            q_data, t_data, col(problems["q_offsets"]), col(problems["q_lengths"]),
+        host_cols = (col(problems["q_offsets"]), col(problems["q_lengths"]))
+        q_host, t_host = gather_bucket(
+            q_data, t_data, *host_cols, col(np.ones(len(joint))),
             col(problems["t_offsets"]), col(problems["t_lengths"]), **shape,
         )
         assert torch.equal(q_dev, q_host) and torch.equal(t_dev, t_host)
+        # No strand (every query on the plus strand, as in a protein sweep) reads the same.
+        q_plus, _ = gather_bucket(q_data, t_data, *host_cols, None, col(problems["t_offsets"]),
+                                  col(problems["t_lengths"]), **shape)
+        assert torch.equal(q_plus, q_host)
 
 
 @pytest.mark.parametrize("emit_cigars", [False, True])
@@ -507,11 +525,13 @@ def test_host_mode_alignments_equal_host_built_problems(panel, monkeypatch, case
     assert_same(got, want)
 
 
+@pytest.mark.parametrize("emit_cigars", [False, True])
 @pytest.mark.parametrize("slots", [1, 2])
-def test_extension_problems_are_built_where_the_mesh_says(panel, monkeypatch, slots):
-    """One device: every chain's problem is built on the device; a mesh of more than one
-    slot builds them on the host, to cut the DP pairs over its slots."""
-    from kaptive_tpu_torch.ops.mapper import map_genes_batch
+def test_extension_problems_are_built_on_the_device_whatever_the_mesh(panel, monkeypatch, slots, emit_cigars):
+    """Every chain's problem is built on the device, on one device and on a mesh of more
+    than one slot (which cuts the DP pairs over its slots); the mesh's alignments, CIGARs
+    included, equal one device's field by field."""
+    from kaptive_tpu_torch.ops.mapper import MapperParams, map_genes_batch
     from kaptive_tpu_torch.parallel import make_mesh
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
     from kaptive_tpu_torch.utils.profiling import reset_phases
@@ -519,13 +539,18 @@ def test_extension_problems_are_built_where_the_mesh_says(panel, monkeypatch, sl
     monkeypatch.setenv("KAPTIVE_PROFILE", "1")
     reset_phases()
     reset_metrics()
+    params = MapperParams(emit_cigars=emit_cigars)
     mesh = make_mesh(devices=[torch.device("cpu")] * slots) if slots > 1 else None
-    got = map_genes_batch(panel.db.gene_index, panel.assemblies, panel.gene_names,
+    got = map_genes_batch(panel.db.gene_index, panel.assemblies, panel.gene_names, params,
                           seed_mode="host", device="cpu", mesh=mesh)
     counts = snapshot()
     reset_phases()
     assert all(len(g) > 0 for g in got)
-    built, other = ("map.problems.device", "map.problems.host") if slots == 1 else \
-        ("map.problems.host", "map.problems.device")
-    assert counts[built] == counts["map.chains"] > 0
-    assert other not in counts
+    assert counts["map.problems.device"] == counts["map.chains"] > 0
+    assert "map.problems.host" not in counts
+    if mesh is not None:
+        want = map_genes_batch(panel.db.gene_index, panel.assemblies, panel.gene_names, params,
+                               seed_mode="host", device="cpu")
+        assert_same(got, want)
+    if emit_cigars:
+        assert all(int(np.sum(g.cigars.lengths)) > 0 for g in got)
