@@ -1,9 +1,10 @@
 r"""Gene-to-assembly mapper: seed, chain, extend (counterpart of :mod:`kaptive_tpu.ops.mapper`).
 
 Two seeding modes, chosen by :func:`resolve_seed_mode` (``KAPTIVE_SEED_MODE``
-or the explicit ``seed_mode=``), give the same rows:
+or the explicit ``seed_mode=``; by default, device seeding on a CUDA device and
+host seeding on the CPU), give the same rows:
 
-- **Host-seeded** (the default): the native C scan in ``csrc/hostio.cpp``
+- **Host-seeded**: the native C scan in ``csrc/hostio.cpp``
   computes each assembly's minimizers and matches them against the DB gene
   table (bloom-gated, bucketed search; the numpy :func:`find_anchors` finds
   the same anchors and is what the tests hold it to); :func:`chain_anchors` chains them on
@@ -20,8 +21,8 @@ or the explicit ``seed_mode=``), give the same rows:
   (:func:`match_rows_batch`) and chained (:func:`chain_batch`) on the device;
   only counts and chain descriptors come back.  The extension problems are
   gathered on the device from the resident streams.  A genome that overflows
-  a device buffer is seeded on the host instead, counted under
-  ``map.host_fallback.<cause>``.
+  a device buffer is seeded on the host instead, through the native C seed
+  (:func:`host_seed_chains`), counted under ``map.host_fallback.<cause>``.
 
 Results are :class:`~kaptive_tpu_torch.core.alignment.Alignments`, equal field
 for field to the JAX package's ``map_genes_batch(..., seed_mode=...)`` in either mode.
@@ -85,15 +86,16 @@ BLOOM_BITS = 27  # membership bitmap size (2^27 bits = 16 MB)
 # Device-seeded buffers, per genome; a genome that overflows one is seeded on
 # the host, counted by cause.  Sized for locus databases of conserved gene
 # families, whose copies in every locus all anchor on a genome's one member:
-# a complete 5.3 Mb genome against 140 loci of 8 families has ~25,000 anchors
-# and ~12,000 candidates, against 241 loci ~48,000 and ~17,000, and up to
-# ~3,900 chains (twice the JAX package's capacities, four times its anchors).
+# a complete 5.3 Mb genome against 140 loci of 8 families has ~25,000 anchors,
+# ~12,000 candidates and ~5,300 chains (~1,000 kept); a 4.0 Mb draft of up to
+# 200 contigs against 241 loci up to ~57,000 anchors and ~8,800 chains (~2,050
+# kept), which is what sets ANCHOR_CAP and CHAIN_CAP at twice that.
 CANDIDATE_CAP = 1 << 15  # bloom-surviving minimizers
-ANCHOR_CAP = 1 << 16  # anchors
+ANCHOR_CAP = 1 << 17  # anchors
 FOLD_ROWS = 16  # 128-position scan rows folded into one 1024-lane row
 FOLD_SLOTS = 512  # live capacity per folded row (lambda ~ 373, P(X > 512) ~ 1e-12)
-CHAIN_CAP = 1 << 13  # chains
-CHAIN_PREFIX = 512  # chain rows pulled with the counts (the full buffer past this)
+CHAIN_CAP = 1 << 14  # chains
+CHAIN_PREFIX = 4096  # kept chain rows pulled with the counts (the full buffer past this)
 _U32 = 0xFFFFFFFF
 _BIG = 0x7FFFFFFF
 _EXC_PAD = 0x40000000  # exception-list padding: past every stream, dropped by the unpack
@@ -273,20 +275,22 @@ def find_anchors(gene_index: GeneIndex, contig_mins: MinimizerSet, params: Mappe
     return g_idx, g_pos, c_idx, c_pos, rel_strand
 
 
-def resolve_seed_mode(requested: str | None = None) -> str:
+def resolve_seed_mode(requested: str | None = None, device: torch.device | str | None = None) -> str:
     r"""The seeding mode, ``"host"`` or ``"device"``.
 
     ``requested`` (or else ``KAPTIVE_SEED_MODE``) may be ``"host"``,
-    ``"device"`` or ``"auto"`` (the default).  ``auto`` is host seeding (the
-    JAX package's choice on an accelerator; the port always has its native
-    seeding library).  Any other value raises.
+    ``"device"`` or ``"auto"`` (the default).  ``auto`` seeds on the card
+    where ``device``, the device the batch is mapped on, is CUDA: there the
+    scan kernel and the torch match and chain cost a few ms of launches a
+    request against the C seed's tens of ms on one host thread.  On the CPU,
+    or with no device given, ``auto`` is host seeding.  Any other value raises.
     """
     mode = requested or os.environ.get("KAPTIVE_SEED_MODE", "auto")
     if mode in ("host", "device"):
         return mode
     if mode != "auto":
         raise ValueError(f"seed mode {mode!r}: expected 'host', 'device' or 'auto'")
-    return "host"
+    return "device" if device is not None and torch.device(device).type == "cuda" else "host"
 
 
 def host_seed_chains(gene_index: GeneIndex, contig_index: ContigIndex, params: MapperParams) -> dict:
@@ -1045,21 +1049,29 @@ def collect_extension_dp_device(pending) -> tuple[PairwiseAlignments, Cigars | N
 # its two int64 outputs at half width (8), the bool masks and the broadcast
 # row index (~10).
 _SLOT_BYTES = 66
-# Bytes for each slot of the fixed-capacity candidate and anchor lists: the
-# ~20 int64 columns that matching and the five chain sorts keep at once.
+# Bytes for each slot of the fixed-capacity candidate list: the ~20 int64
+# columns of the flat expansion and the bucketed search.
 _ENTRY_BYTES = 160
+# Bytes for each anchor slot of one table shard at chaining: the matched
+# anchors and their concatenation over shards, the ~20 int64 columns that the
+# five sorts and the chain breaks keep at once, the segment ids (~240: a chunk
+# of 2 genomes against 2 shards peaked at 124.6 MB over 2 x 2 x 131,072 slots,
+# NVIDIA H100).
+_ANCHOR_BYTES = 240
 
 
-def genome_footprint(L: int) -> int:
-    r"""Device bytes that scan, match and chain need for one genome of padded stream length ``L``."""
+def genome_footprint(L: int, shards: int = 1) -> int:
+    r"""Device bytes that scan, match and chain need for one genome of padded stream length ``L``,
+    matched against a table cut into ``shards`` (whose anchors are chained together)."""
     rows = (L + 2 * PAD_POS) // ROW
-    return rows * (ROW + SLOTS * _SLOT_BYTES) + (CANDIDATE_CAP + ANCHOR_CAP) * _ENTRY_BYTES
+    return (rows * (ROW + SLOTS * _SLOT_BYTES) + CANDIDATE_CAP * _ENTRY_BYTES
+            + shards * ANCHOR_CAP * _ANCHOR_BYTES)
 
 
-def seeding_chunk(L: int, n_genomes: int, device: torch.device, slots: int = 1) -> int:
+def seeding_chunk(L: int, n_genomes: int, device: torch.device, slots: int = 1, shards: int = 1) -> int:
     r"""Genomes a device-seeding chunk holds: half the card's free memory, shared
-    by the ``slots`` mesh slots placed on the card, over :func:`genome_footprint`,
-    at least 1; the whole batch on the CPU.
+    by the ``slots`` mesh slots placed on the card, over :func:`genome_footprint`
+    against ``shards`` table shards, at least 1; the whole batch on the CPU.
 
     The other half is left for the flattened stream of the batch, the
     extension DP and the caching allocator's slack.
@@ -1067,7 +1079,17 @@ def seeding_chunk(L: int, n_genomes: int, device: torch.device, slots: int = 1) 
     if device.type != "cuda":
         return max(n_genomes, 1)
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1, min(n_genomes, free // 2 // slots // genome_footprint(L)))
+    return max(1, min(n_genomes, free // 2 // slots // genome_footprint(L, shards)))
+
+
+def _overflows(counts: np.ndarray) -> dict[str, np.ndarray]:
+    r"""Each fallback cause's (B,) mask over :func:`chain_batch`'s ``counts`` (6, B) on the host."""
+    return {
+        "row_overflow": counts[3] > 0,
+        "candidates": counts[1] > CANDIDATE_CAP,
+        "anchors": counts[2] > ANCHOR_CAP,
+        "chains": counts[4] > CHAIN_CAP,
+    }
 
 
 def _device_chains(counts: np.ndarray, chains: np.ndarray, b: int, contig_index: ContigIndex,
@@ -1076,24 +1098,17 @@ def _device_chains(counts: np.ndarray, chains: np.ndarray, b: int, contig_index:
     ``chains`` (B, 10, n) pulled to the host.
 
     A genome whose scan row, fold row, candidate, anchor or chain buffer
-    overflowed is seeded on the host instead (:func:`find_anchors` +
-    :func:`chain_anchors`), counted under ``map.host_fallback.<cause>`` and
-    ``map.host_chained``; the others under ``map.device_chained``.
+    overflowed is seeded on the host instead, through the native C seed
+    (:func:`host_seed_chains`: the same anchors, so the same chains), counted
+    under ``map.host_fallback.<cause>`` and ``map.host_chained``; the others
+    under ``map.device_chained``.
     """
-    causes = {
-        "row_overflow": counts[3, b] > 0,
-        "candidates": counts[1, b] > CANDIDATE_CAP,
-        "anchors": counts[2, b] > ANCHOR_CAP,
-        "chains": counts[4, b] > CHAIN_CAP,
-    }
-    if any(causes.values()):
-        for cause, hit in causes.items():
-            if hit:
-                count(f"map.host_fallback.{cause}")
+    causes = [cause for cause, hit in _overflows(counts[:, b : b + 1]).items() if hit[0]]
+    if causes:
+        for cause in causes:
+            count(f"map.host_fallback.{cause}")
         count("map.host_chained")
-        return chain_anchors(
-            *find_anchors(gene_index, contig_index.minimizers, params), gene_index.lengths, gene_index.k, params
-        )
+        return host_seed_chains(gene_index, contig_index, params)
     count("map.device_chained")
     arr = chains[b].astype(np.int64)
     return {f: arr[i][: counts[5, b]] for i, f in enumerate(_CHAIN_FIELDS)}
@@ -1137,6 +1152,63 @@ def seed_chunk(codes: torch.Tensor, starts: torch.Tensor, shards: list, gene_ind
     )
 
 
+# One-genome seeding graphs a gene index keeps, the least recently used dropped first.  Each holds
+# a private memory pool of about one genome's seeding (under genome_footprint of its length), so
+# the graphs of one gene index hold at most _SEED_GRAPHS of those.
+_SEED_GRAPHS = 8
+
+
+def _seed_one_graphed(codes: torch.Tensor, starts: torch.Tensor, shards: list, gene_index: GeneIndex,
+                      params: MapperParams) -> tuple[torch.Tensor, torch.Tensor]:
+    r""":func:`seed_chunk` of one genome on a card, replayed from a CUDA graph.
+
+    At batch 1 the scan, match and chain are ~430 small launches whose host
+    time is several times the card's; so the chunk is captured once for each
+    padded stream length and replayed: a copy of the stream and of the contig
+    starts into the graph's inputs (the starts padded with ``2^31 - 1``, which
+    no position reaches, to a power of two of at least 256), one launch.  The
+    outputs are the graph's own buffers, valid until its next replay.
+    """
+    from kaptive_tpu_torch.ops.scan_cuda import rowcompact_counter
+
+    width = max(256, 1 << (starts.shape[1] - 1).bit_length())
+    key = (str(codes.device), tuple(codes.shape), width, params.max_occ, params.max_diag_drift,
+           params.max_anchor_gap, params.min_anchors, CANDIDATE_CAP, ANCHOR_CAP, CHAIN_CAP)
+    graphs = gene_index._cache.setdefault("seed_graphs", {})
+    entry = graphs.pop(key, None)
+    if entry is None:
+        while len(graphs) >= _SEED_GRAPHS:
+            graphs.pop(next(iter(graphs)))
+        entry = [None, torch.empty_like(codes), codes.new_empty((1, width), dtype=torch.int64), None]
+    graphs[key] = entry  # the most recently used last
+    in_codes, in_starts = entry[1], entry[2]
+    in_codes.copy_(codes)
+    in_starts.fill_(_BIG)
+    in_starts[:, : starts.shape[1]] = starts
+    if entry[0] is None:
+        entry[0], entry[3] = _capture_seed(in_codes, in_starts, shards, gene_index, params)
+    entry[0].replay()
+    count(rowcompact_counter(gene_index.k, gene_index.w))
+    count("map.seed_graph")
+    return entry[3]
+
+
+def _capture_seed(codes, starts, shards: list, gene_index: GeneIndex, params: MapperParams):
+    r"""``(graph, outputs)`` of :func:`seed_chunk` captured over the input buffers ``codes`` and
+    ``starts`` on their card, after one run outside the capture (lazy loads, sort workspaces)."""
+    dev = codes.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        seed_chunk(codes, starts, shards, gene_index, params)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = seed_chunk(codes, starts, shards, gene_index, params)
+    count("map.seed_graph.capture")
+    return graph, out
+
+
 def _map_genes_device_seeded(
     gene_index: GeneIndex, genomes: list, indexes: list,
     gene_names: tuple[str, ...], params: MapperParams, device: torch.device,
@@ -1150,19 +1222,21 @@ def _map_genes_device_seeded(
 
     Device memory of the seeding stages is bounded by one chunk whatever the
     batch, as the JAX package's fixed chunks bound it (``SCAN_CHUNK``); the
-    alignments do not depend on the chunk size.  A genome that overflowed a
-    device buffer is seeded on the host (:func:`_device_chains`); either way
-    its extension problems are gathered from the device stream.
+    alignments do not depend on the chunk size.  On a card a batch of one
+    genome replays a captured graph (:func:`_seed_one_graphed`).  A genome that
+    overflowed a device buffer is seeded on the host (:func:`_device_chains`);
+    either way its extension problems are gathered from the device stream.
     """
     n_genomes = len(genomes)
     L = max(int(ci.codes.shape[0]) for ci in indexes)
     chunk = chunk or seeding_chunk(L, n_genomes, device)
     shards = [(device, gene_index.seed_table(device))]
-    padded, chain_parts, count_parts = None, [], []
-    for lo in range(0, n_genomes, chunk):
-        hi = min(lo + chunk, n_genomes)
-        with phase_timer("map.pack_upload"):
+    bounds = [(lo, min(lo + chunk, n_genomes)) for lo in range(0, n_genomes, chunk)]
+    padded, chunk_starts, chain_parts, count_parts = None, [], [], []
+    with phase_timer("map.pack_upload"):
+        for lo, hi in bounds:
             codes, starts = _batch_codes(indexes[lo:hi], L, device)
+            chunk_starts.append(starts)
             if hi - lo == n_genomes:
                 padded = codes
             else:
@@ -1170,20 +1244,28 @@ def _map_genes_device_seeded(
                     padded = codes.new_empty((n_genomes, *codes.shape[1:]))
                 padded[lo:hi] = codes
                 del codes
+    # The card's seeding, from the resident streams to the chains on the host.
+    with phase_timer("map.seed_device") as seed_span:
         with phase_timer("map.scan_match"):
-            chains_d, counts_d = seed_chunk(padded[lo:hi], starts, shards, gene_index, params)
-            chain_parts.append(chains_d)
-            count_parts.append(counts_d)
-    chains_d, counts_d = torch.cat(chain_parts), torch.cat(count_parts, 1)
-    with phase_timer("map.scan_sync"):
-        prefix = min(CHAIN_PREFIX, CHAIN_CAP)
-        pulled = torch.cat([counts_d.reshape(-1), chains_d[:, :, :prefix].reshape(-1)]).cpu().numpy()
-        counts_np = pulled[: counts_d.numel()].reshape(6, n_genomes).astype(np.int64)
-        chains_np = pulled[counts_d.numel():].reshape(n_genomes, len(_CHAIN_FIELDS), prefix)
-        n_kept = counts_np[5]
-        if int(n_kept.max(initial=0)) > prefix:
-            count("map.chain_prefix_miss")
-            chains_np = chains_d.cpu().numpy()
+            # A graph's outputs are overwritten by its next replay, so only a batch of one replays one.
+            seed = _seed_one_graphed if device.type == "cuda" and n_genomes == 1 else seed_chunk
+            for (lo, hi), starts in zip(bounds, chunk_starts):
+                chains_d, counts_d = seed(padded[lo:hi], starts, shards, gene_index, params)
+                chain_parts.append(chains_d)
+                count_parts.append(counts_d)
+            chains_d, counts_d = torch.cat(chain_parts), torch.cat(count_parts, 1)
+        with phase_timer("map.scan_sync"):
+            pulled = torch.cat([counts_d.reshape(-1), chains_d[:, :, :CHAIN_PREFIX].reshape(-1)]).cpu().numpy()
+            counts_np = pulled[: counts_d.numel()].reshape(6, n_genomes).astype(np.int64)
+            chains_np = pulled[counts_d.numel():].reshape(n_genomes, len(_CHAIN_FIELDS), -1)
+            if int(counts_np[5].max(initial=0)) > chains_np.shape[-1]:
+                count("map.chain_prefix_miss")
+                chains_np = chains_d.cpu().numpy()
+    if seed_span:
+        n_host = int(np.any(list(_overflows(counts_np).values()), axis=0).sum())
+        seed_span.add("map.device_seeded", n_genomes - n_host)
+        if n_host:
+            seed_span.add("map.host_fallback", n_host)
 
     with phase_timer("map.problems"):
         all_chains = []
@@ -1239,14 +1321,13 @@ def map_genes_batch(
     ``indexes`` are the assemblies' :class:`ContigIndex` objects (built here
     when not given; the streaming pipeline builds them on its ingest pool,
     pre-seeded in host mode and pre-uploaded in device mode).  ``seed_mode``
-    is resolved by :func:`resolve_seed_mode`; both modes give the same
-    alignments.  A ``mesh`` of more than one slot
+    is resolved by :func:`resolve_seed_mode` on ``device``; both modes give the
+    same alignments.  A ``mesh`` of more than one slot
     (:func:`~kaptive_tpu_torch.parallel.mesh.make_mesh`) seeds on the mesh
     whatever the seed mode, as the JAX package does: assemblies over its
     ``data`` axis, the gene table over its ``model`` axis, the DP pairs over
     every slot; the alignments are the same.
     """
-    mode = resolve_seed_mode(seed_mode)
     params = params or MapperParams()
     n_genomes = len(genomes)
     if n_genomes == 0:
@@ -1255,11 +1336,13 @@ def map_genes_batch(
         indexes = [ContigIndex.build(g.contigs) for g in genomes]
     if len(gene_index.minimizers.hashes) == 0:  # empty DB gene table
         return [Alignments.empty() for _ in range(n_genomes)]
+    device = resolve_device(device)
+    mode = resolve_seed_mode(seed_mode, device)
     if sharded(mesh):
-        return _map_genes_sharded(gene_index, genomes, indexes, gene_names, params, mesh, resolve_device(device))
+        return _map_genes_sharded(gene_index, genomes, indexes, gene_names, params, mesh, device)
     if mode == "device":
-        return _map_genes_device_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
-    return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, resolve_device(device))
+        return _map_genes_device_seeded(gene_index, genomes, indexes, gene_names, params, device)
+    return _map_genes_host_seeded(gene_index, genomes, indexes, gene_names, params, device)
 
 
 def map_genes(

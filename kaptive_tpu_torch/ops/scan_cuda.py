@@ -156,8 +156,14 @@ def rowcompact_scan_cuda(codes_padded: torch.Tensor, k: int, w: int):
                     break
     if rc != 0:
         raise RuntimeError(f"row-compact scan kernel launch failed ({form} form, k={k}, w={w}): CUDA error {rc}")
-    count("scan.cuda.rowcompact" + _COUNTER_SUFFIX[form])
+    if not torch.cuda.is_current_stream_capturing():  # a graph's launches are counted as it replays
+        count(rowcompact_counter(k, w))
     return hashes, aux, counts
+
+
+def rowcompact_counter(k: int, w: int) -> str:
+    r"""The counter a row-compact scan launch of ``(k, w)`` adds to: ``scan.cuda.rowcompact`` and its form's suffix."""
+    return "scan.cuda.rowcompact" + _COUNTER_SUFFIX[scan_form(k, w)]
 
 
 def minimizer_scan_cuda(codes: torch.Tensor, k: int, w: int):

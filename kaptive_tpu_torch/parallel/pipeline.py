@@ -2,7 +2,7 @@ r"""Streaming batch typing: host ingest overlapped with device compute.
 
 Counterpart of :mod:`kaptive_tpu.parallel.pipeline`.  A thread pool parses
 each assembly and builds its :class:`ContigIndex` while the card works on the
-batch before; then, by :func:`resolve_seed_mode`:
+batch before; then, by :func:`resolve_seed_mode` on the serotyper's device:
 
 - host seeding: the pool seeds and chains the assembly against the DB gene
   table (the native C scan releases the GIL);
@@ -155,7 +155,7 @@ def stream_type(
     """
     if sharded(getattr(serotyper, "mesh", None)):
         batches = _ingest(genomes, batch_size, prefetch_batches, max_workers, True, None, None)
-    elif resolve_seed_mode() == "host":
+    elif resolve_seed_mode(device=serotyper.device) == "host":
         gene_index = serotyper.gene_index
         mp = serotyper.mapper_params
         gene_index.host_bloom  # build once before the pool fans out

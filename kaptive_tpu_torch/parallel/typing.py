@@ -177,7 +177,8 @@ def sharded_scan_match_chain(
 
     Data row ``d`` takes its slice of ``indexes`` (:func:`_row_slices`) in
     chunks sized by :func:`~kaptive_tpu_torch.ops.mapper.seeding_chunk` on
-    the row's devices, each card's free memory shared by its slots.  A chunk
+    the row's devices, each card's free memory shared by its slots, a genome's
+    anchors counted once for each table shard (they are chained together).  A chunk
     is unpacked on the row's first device and goes through
     :func:`~kaptive_tpu_torch.ops.mapper.seed_chunk` with the row's table
     shards, model slot ``s`` holding shard ``s``.  The caps are the
@@ -193,7 +194,7 @@ def sharded_scan_match_chain(
             continue
         devs = list(mesh.devices[d])
         shards = [(dev, table.shard(gene_index, s, dev)) for s, dev in enumerate(devs)]
-        size = min(seeding_chunk(length, len(row), dev, mesh.slots_on(dev)) for dev in set(devs))
+        size = min(seeding_chunk(length, len(row), dev, mesh.slots_on(dev), len(shards)) for dev in set(devs))
         for lo in range(0, len(row), size):
             codes, starts = _batch_codes(row[lo : lo + size], length, devs[0])
             chains, counts = seed_chunk(codes, starts, shards, gene_index, params)

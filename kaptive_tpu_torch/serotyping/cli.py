@@ -196,7 +196,7 @@ class Type(Command):
             "--seed-mode", choices=("auto", "host", "device"), default=None, metavar="",
             help="Where the mapper's seed/chain stages run: 'host' = native C scan "
             "on the ingest pool, 'device' = minimizer scan kernel, table match and chaining "
-            "on the card, 'auto' = host "
+            "on the card, 'auto' = device on a CUDA device, host on the CPU "
             "(default: auto; both modes produce identical results)",
         )
         opts.add_argument(

@@ -159,7 +159,7 @@ class Serotyper:
         ``indexes`` are the assemblies' contig indexes when the caller built
         them (the streaming pipeline does, on its ingest pool, with chains
         pre-seeded or streams pre-uploaded); otherwise they are built here.
-        The seeding mode is :func:`resolve_seed_mode`'s.
+        The seeding mode is :func:`resolve_seed_mode`'s on the serotyper's device.
         """
         if len(genomes) == 0:
             return [], []
@@ -171,7 +171,7 @@ class Serotyper:
             with phase_timer("type.map"):
                 alns_list = map_genes_batch(
                     self._gene_index, assemblies, self._gene_names, self.mapper_params,
-                    indexes=indexes, seed_mode=resolve_seed_mode(), device=self.device, mesh=self.mesh,
+                    indexes=indexes, seed_mode=resolve_seed_mode(device=self.device), device=self.device, mesh=self.mesh,
                 )
         return assemblies, alns_list
 

@@ -524,6 +524,65 @@ def test_device_seeded_serotyper_on_card_equals_host(scan_device, monkeypatch, t
     assert counts.get("map.device_chained") == 2 * len(genomes)
 
 
+@pytest.mark.parametrize("config, traffic, n_contigs", [("ab_k", "drafts_single", 200), ("kpsc_k", "complete_batch64", 1)])
+def test_auto_seeds_a_request_of_a_real_database_shape_on_the_card(scan_device, monkeypatch, tmp_path,
+                                                                    config, traffic, n_contigs):
+    """With no seed mode set, one request on the card is seeded there: a 4.0 Mb draft of 200 contigs
+    against the 241 loci of ``ab_k`` (the most chains a request of the benchmark brings) and a complete
+    5.3 Mb genome against ``kpsc_k``.  Each is chained on the card with no host fallback, and its row
+    equals host seeding's."""
+    import json
+    import sys
+    from pathlib import Path
+
+    import kaptive_tpu_torch  # noqa: F401  (first: keeps the JAX package's jax imports out)
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.db import Database
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.serotyping import Serotyper
+    from kaptive_tpu_torch.serotyping.io import KaptiveRow
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    bench = Path(__file__).resolve().parent.parent / "benchmark"
+    if str(bench) not in sys.path:
+        sys.path.insert(0, str(bench))
+    from kbench import gen
+
+    cfg = json.loads((bench / "configs" / f"{config}.json").read_text())
+    kind = json.loads((bench / "traffic" / f"{traffic}.json").read_text())["classes"][-1]
+    rng_db, rng_asm = gen.seed_streams(2**31 + 24, 2)
+    synthetic = gen.make_database(cfg, rng_db)
+    gbk = tmp_path / f"{config}.gbk"
+    gbk.write_text(synthetic.genbank)
+    gbk.with_suffix(".toml").write_text(synthetic.toml)
+    db = Database.from_genbank(gbk)
+    asm = gen.make_assembly(rng_asm, "g0", kind, n_contigs, synthetic.loci[0], cfg["genome_nt"])
+    monkeypatch.delenv("KAPTIVE_SEED_MODE", raising=False)
+    serotyper = Serotyper(db, device="cuda")
+
+    ci = ContigIndex.build(GenomeAssembly.from_stream(io.BytesIO(asm.fasta), asm.name).contigs)
+    codes, starts = tm._batch_codes([ci], len(ci.codes), scan_device)
+    _, counts = tm.seed_chunk(codes, starts, [(scan_device, serotyper.gene_index.seed_table(scan_device))],
+                              serotyper.gene_index, serotyper.mapper_params)
+    minimizers, candidates, anchors, overflow, raw, kept = counts[:, 0].tolist()
+    print(f"{config}, {n_contigs} contigs: {minimizers} minimizers, {candidates} candidates (cap "
+          f"{tm.CANDIDATE_CAP}), {anchors} anchors (cap {tm.ANCHOR_CAP}), {raw} chains (cap {tm.CHAIN_CAP}), "
+          f"{kept} kept (prefix {tm.CHAIN_PREFIX})")
+
+    serotyper.batch([io.BytesIO(asm.fasta)])  # captures the shape's seeding graph
+    reset_metrics()
+    [auto] = serotyper.batch([io.BytesIO(asm.fasta)])
+    seen = snapshot()
+    assert seen.get("map.device_chained") == 1 and seen.get("scan.cuda.rowcompact") == 1, seen
+    assert seen.get("map.seed_graph") == 1 and "map.seed_graph.capture" not in seen, seen
+    assert not any(key.startswith(("map.host_", "map.chain_prefix_miss")) for key in seen), seen
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "host")
+    [host] = serotyper.batch([io.BytesIO(asm.fasta)])
+    assert auto.best_locus_name == host.best_locus_name == synthetic.loci[0].name
+    assert bytes(KaptiveRow.from_result(auto)) == bytes(KaptiveRow.from_result(host))
+
+
 @pytest.mark.parametrize("kind", CIGAR_PANELS)
 def test_cigar_kernel_equals_plain(device, kind):
     from kaptive_tpu_torch.ops.swg import fill_band_plain, traceback_cigar_plain
@@ -1073,6 +1132,39 @@ def _seed_peak(db, genomes, indexes, chunk):
     return out, torch.cuda.max_memory_allocated() - base
 
 
+def test_one_genome_seeding_replays_a_graph_equal_to_seed_chunk(seeding_batch):
+    """At batch 1 on the card the scan, match and chain replay a captured CUDA graph: on one genome cut
+    into 1 to 300 contigs (two widths of padded contig starts) every output buffer equals
+    ``seed_chunk``'s launched eagerly, each shape is captured once, and each replay counts one scan."""
+    from kaptive_tpu_torch.core.genome import GenomeAssembly
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    db, genomes, _ = seeding_batch
+    gi, params, dev = db.gene_index, tm.MapperParams(), torch.device("cuda", 0)
+    shards = [(dev, gi.seed_table(dev))]
+    seq = genomes[0].contigs.seqs.tobytes()
+    indexes = []
+    for n in (1, 7, 200, 300, 3):
+        cuts = np.linspace(0, len(seq), n + 1).astype(int)
+        fasta = b"".join(b">c%d\n%s\n" % (j, seq[cuts[j] : cuts[j + 1]]) for j in range(n))
+        indexes.append(ContigIndex.build(GenomeAssembly.from_stream(io.BytesIO(fasta), f"cut{n}").contigs))
+    shapes = {(len(ci.codes), max(256, 1 << (len(ci.starts) - 1).bit_length())) for ci in indexes}
+    gi._cache.pop("seed_graphs", None)
+    reset_metrics()
+    for ci in indexes:
+        codes, starts = tm._batch_codes([ci], len(ci.codes), dev)
+        want = tm.seed_chunk(codes, starts, shards, gi, params)
+        got = tm._seed_one_graphed(codes, starts, shards, gi, params)
+        assert int(want[1][5, 0]) > 0, len(ci.starts)
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w), len(ci.starts)
+    seen = snapshot()
+    assert seen["map.seed_graph"] == len(indexes) and seen["map.seed_graph.capture"] == len(shapes) >= 2
+    assert seen["scan.cuda.rowcompact"] == 2 * len(indexes) + len(shapes)  # eager, replays, capture warm-ups
+
+
 @pytest.mark.parametrize("chunk", ["sized", 4])
 def test_seeding_peak_memory_does_not_grow_past_one_chunk(seeding_batch, chunk):
     """Peak memory at stream batches 8 and 32 differs by less than one chunk's worth, with
@@ -1107,6 +1199,31 @@ def test_seeding_batch_of_64_completes_and_chunks_agree(seeding_batch):
     assert len(whole) == 64 and all(len(a) > 0 for a in whole)
     for got, want in zip(chunked, whole, strict=True):
         assert_same(got, want)
+
+
+def test_seeding_in_chunks_of_one_genome_keeps_each_genomes_alignments(seeding_batch):
+    """Four different genomes seeded one a chunk on the card each keep their own alignments: equal to
+    the unchunked batch's and to host seeding's.  No chunk of a larger batch replays the one-genome
+    graph, whose outputs its next replay would overwrite."""
+    from typing_panel import assert_same
+
+    from kaptive_tpu_torch.ops.mapper import MapperParams, _map_genes_host_seeded
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    db, genomes, indexes = seeding_batch
+    genomes, indexes = genomes[:4], indexes[:4]
+    names = tuple(str(i) for i in range(len(db.genes)))
+    host = _map_genes_host_seeded(db.gene_index, genomes, indexes, names, MapperParams(), torch.device("cuda", 0))
+    whole, _ = _seed_peak(db, genomes, indexes, None)
+    reset_metrics()
+    single, _ = _seed_peak(db, genomes, indexes, 1)
+    seen = snapshot()
+    assert len({(a.q_name_ids.tobytes(), a.scores.tobytes()) for a in host}) == 4  # the genomes differ
+    for got, want, ref in zip(single, whole, host, strict=True):
+        assert len(ref) > 0
+        assert_same(got, want)
+        assert_same(got, ref)
+    assert seen.get("map.device_chained") == 4 and "map.seed_graph" not in seen, seen
 
 
 # --- the mesh: four slots of one card -----------------------------------------

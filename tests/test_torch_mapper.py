@@ -212,6 +212,7 @@ def test_seeding_chunk_is_the_whole_batch_on_the_cpu():
 
     assert seeding_chunk(1 << 20, 7, torch.device("cpu")) == 7
     assert genome_footprint(1 << 21) > genome_footprint(1 << 20) > genome_footprint(0) > 0
+    assert genome_footprint(1 << 20, 2) > genome_footprint(1 << 20)  # each shard's anchors are chained together
 
 
 @pytest.mark.parametrize("seed_mode", ["host", "device"])
@@ -273,6 +274,29 @@ def test_device_mode_fallbacks_keep_host_rows(panel, monkeypatch, cause):
         assert_same(g, h)
 
 
+def test_a_chain_overflow_falls_back_through_the_c_seed(panel, monkeypatch):
+    """A genome whose raw chains overflow ``CHAIN_CAP`` is seeded again by the native C seed, not by
+    numpy's minimizer scan: ``map.host_seed.native`` and ``map.host_fallback.chains`` are counted once
+    a genome, and the alignments equal host mode's."""
+    from kaptive_tpu_torch.ops import mapper as tm
+    from kaptive_tpu_torch.ops.minimizer import ContigIndex
+    from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
+
+    names, gi, assemblies = panel.gene_names, panel.db.gene_index, panel.assemblies
+    want = tm.map_genes_batch(gi, assemblies, names, seed_mode="host", device="cpu")
+    monkeypatch.setattr(tm, "CHAIN_CAP", 4)
+    monkeypatch.setattr(ContigIndex, "minimizers", property(lambda self: pytest.fail("numpy minimizer scan")))
+    reset_metrics()
+    got = tm.map_genes_batch(gi, assemblies, names, seed_mode="device", device="cpu")
+    counts = snapshot()
+    n = len(assemblies)
+    assert counts.get("map.host_fallback.chains") == counts.get("map.host_seed.native") == n, counts
+    assert counts.get("map.host_chained") == n and "map.device_chained" not in counts
+    for g, w in zip(got, want, strict=True):
+        assert len(w) > 0
+        assert_same(g, w)
+
+
 FAMILY_RICH = {
     "name": "family_rich", "db_name": "Family_rich_synthetic", "organism": "Testus syntheticus", "taxon": 12345,
     "gene_nt": [2100, 2400], "spacer_nt": [80, 200], "tail_nt": 150,
@@ -326,17 +350,30 @@ def test_a_family_rich_genome_is_chained_on_the_device(tmp_path):
     assert_same(got, want)
 
 def test_resolve_seed_mode(monkeypatch):
+    """``auto`` seeds on the card where the batch is mapped on a CUDA device, on the host on the CPU or
+    with no device named (no card is needed to name a CUDA device); ``host`` and ``device`` override."""
     from kaptive_tpu_torch.ops.mapper import resolve_seed_mode
 
     monkeypatch.delenv("KAPTIVE_SEED_MODE", raising=False)
-    assert resolve_seed_mode() == "host"  # auto: the port always has its native library
+    assert resolve_seed_mode() == "host"
+    assert resolve_seed_mode(device=None) == "host"
+    assert resolve_seed_mode(device=torch.device("cpu")) == "host"
+    assert resolve_seed_mode("auto", "cpu") == "host"
+    assert resolve_seed_mode(device=torch.device("cuda")) == "device"
+    assert resolve_seed_mode("auto", torch.device("cuda", 1)) == "device"
     assert resolve_seed_mode("device") == "device"
+    assert resolve_seed_mode("host", torch.device("cuda")) == "host"
     monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
     assert resolve_seed_mode() == "device"
+    assert resolve_seed_mode(device=torch.device("cpu")) == "device"
     assert resolve_seed_mode("host") == "host"
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "host")
+    assert resolve_seed_mode(device=torch.device("cuda")) == "host"
     monkeypatch.setenv("KAPTIVE_SEED_MODE", "gpu")
     with pytest.raises(ValueError, match="seed mode"):
         resolve_seed_mode()
+    with pytest.raises(ValueError, match="seed mode"):
+        resolve_seed_mode(device=torch.device("cuda"))
 
 
 @pytest.mark.parametrize("seeded", [False, True])

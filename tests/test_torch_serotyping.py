@@ -171,6 +171,28 @@ def test_device_mode_batch_equals_jax_and_host(panel, jax_results, jax_device_re
     assert not any(key.startswith(("map.host_seed", "map.host_fallback")) for key in counts)
 
 
+def test_device_seeding_span_counts_the_assemblies_seeded_on_the_device(panel, port_serotyper, monkeypatch):
+    """A traced device-seeded batch opens one ``map.seed_device`` in ``type.map``, over the scan and
+    match and the copy back; its counter ``map.device_seeded``, added once it closes, is the batch size,
+    and no assembly is counted under ``map.host_fallback``."""
+    from kaptive_tpu_torch.utils.profiling import recording, reset_phases
+
+    monkeypatch.setenv("KAPTIVE_SEED_MODE", "device")
+    monkeypatch.setenv("KAPTIVE_PROFILE", "1")
+    reset_phases()
+    try:
+        got = port_serotyper.batch(list(panel[1]))
+        spans = recording()[1]
+    finally:
+        reset_phases()
+    assert [r.best_locus_name for r in got] == TRUTH
+    [seed] = [s for s in spans if s.name == "map.seed_device"]
+    assert seed.parent is not None and seed.parent.name == "type.map"
+    assert seed.counts == {"map.device_seeded": len(got)}
+    assert {s.name for s in spans if s.parent is seed} == {"map.scan_match", "map.scan_sync"}
+    assert not any(s.name in ("map.seed", "map.chain") for s in spans)
+
+
 def test_device_mode_stream_type_equals_jax(panel, jax_results, jax_device_results, port_serotyper, monkeypatch):
     """The ingest pool pre-uploads instead of pre-seeding: no chains are left on the indexes."""
     from kaptive_tpu_torch.utils.metrics import reset_metrics, snapshot
